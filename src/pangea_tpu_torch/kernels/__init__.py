@@ -1,0 +1,26 @@
+"""Device functions of the port: each has a plain PyTorch version and a
+wrapper that launches a hand-written CUDA kernel on CUDA tensors."""
+from .encode import extract_kmers
+from .lookup import hash32, lookup_q8, lookup_q8_plain, mix32
+from .minimize import extract_probes, extract_probes_plain, select_minimizers
+from .score import score_reads_tin, score_reads_tin_plain
+
+# The kernel wrappers, whose `launches` attribute counts kernel launches.
+KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
+           "score_tin": score_reads_tin}
+
+
+def kernel_launches() -> dict:
+    """Launch count of every kernel wrapper, by kernel name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_kernel_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "extract_kmers", "extract_probes",
+           "extract_probes_plain", "hash32", "kernel_launches", "lookup_q8",
+           "lookup_q8_plain", "mix32", "reset_kernel_launches",
+           "score_reads_tin", "score_reads_tin_plain", "select_minimizers"]

@@ -1,0 +1,83 @@
+"""The port's classify CLI against the JAX CLI on the same files (CPU)."""
+import json
+import os
+
+import pytest
+
+from pangea_tpu import cli as ref_cli
+from pangea_tpu.utils import datagen
+from pangea_tpu_torch import cli
+
+from .helpers import small_world
+
+
+@pytest.fixture(scope="module")
+def testdata(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    tax, _, idx, rs = small_world(k=21, seed=4, genome_len=3000, n_reads=150,
+                                  read_len=120, paired=True, w=8)
+    idx.save(str(d / "idx"))
+    datagen.write_fastq(str(d / "a_1.fastq"), rs, mate=1)
+    datagen.write_fastq(str(d / "a_2.fastq"), rs, mate=2)
+    half = datagen.ReadSet(ids=rs.ids[:60], seqs=rs.seqs[:60], mates=None,
+                           truth=rs.truth[:60])
+    datagen.write_fastq(str(d / "b.fastq"), half, mate=1)
+    return d
+
+
+@pytest.mark.parametrize("reads", [
+    ["--reads", "a_1.fastq", "--mates", "a_2.fastq", "--samples", "s"],
+    ["--reads", "a_1.fastq", "b.fastq"],
+], ids=["paired", "two_single_files"])
+def test_cli_outputs_byte_identical_to_jax(testdata, tmp_path, monkeypatch,
+                                           reads):
+    d = testdata
+    monkeypatch.setenv("PANGEA_NO_NATIVE", "1")  # the reference's general path
+    args = ["classify", "--index", str(d / "idx"),
+            *[str(d / a) if a.endswith(".fastq") else a for a in reads],
+            "input.batch_size=64", "input.max_read_len=120",
+            "mesh.n_data=1", "mesh.n_shard=1",
+            "classify.confidence_threshold=0.05"]
+    ref_out, out = tmp_path / "ref", tmp_path / "port"
+    assert ref_cli.main(args + ["--out", str(ref_out)]) == 0
+    assert cli.main(args + ["--out", str(out), "--device", "cpu"]) == 0
+    names = sorted(f for f in os.listdir(ref_out)
+                   if f.endswith(".tsv") or f == "stats.json")
+    assert any(f.endswith(".assign.tsv") for f in names)
+    assert any(f.endswith(".summary.tsv") for f in names)
+    for f in names:
+        assert (out / f).read_bytes() == (ref_out / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("extra", [
+    ["--index", "idx", "idx"],
+    ["mesh.n_data=2"],
+    ["trim.min_qual=20"],
+    ['demux.barcodes=[["x", "ACGTACGT"]]'],
+    ["--resume"],
+    ["input.max_read_len=100"],
+], ids=["multi_index", "mesh", "trim", "demux", "resume", "long_reads"])
+def test_cli_unsupported_options_raise(testdata, tmp_path, extra):
+    d = testdata
+    extra = [str(d / a) if a == "idx" else a for a in extra]
+    args = ["classify", "--index", str(d / "idx"),
+            "--reads", str(d / "a_1.fastq"), "--mates", str(d / "a_2.fastq"),
+            "--out", str(tmp_path / "out"), "--device", "cpu",
+            "input.batch_size=64", "input.max_read_len=120", *extra]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(args)
+
+
+def test_cli_reports_host_time_by_phase(testdata, tmp_path, capsys):
+    d = testdata
+    assert cli.main(["classify", "--index", str(d / "idx"),
+                     "--reads", str(d / "a_1.fastq"),
+                     "--mates", str(d / "a_2.fastq"),
+                     "--out", str(tmp_path / "out"), "--device", "cpu",
+                     "input.batch_size=64", "input.max_read_len=120"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["reads"] == 150 and result["batches"] == 3
+    host = result["host_sec"]
+    assert sorted(host) == ["pad", "parse", "step", "write"]
+    assert all(v > 0 for v in host.values())
+    assert sum(host.values()) <= result["wall_sec"] + 1e-3

@@ -1,0 +1,187 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. This file imports
+no jax, so it also runs where jax is absent:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Outputs are integers: the tolerance is exact equality throughout.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pangea_tpu.golden import classify_reads_golden
+from pangea_tpu.index.shard import extract_pairs
+from pangea_tpu_torch.bench import make_bench_world
+from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
+                                       classify_reads, pad_batch)
+from pangea_tpu_torch.index import relayout_q8
+from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
+                                      kernel_launches, lookup_q8,
+                                      lookup_q8_plain,
+                                      reset_kernel_launches,
+                                      score_reads_tin, score_reads_tin_plain)
+
+from .helpers import small_world
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def world():
+    return small_world(k=21, seed=7, n_reads=300, read_len=120, paired=True,
+                       w=8)
+
+
+def _codes(rng, B, L, n_frac=0.03):
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < n_frac] = 4
+    codes[:3, L // 2:] = 4                          # padded tails
+    codes[3, 5] = -1                                # negative = invalid
+    return torch.from_numpy(codes)
+
+
+@pytest.mark.parametrize("k,w,L", [(21, 8, 150), (21, 1, 150), (31, 16, 97),
+                                   (3, 2, 40)])
+def test_extract_probes_kernel_matches_plain(cuda, k, w, L):
+    codes = _codes(np.random.default_rng(k * 100 + w), 257, L)
+    NW = (L - k + 1) // w
+    R = 2 * NW + 3
+    outs = []
+    for fn, dev in ((extract_probes_plain, "cpu"), (extract_probes, cuda)):
+        out = (torch.full((257, R), 7, dtype=torch.int32, device=dev),
+               torch.full((257, R), 7, dtype=torch.int32, device=dev),
+               torch.zeros((257, R), dtype=torch.bool, device=dev))
+        fn(codes.to(dev), k, w, out, NW + 1)
+        outs.append([t.cpu() for t in out])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _probes(world):
+    _, _, idx, rs = world
+    canon, _ = extract_pairs(idx)
+    rng = np.random.default_rng(3)
+    absent = rng.integers(0, 1 << 42, size=500, dtype=np.uint64)
+    keys = np.concatenate([canon, absent])
+    hi = (keys >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    valid = rng.random(keys.shape[0]) < 0.9
+    return torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("ways,load_factor", [(64, 0.5), (4, 2.0)])
+def test_lookup_q8_kernel_matches_plain(cuda, world, ways, load_factor):
+    _, _, idx, _ = world
+    fused, stash, _ = relayout_q8(idx, ways, load_factor)
+    if ways == 4:
+        assert stash.shape[2] > 0, "stash not exercised"
+    f = torch.from_numpy(fused[0].view(np.int32))
+    s = torch.from_numpy(stash[0].view(np.int32))
+    hi, lo, valid = _probes(world)
+    want = lookup_q8_plain(hi, lo, valid, f, s, idx.meta.k)
+    got = lookup_q8(hi.to(cuda), lo.to(cuda), valid.to(cuda), f.to(cuda),
+                    s.to(cuda), idx.meta.k)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    assert int(want[0].sum()) > 0
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.3, 1.0])
+def test_score_tin_kernel_matches_plain(cuda, world, thr):
+    tax = world[0]
+    rng = np.random.default_rng(5)
+    B, R = 400, 32
+    taxa = rng.integers(1, tax.num_taxa + 1, size=(B, R))
+    hit = (rng.random((B, R)) < 0.4).astype(np.int32)
+    hit[:20] = 0                                     # reads with no hit
+    t_in = np.where(hit, tax.tin[taxa], 0).astype(np.int32)
+    t_out = np.where(hit, tax.tout[taxa], 0).astype(np.int32)
+    valid = rng.random((B, R)) < 0.8
+    valid[20:30] = False                             # nvalid = 0
+    args = [torch.from_numpy(a) for a in (hit, t_in, t_out, valid,
+                                          tax.tin.astype(np.int32),
+                                          tax.tout.astype(np.int32),
+                                          tax.depth.astype(np.int32))]
+    want = score_reads_tin_plain(*args, thr)
+    got = score_reads_tin(*[a.to(cuda) for a in args], thr)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+
+
+def test_classifier_cuda_matches_plain_and_golden(cuda, world):
+    _, _, idx, rs = world
+    n = len(rs.seqs)
+    b = torch.from_numpy(pad_batch(rs.seqs, n, 120))
+    m = torch.from_numpy(pad_batch(rs.mates, n, 120))
+    model = Classifier(DeviceIndex.from_index(idx, cuda, 0.05))
+    reset_kernel_launches()
+    got = {k: v.cpu() for k, v in model(b.to(cuda), m.to(cuda)).items()}
+    assert kernel_launches() == {"extract_probes": 2, "lookup_q8": 1,
+                                 "score_tin": 1}
+    plain = classify_reads(model.index.tables, b.to(cuda), model.cfg,
+                           mate_bases=m.to(cuda), plain=True)
+    for key in got:
+        assert torch.equal(got[key], plain[key].cpu())
+    gold = classify_reads_golden(rs.seqs, idx, 0.05, mates=rs.mates)
+    assert got["taxon"].tolist() == [g.taxon for g in gold]
+    assert got["best"].tolist() == [g.best for g in gold]
+    assert got["nvalid"].tolist() == [g.nvalid for g in gold]
+
+
+def test_bench_world_on_the_card_matches_golden(cuda):
+    """chip_smoke.py's world and shapes: 2048 pairs of 150 bp reads, k=21,
+    w=8, the 16384 x 128 q8 table; the kernel path equals the golden model
+    pair for pair."""
+    n, L = 2048, 150
+    bw = make_bench_world(n_reads=n, read_len=L, k=21, w=8)
+    rs = bw.reads
+    model = Classifier(DeviceIndex.from_index(bw.index, cuda, 0.0))
+    assert tuple(model.fused.shape) == (16384, 128)
+    got = model(torch.from_numpy(pad_batch(rs.seqs, n, L)).to(cuda),
+                torch.from_numpy(pad_batch(rs.mates, n, L)).to(cuda))
+    gold = classify_reads_golden(rs.seqs, bw.index, 0.0, mates=rs.mates)
+    for key in ("taxon", "best", "nvalid"):
+        assert got[key].cpu().tolist() == [getattr(g, key) for g in gold]
+
+
+def test_kernels_launch_on_a_device_that_is_not_current(world):
+    """Tensors on the last card while the first is current: each launch
+    runs on the tensors' card and stream."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    _, _, idx, rs = world
+    n = len(rs.seqs)
+    b = torch.from_numpy(pad_batch(rs.seqs, n, 120))
+    m = torch.from_numpy(pad_batch(rs.mates, n, 120))
+    want = Classifier(DeviceIndex.from_index(idx, "cpu", 0.05))(b, m)
+    reset_kernel_launches()
+    got = Classifier(DeviceIndex.from_index(idx, dev, 0.05))(b.to(dev),
+                                                             m.to(dev))
+    assert kernel_launches() == {"extract_probes": 2, "lookup_q8": 1,
+                                 "score_tin": 1}
+    assert torch.cuda.current_device() == 0
+    for key in want:
+        assert got[key].device == dev
+        assert torch.equal(got[key].cpu(), want[key])
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    codes = torch.zeros((4, 30), dtype=torch.int32, device=cuda)
+    out = (torch.empty((4, 10), dtype=torch.int32, device=cuda),
+           torch.empty((4, 10), dtype=torch.int32, device=cuda),
+           torch.empty((4, 10), dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError):
+        extract_probes(codes, 21, 1, out, 0)
+    with pytest.raises(ValueError):
+        extract_probes(codes.to(torch.int8).cpu(), 21, 1, out, 0)
