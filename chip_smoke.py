@@ -1,31 +1,55 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's paired-end q8 classify path on one GPU.
+"""Drive the PyTorch/CUDA port's classify paths on one GPU.
 
 Run from the root of the repository, on a machine with a CUDA device:
 
     python3 chip_smoke.py
 
-Phases:
-  1. device check: torch and CUDA versions, the card's name and power limit;
-  2. build: nvcc compiles the kernels of src/pangea_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version, bit for bit, at the
-     bench shapes (16384 pairs of 150 bp reads, k=21, w=8, the 16384 x 128
-     q8 table), plus the lookup on a table with a forced stash and the
-     scorer at two thresholds; prints mismatch counts and times;
-  4. the Classifier on that batch: every kernel's launch count, the outputs
-     against the plain path and the reads' planted truth, and the step time
-     of both paths by CUDA events;
-  5. the main path as a user drives it: the classify CLI, on 24,576 pairs
-     in three batches of 8192, with every kernel's launch count in that
-     run, its lines against phase 4's outputs, and the host time of its
-     loop by phase;
-  6. torch.profiler over back-to-back steps: the device time of each
-     kernel and the device's busy share of the wall.
+Phases 1-6 drive the q8 headline (the reference bench's world: k=21,
+minimizer w=8, a 16384 x 128 q8 table); phases 7-10 drive the std layout
+with binary-lifting LCA on the same genomes hung on a 66,563-taxon tree
+(k=21, w=1: 2.0M k-mers in a std table of 131,072 wide 768 B rows):
 
-The plain path is held to the JAX reference and its golden model by the
-CPU tests (tests/test_torch_classify.py), and the kernels to the golden
-model on the card by tests/test_torch_gpu.py. This script imports nothing
-but the standard library, torch and pangea_tpu_torch.
+  1. device check: torch and CUDA versions, the card's name and power limit;
+  2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
+     then one link;
+  3. K1-K3 against their plain PyTorch versions, bit for bit, at the bench
+     shapes (16384 pairs of 150 bp reads), plus K2 on a table with a forced
+     stash and K3 at two thresholds; mismatches and times;
+  4. the q8 Classifier on that batch: every kernel's launch count, the
+     outputs against the plain path and the reads' planted truth, and the
+     step time of both paths by CUDA events;
+  5. the q8 main path as a user drives it: `python -m pangea_tpu_torch.cli
+     classify` on config 2's file and 24,576 pairs in three batches of
+     8192, with its kernel launches, its lines against phase 4's outputs,
+     and the host time of its loop by phase;
+  6. torch.profiler over back-to-back q8 steps: the device time of each
+     kernel and the device's busy share of the wall;
+  7. K4, K3's taxon form and K5 against their plain versions, bit for bit:
+     K4 on the wide table with 16384 pairs x 260 probes, on the k=31
+     packed table and on a table with a forced stash; K3-taxon and K5 at
+     two thresholds; K5 also on a 5,251-taxon q8 world and on a 5,000-node
+     chain (13 lifting levels);
+  8. the std Classifier at full width: launch counts of K1, K4, K3 and K5,
+     the outputs against the plain path and the planted truth, step times;
+  9. the CLI on the std index (written by the port's Index.save) with
+     config 2's file and 24,576 pairs, its lines against phase 8's outputs;
+ 10. torch.profiler over back-to-back std steps.
+
+The plain paths are held to the JAX reference and its golden model by the
+CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py), and the
+kernels to the golden model on the card by tests/test_torch_gpu.py. This
+script imports nothing but the standard library, torch and
+pangea_tpu_torch.
+
+Bounds: a kernel's bound_ms is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its 32-bit integer
+operations, counted from this run's inputs, over 67 T/s (the H100 SXM's
+non-tensor 32-bit peak, an optimistic rate for integer work). A table
+counts only what this run's probes need: the key lanes of the buckets they
+reach, the payload lanes of the keys they hit and the stash (K2, K4); for
+K5, the depth, parent and lifting entries of the lineages its pairs reach,
+beside its [B] inputs and output.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -33,9 +57,8 @@ code is non-zero; so it is without a CUDA device.
 """
 from __future__ import annotations
 
-import contextlib
-import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -44,13 +67,24 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-BATCH, READ_LEN, K, W = 16384, 150, 21, 8
+BATCH, READ_LEN = 16384, 150
+# The worlds (make_bench_world arguments): the q8 headline, the std main
+# path on the 66,563-taxon tree, the k=31 packed std table and q8 beyond
+# 4,096 taxa.
+HEADLINE = {"k": 21, "w": 8}
+WIDE = {"k": 21, "w": 1, "tree": (512, 64)}
+PACKED = {"k": 31, "w": 8}
+Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
+CHAIN_NODES = 5000
 CLI_PAIRS, CLI_BATCH = 24576, 8192
 WARMUP, REPS = 3, 20
+PLAIN_REPS = 5           # samples of a plain version at the std shapes
 PIPELINED = 10           # back-to-back calls a timing sample
-PROFILE_STEPS = 100
+PROFILE_STEPS = {"q8": 100, "std": 20}
 MAX_OFF_LINEAGE = 0.001  # share of pairs assigned off their truth's lineage
-THRESHOLDS = (0.0, 0.3)
+THRESHOLDS = (0.0, 0.05)
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
 # name -> (kernel source, the reference function it replaces)
 KERNELS = {
     "extract_probes": ("src/pangea_tpu_torch/csrc/extract_probes.cu",
@@ -59,6 +93,12 @@ KERNELS = {
                   "src/pangea_tpu/kernels/lookup.py:710"),
     "score_tin": ("src/pangea_tpu_torch/csrc/score_tin.cu",
                   "src/pangea_tpu/kernels/score.py:237"),
+    "lookup_std": ("src/pangea_tpu_torch/csrc/lookup_std.cu",
+                   "src/pangea_tpu/kernels/lookup.py:94"),
+    "score_taxon": ("src/pangea_tpu_torch/csrc/score_tin.cu",
+                    "src/pangea_tpu/kernels/score.py:221"),
+    "lca_lift": ("src/pangea_tpu_torch/csrc/lca_lift.cu",
+                 "src/pangea_tpu/kernels/score.py:127"),
 }
 
 
@@ -66,9 +106,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, calls: int = 1) -> float:
-    """ms per call of fn: the median over REPS samples, after WARMUP calls,
-    of the CUDA-event time of `calls` back-to-back calls, divided by
+def time_ms(torch, fn, calls: int = 1, reps: int = REPS) -> float:
+    """ms per call of fn: the median over `reps` samples, after WARMUP
+    calls, of the CUDA-event time of `calls` back-to-back calls, divided by
     `calls`. calls=1 is the latency of one call, host launch overhead
     included; calls=PIPELINED keeps the card fed, so a call that the host
     enqueues faster than the card runs it reads as device time."""
@@ -76,7 +116,7 @@ def time_ms(torch, fn, calls: int = 1) -> float:
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -102,6 +142,48 @@ def compare(want, got) -> tuple[int, int]:
     return mism, err
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it) for the bytes a
+    function must move and the integer operations it must do."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+class Results:
+    """Per-kernel mismatches, errors, times and bounds of this run."""
+
+    def __init__(self):
+        self.k = {name: {"mismatches": 0, "max_abs_err": 0}
+                  for name in KERNELS}
+
+    def check(self, name: str, what: str, want, got) -> None:
+        mism, err = compare(want, got)
+        r = self.k[name]
+        r["mismatches"] += mism
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        log(f"[{what}] {name}: mismatches {mism}, max abs error {err}")
+
+    def time(self, torch, name: str, what: str, kernel, plain, nbytes,
+             ops, plain_calls: int = PIPELINED,
+             plain_reps: int = REPS) -> None:
+        """Kernel ms (PIPELINED calls a sample), plain ms and the bound."""
+        ms = time_ms(torch, kernel, PIPELINED)
+        plain_ms = time_ms(torch, plain, plain_calls, plain_reps)
+        bound_ms, by = bound(nbytes, ops)
+        self.k[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=by)
+        log(f"[{what}] {name}: kernel {ms} ms, plain {plain_ms} ms, bound "
+            f"{bound_ms} ms ({by}: {nbytes:.0f} B, {ops:.0f} ops)")
+
+    def assert_clean(self, names) -> None:
+        bad = [n for n in names if self.k[n]["mismatches"]]
+        if bad:
+            raise AssertionError(f"kernels disagree with their plain "
+                                 f"versions: {bad}")
+
+
 def phase_device(torch) -> str:
     log(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
@@ -116,104 +198,155 @@ def phase_device(torch) -> str:
 def phase_build() -> None:
     from pangea_tpu_torch.kernels import _build
     t0 = time.time()
-    path = _build.build()
     _build.library()
-    log(f"[2] built {path} in {time.time() - t0:.1f} s")
+    log(f"[2] built {_build.build()} in {time.time() - t0:.1f} s")
 
 
-def phase_kernels(torch, world, cuda) -> dict:
+def make_world(torch, cuda, name: str, n_reads: int, **kw) -> dict:
+    from pangea_tpu_torch.bench import make_bench_world
+    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
+    t0 = time.time()
+    bw = make_bench_world(n_reads=n_reads, read_len=READ_LEN, **kw)
+    di = DeviceIndex.from_index(bw.index, cuda, 0.0)
+    n = min(BATCH, n_reads)
+    world = {"name": name, "idx": bw.index, "reads": bw.reads, "di": di,
+             "b1": torch.from_numpy(pad_batch(bw.reads.seqs[:n], n,
+                                              READ_LEN)).to(cuda),
+             "b2": torch.from_numpy(pad_batch(bw.reads.mates[:n], n,
+                                              READ_LEN)).to(cuda)}
+    log(f"[3] world {name} in {time.time() - t0:.1f} s: {bw.index!r}, "
+        f"{bw.taxonomy.num_taxa} taxa, {di.cfg.layout} table "
+        f"{tuple(di.fused.shape)} ({di.fused.numel() * 4} B), stash "
+        f"{di.stash.shape[1]}")
+    return world
+
+
+def probes(torch, world, k: int, w: int, fn=None):
+    """The probes (hi, lo, valid) [B, R] of a world's batch, both mates, by
+    K1 or by ``fn`` (its plain version)."""
+    from pangea_tpu_torch.kernels import extract_probes
+    from pangea_tpu_torch.kernels.minimize import probe_width
+    nw = probe_width(READ_LEN, k, w)
+    b1 = world["b1"]
+    shape = (b1.shape[0], 2 * nw)
+    out = (torch.empty(shape, dtype=torch.int32, device=b1.device),
+           torch.empty(shape, dtype=torch.int32, device=b1.device),
+           torch.empty(shape, dtype=torch.bool, device=b1.device))
+    (fn or extract_probes)(b1, k, w, out, 0)
+    (fn or extract_probes)(world["b2"], k, w, out, nw)
+    return out
+
+
+def table_bytes(di) -> int:
+    return (di.fused.numel() + di.stash.numel()) * 4
+
+
+def touched_bytes(torch, bucket, valid, hit, hi, lo, key_lanes: int,
+                  payload_lanes: int, stash) -> int:
+    """Bytes of a hash table that these probes need: the key lanes of every
+    bucket a valid probe reaches, the payload lanes of every distinct key
+    that hits, and the whole stash (every valid probe scans it)."""
+    rows = torch.unique(bucket[valid]).numel()
+    keys = (hi[hit].long() << 32) | (lo[hit].long() & 0xFFFFFFFF)
+    return 4 * (rows * key_lanes + torch.unique(keys).numel() * payload_lanes
+                + stash.numel())
+
+
+def lineage_bytes(torch, u, v, tax: dict) -> int:
+    """Bytes of the taxonomy that LCA lifting of (u, v) needs: the depth,
+    parent and lifting-table entries of every node on the lineages of the
+    nonzero u and v."""
+    parent = tax["parent"].long()
+    nodes = torch.unique(torch.cat([u, v]).long())
+    nodes = nodes[nodes != 0]
+    while True:
+        grown = torch.unique(torch.cat([nodes, parent[nodes]]))
+        if grown.numel() == nodes.numel():
+            break
+        nodes = grown
+    return 4 * nodes.numel() * (tax["up"].shape[0] + 2)
+
+
+def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import relayout_q8
-    from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
+    from pangea_tpu_torch.kernels import (extract_probes_plain, fuse_stash,
                                           lookup_q8, lookup_q8_plain,
                                           score_reads_tin,
                                           score_reads_tin_plain)
-    from pangea_tpu_torch.kernels.minimize import probe_width
-    idx, di, b1, b2 = world["idx"], world["di"], world["b1"], world["b2"]
-    nw = probe_width(READ_LEN, K, W)
-    R = 2 * nw
-    results = {}
+    from pangea_tpu_torch.kernels.lookup import _q8_geometry, _q8_split, widen
+    k, w = HEADLINE["k"], HEADLINE["w"]
+    idx, di = world["idx"], world["di"]
+    hi, lo, valid = probes(torch, world, k, w)
+    R = hi.shape[1]
+    res.check("extract_probes", "3",
+              probes(torch, world, k, w, extract_probes_plain),
+              (hi, lo, valid))
+    windows = BATCH * R
+    res.time(torch, "extract_probes", "3",
+             lambda: probes(torch, world, k, w),
+             lambda: probes(torch, world, k, w, extract_probes_plain),
+             nbytes=2 * BATCH * READ_LEN + windows * 9,
+             ops=windows * ((w + k - 1) * 8 + w * 18))
 
-    def probes(fn):
-        out = (torch.empty((BATCH, R), dtype=torch.int32, device=cuda),
-               torch.empty((BATCH, R), dtype=torch.int32, device=cuda),
-               torch.empty((BATCH, R), dtype=torch.bool, device=cuda))
-        fn(b1, K, W, out, 0)
-        fn(b2, K, W, out, nw)
-        return out
-
-    mism, err = compare(probes(extract_probes_plain), probes(extract_probes))
-    log(f"[3] extract_probes [{BATCH} x {READ_LEN}] x 2 mates -> "
-        f"[{BATCH}, {R}]: mismatches {mism}")
-    results["extract_probes"] = {
-        "mismatches": mism, "max_abs_err": err,
-        "ms": time_ms(torch, lambda: probes(extract_probes), PIPELINED),
-        "plain_ms": time_ms(torch, lambda: probes(extract_probes_plain),
-                            PIPELINED)}
-
-    hi, lo, valid = (t.reshape(-1) for t in probes(extract_probes))
+    hi, lo, valid = (t.reshape(-1) for t in (hi, lo, valid))
     fused, stash = di.fused, di.stash
-    want = lookup_q8_plain(hi, lo, valid, fused, stash, K)
-    mism, err = compare(want, lookup_q8(hi, lo, valid, fused, stash, K))
-    log(f"[3] lookup_q8 {hi.numel()} probes on [{fused.shape[0]}, "
-        f"{fused.shape[1]}], stash {stash.shape[1]}: mismatches {mism}, "
-        f"hits {int((want[0] != 0).sum())}")
+    want = lookup_q8_plain(hi, lo, valid, fused, stash, k)
+    res.check("lookup_q8", "3", want, lookup_q8(hi, lo, valid, fused,
+                                                 stash, k))
+    log(f"[3] lookup_q8: {hi.numel()} probes on {tuple(fused.shape)}, "
+        f"stash {stash.shape[1]}, hits {int((want[0] != 0).sum())}")
     # A table with a forced stash, probed by the batch and by every key of
     # its stash, so that both the rows and the stash hit.
+    tax = idx.taxonomy
     f4, s4, _ = relayout_q8(idx, ways=4, load_factor=2.0)
     f4 = torch.from_numpy(f4[0].view("int32")).to(cuda)
-    s4 = torch.from_numpy(s4[0].view("int32")).to(cuda)
+    s4 = torch.from_numpy(fuse_stash(s4[0], tax.tin, tax.tout)
+                          .view("int32")).to(cuda)
     if s4.shape[1] == 0:
         raise AssertionError("the forced-stash table has an empty stash")
-    hi4 = torch.cat([hi, s4[0]])
-    lo4 = torch.cat([lo, s4[1]])
+    hi4, lo4 = torch.cat([hi, s4[0]]), torch.cat([lo, s4[1]])
     v4 = torch.cat([valid, torch.ones(s4.shape[1], dtype=torch.bool,
                                       device=cuda)])
-    want4 = lookup_q8_plain(hi4, lo4, v4, f4, s4, K)
-    mism4, err4 = compare(want4, lookup_q8(hi4, lo4, v4, f4, s4, K))
+    want4 = lookup_q8_plain(hi4, lo4, v4, f4, s4, k)
+    res.check("lookup_q8", "3 forced stash", want4,
+              lookup_q8(hi4, lo4, v4, f4, s4, k))
     stash_hits = int((want4[0][hi.numel():] != 0).sum())
-    log(f"[3] lookup_q8 forced stash: {hi4.numel()} probes on "
-        f"[{f4.shape[0]}, {f4.shape[1]}], stash {s4.shape[1]} "
-        f"({stash_hits} stash keys hit): mismatches {mism4}")
+    log(f"[3] lookup_q8 forced stash: {tuple(f4.shape)}, stash "
+        f"{s4.shape[1]}, {stash_hits} stash keys hit")
     if stash_hits != s4.shape[1]:
         raise AssertionError("a stash key missed its own stash")
-    results["lookup_q8"] = {
-        "mismatches": mism + mism4, "max_abs_err": max(err, err4),
-        "ms": time_ms(torch, lambda: lookup_q8(hi, lo, valid, fused, stash,
-                                               K), PIPELINED),
-        "plain_ms": time_ms(torch, lambda: lookup_q8_plain(
-            hi, lo, valid, fused, stash, K), PIPELINED)}
+    N = hi.numel()
+    log2nb, W = _q8_geometry(fused, k)
+    bucket, _ = _q8_split(widen(hi), widen(lo), k, log2nb)
+    need = touched_bytes(torch, bucket, valid, want[0] != 0, hi, lo, W, 1,
+                         stash)
+    log(f"[3] lookup_q8 touches {need} B of its {table_bytes(di)} B table")
+    res.time(torch, "lookup_q8", "3",
+             lambda: lookup_q8(hi, lo, valid, fused, stash, k),
+             lambda: lookup_q8_plain(hi, lo, valid, fused, stash, k),
+             nbytes=N * 21 + need, ops=N * (2 * W + 10))
 
     hit, t_in, t_out = (t.reshape(BATCH, R) for t in want)
     valid2 = valid.reshape(BATCH, R)
-    tax = (di.tax["tin"], di.tax["tout"], di.tax["depth"])
-    mism, err = 0, 0
     for thr in THRESHOLDS:
-        m, e = compare(
-            score_reads_tin_plain(hit, t_in, t_out, valid2, *tax, thr),
-            score_reads_tin(hit, t_in, t_out, valid2, *tax, thr))
-        log(f"[3] score_tin [{BATCH}, {R}], {tax[0].numel()} taxa, "
-            f"threshold {thr}: mismatches {m}")
-        mism, err = mism + m, max(err, e)
-    results["score_tin"] = {
-        "mismatches": mism, "max_abs_err": err,
-        "ms": time_ms(torch, lambda: score_reads_tin(
-            hit, t_in, t_out, valid2, *tax, 0.0), PIPELINED),
-        "plain_ms": time_ms(torch, lambda: score_reads_tin_plain(
-            hit, t_in, t_out, valid2, *tax, 0.0), PIPELINED)}
-    for name, r in results.items():
-        log(f"[3] {name}: kernel {r['ms']} ms, plain {r['plain_ms']} ms a "
-            f"call ({PIPELINED} back-to-back calls a sample, median of "
-            f"{REPS} CUDA-event samples)")
-    bad = [n for n, r in results.items() if r["mismatches"]]
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain versions: "
-                             f"{bad}")
-    return results
+        res.check("score_tin", f"3 threshold {thr}",
+                  score_reads_tin_plain(hit, t_in, t_out, valid2, di.tax,
+                                        thr),
+                  score_reads_tin(hit, t_in, t_out, valid2, di.tax, thr))
+    T1 = di.tax["tin"].numel()
+    res.time(torch, "score_tin", "3",
+             lambda: score_reads_tin(hit, t_in, t_out, valid2, di.tax, 0.0),
+             lambda: score_reads_tin_plain(hit, t_in, t_out, valid2,
+                                           di.tax, 0.0),
+             nbytes=BATCH * R * 13 + 12 * T1 + 12 * BATCH,
+             ops=int((hit != 0).sum()) * R * 4 + BATCH * T1 * 6)
+    res.assert_clean(("extract_probes", "lookup_q8", "score_tin"))
 
 
-
-
-def phase_slice(torch, world, cuda, card: str) -> dict:
+def phase_step(torch, world, card: str, tag: str, want_launches: dict,
+               plain_calls: int, plain_reps: int) -> dict:
+    """The Classifier on a world's batch: launch counts, the plain path,
+    the planted truth and step times. Returns the outputs on the host."""
     from pangea_tpu_torch.classify import Classifier, classify_reads
     from pangea_tpu_torch.kernels import (kernel_launches,
                                           reset_kernel_launches)
@@ -223,10 +356,9 @@ def phase_slice(torch, world, cuda, card: str) -> dict:
     out = model(b1, b2)
     torch.cuda.synchronize()
     launches = kernel_launches()
-    log(f"[4] kernel launches in one Classifier step: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path did not launch: "
-                             f"{launches}")
+    log(f"[{tag}] kernel launches in one {world['name']} step: {launches}")
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
     out = {k: v.cpu() for k, v in out.items()}
     for k, v in out.items():
         if v.dtype != torch.int32 or tuple(v.shape) != (BATCH,):
@@ -238,90 +370,85 @@ def phase_slice(torch, world, cuda, card: str) -> dict:
 
     plain = plain_step()
     mism, _ = compare([plain[k].cpu() for k in out], list(out.values()))
-    log(f"[4] kernel path vs plain path on {BATCH} pairs: mismatches {mism}")
+    log(f"[{tag}] kernel path vs plain path on {BATCH} pairs: mismatches "
+        f"{mism}")
     # Planted truth: a classified pair's taxon is its source species or an
     # ancestor of it (genus mates share a core, whose k-mers LCA-merge).
     tin, tout = (world["di"].tax[n].cpu().long() for n in ("tin", "tout"))
     taxon = out["taxon"].long()
-    truth = torch.from_numpy(world["truth"][:BATCH]).long()
+    truth = torch.from_numpy(world["reads"].truth[:BATCH]).long()
     classified = taxon != 0
     on_lineage = (tin[taxon] <= tin[truth]) & (tin[truth] < tout[taxon])
     off = int((classified & ~on_lineage).sum())
-    log(f"[4] planted truth: {int(classified.sum())} of {BATCH} pairs "
-        f"classified, {off} off their truth's lineage")
+    log(f"[{tag}] planted truth: {int(classified.sum())} of {BATCH} pairs "
+        f"classified, {off} off their truth's lineage "
+        f"({off / BATCH} of the pairs; limit {MAX_OFF_LINEAGE})")
     if mism or off > MAX_OFF_LINEAGE * BATCH or not classified.any():
         raise AssertionError("the classify step disagrees with its references")
 
     for calls, what in ((1, "one step"), (PIPELINED, "back-to-back steps")):
         step = time_ms(torch, lambda: model(b1, b2), calls)
-        plain = time_ms(torch, plain_step, calls)
-        log(f"[4] {what}, {BATCH} pairs, on {card}: kernel path {step} ms "
-            f"({BATCH / step * 1e3} reads/s), plain path {plain} ms "
-            f"({BATCH / plain * 1e3} reads/s); median of {REPS} CUDA-event "
-            f"samples of {calls} call(s)")
+        plain_ms = time_ms(torch, plain_step, min(calls, plain_calls),
+                           plain_reps)
+        log(f"[{tag}] {world['name']}, {what}, {BATCH} pairs, on {card}: "
+            f"kernel path {step} ms ({BATCH / step * 1e3} reads/s), plain "
+            f"path {plain_ms} ms ({BATCH / plain_ms * 1e3} reads/s); median "
+            f"of CUDA-event samples of {calls} call(s) (plain: "
+            f"{min(calls, plain_calls)})")
     return out
 
 
-def phase_cli(world, out: dict, device: str) -> dict:
-    """The classify CLI, in this process, on config 2's settings; returns
-    the kernel launches of that run."""
-    from pangea_tpu_torch import cli
-    from pangea_tpu_torch.bench import write_fastq_pair
-    from pangea_tpu_torch.kernels import (kernel_launches,
-                                          reset_kernel_launches)
-    work = ROOT / "build" / "chip_smoke"
+def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
+    """`python -m pangea_tpu_torch.cli classify` on config 2's file, the
+    world's index and 24,576 pairs; returns the kernel launches of that
+    run (the CLI's own counts, which start at 0 in its process)."""
+    work = ROOT / "build" / "chip_smoke" / world["name"]
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    reads = world["reads"]
-    write_fastq_pair(reads, str(work / "reads_1.fastq"),
-                     str(work / "reads_2.fastq"))
     world["idx"].save(str(work / "idx"))
     out_dir = work / "out"
-    argv = ["classify",
-            "--config", str(ROOT / "configs" / "config2_16s_paired.json"),
-            "--index", str(work / "idx"),
-            "--reads", str(work / "reads_1.fastq"),
-            "--mates", str(work / "reads_2.fastq"),
-            "--samples", "smoke", "--out", str(out_dir), "--device", device,
-            f"input.batch_size={CLI_BATCH}"]
-    stdout = io.StringIO()
+    cmd = [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
+           "--config", str(ROOT / "configs" / "config2_16s_paired.json"),
+           "--index", str(work / "idx"), "--reads", fastq[0],
+           "--mates", fastq[1], "--samples", "smoke", "--out", str(out_dir),
+           "--device", "cuda", f"input.batch_size={CLI_BATCH}"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
-    reset_kernel_launches()
-    with contextlib.redirect_stdout(stdout):
-        rc = cli.main(argv)
-    launches = kernel_launches()
-    if rc != 0:
-        raise AssertionError(f"the CLI returned {rc}")
-    result = json.loads(stdout.getvalue().strip().splitlines()[-1])
-    log(f"[5] CLI in {time.time() - t0:.1f} s: {json.dumps(result)}")
-    log(f"[5] kernel launches in the CLI run: {launches}")
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI returned {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[{tag}] CLI process in {time.time() - t0:.1f} s: "
+        f"{json.dumps(result)}")
+    launches = result["kernel_launches"]
     host = result["host_sec"]
     loop = sum(host.values())
-    log("[5] CLI loop host time by phase: " + ", ".join(
+    log(f"[{tag}] CLI loop host time by phase: " + ", ".join(
         f"{k} {v} s ({100 * v / loop} %)" for k, v in host.items()))
     # Each line: flag, read id, taxon, rank, name, best/nvalid, confidence.
     rows = [line.split("\t") for line in
             (out_dir / "smoke.assign.tsv").read_text().splitlines()]
+    reads = world["reads"]
     ids_bad = sum(r[1] != rid for r, rid in zip(rows, reads.ids))
     step_bad = sum(
         (int(r[2]), r[5]) != (int(out["taxon"][i]),
                               f"{int(out['best'][i])}/{int(out['nvalid'][i])}")
         for i, r in enumerate(rows[:BATCH]))
-    log(f"[5] {len(rows)} assignment lines; read ids out of order {ids_bad}; "
-        f"first {BATCH} vs phase 4's step: mismatches {step_bad}")
+    log(f"[{tag}] {len(rows)} assignment lines; read ids out of order "
+        f"{ids_bad}; first {BATCH} vs the step: mismatches {step_bad}")
     if len(rows) != CLI_PAIRS or ids_bad or step_bad:
         raise AssertionError("the CLI's assignments are wrong")
     if not (out_dir / "smoke.summary.tsv").exists():
         raise AssertionError("the CLI wrote no summary")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the CLI bypassed a kernel: {launches}")
     return launches
 
 
-def phase_profile(torch, world, card: str) -> None:
-    """Device time of each kernel over PROFILE_STEPS back-to-back steps,
-    and the device's busy share of their wall (one stream: kernels never
-    overlap, so their summed time is the busy time)."""
+def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
+    """Device time of each kernel over back-to-back steps, and the device's
+    busy share of their wall (one stream: kernels never overlap, so their
+    summed time is the busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pangea_tpu_torch.classify import Classifier
@@ -335,7 +462,7 @@ def phase_profile(torch, world, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             model(b1, b2)
         end.record()
         end.synchronize()
@@ -347,16 +474,186 @@ def phase_profile(torch, world, card: str) -> None:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels[e.key] = (us / 1e3 / PROFILE_STEPS, e.count // PROFILE_STEPS)
-    busy = sum(ms for ms, _ in kernels.values())
-    log(f"[6] torch.profiler, {PROFILE_STEPS} back-to-back steps of {BATCH} "
-        f"pairs on {card}: wall {wall_ms / PROFILE_STEPS} ms a step, device "
-        f"busy {busy} ms a step ({100 * busy * PROFILE_STEPS / wall_ms} %)")
-    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
-        log(f"[6]   {ms} ms a step ({100 * ms / busy if busy else 0} % of "
-            f"busy), {n} launch(es) a step: {name[:100]}")
+        kernels[e.key] = (us / 1e3 / steps, e.count, us / 1e3 / e.count)
+    busy = sum(ms for ms, _, _ in kernels.values())
+    log(f"[{tag}] torch.profiler, {steps} back-to-back {world['name']} "
+        f"steps of {BATCH} pairs on {card}: wall {wall_ms / steps} ms a "
+        f"step, device busy {busy} ms a step "
+        f"({100 * busy * steps / wall_ms} %)")
+    for name, (ms, n, per) in sorted(kernels.items(),
+                                     key=lambda kv: -kv[1][0]):
+        log(f"[{tag}]   {ms} ms a step ({100 * ms / busy if busy else 0} % "
+            f"of busy), {n} launches recorded in {steps} steps, {per} ms a "
+            f"launch: {name[:100]}")
     if not kernels:
-        log("[6] the profiler recorded no device time")
+        log(f"[{tag}] the profiler recorded no device time")
+
+
+def chain_tax(torch, cuda) -> dict:
+    from pangea_tpu_torch.taxonomy import Taxonomy
+    parent = list(range(-1, CHAIN_NODES))
+    parent[:2] = [0, 1]
+    tax = Taxonomy(parent=parent, rank=[0] * (CHAIN_NODES + 1),
+                   names=["unclassified"] + [f"n{i}"
+                                             for i in range(CHAIN_NODES)])
+    return {k: torch.from_numpy(v).to(cuda)
+            for k, v in tax.device_arrays().items()}
+
+
+def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
+    from pangea_tpu_torch.index import extract_pairs
+    from pangea_tpu_torch.index.build import layout_table
+    from pangea_tpu_torch.kernels import (fuse_stash, fuse_table, hash32,
+                                          lca_lift,
+                                          lca_lift_plain, lookup_q8,
+                                          lookup_std, lookup_std_plain,
+                                          score_reads_taxon,
+                                          score_reads_taxon_plain,
+                                          score_reads_tin,
+                                          score_reads_tin_plain,
+                                          score_winners,
+                                          score_winners_plain)
+    wide, packed, q8l = worlds["wide"], worlds["packed"], worlds["q8_lift"]
+    di = wide["di"]
+    hi, lo, valid = probes(torch, wide, WIDE["k"], WIDE["w"])
+    B, R = hi.shape
+    k1_ms = time_ms(torch, lambda: probes(torch, wide, WIDE["k"], WIDE["w"]),
+                    PIPELINED)
+    log(f"[7] extract_probes at k={WIDE['k']}, w={WIDE['w']}, both mates -> "
+        f"[{B}, {R}]: kernel {k1_ms} ms a call")
+    flat = [t.reshape(-1) for t in (hi, lo, valid)]
+    N = flat[0].numel()
+    ways = di.cfg.ways
+    want = lookup_std_plain(*flat, di.fused, di.stash, ways)
+    res.check("lookup_std", "7 wide", want,
+              lookup_std(*flat, di.fused, di.stash, ways))
+    log(f"[7] lookup_std wide: {N} probes ([{B}, {R}]) on "
+        f"{tuple(di.fused.shape)} ({table_bytes(di)} B), hits "
+        f"{int((want[0] != 0).sum())}")
+
+    # The k=31 packed table, probed by the same batch at k=31, w=8.
+    pdi = packed["di"]
+    phi, plo, pvalid = probes(torch, packed, PACKED["k"], PACKED["w"])
+    pflat = [t.reshape(-1) for t in (phi, plo, pvalid)]
+    pwant = lookup_std_plain(*pflat, pdi.fused, pdi.stash, pdi.cfg.ways)
+    res.check("lookup_std", "7 packed", pwant,
+              lookup_std(*pflat, pdi.fused, pdi.stash, pdi.cfg.ways))
+    log(f"[7] lookup_std packed: {pflat[0].numel()} probes on "
+        f"{tuple(pdi.fused.shape)}, hits {int((pwant[0] != 0).sum())}")
+
+    # A forced stash: every 30th pair of the wide index at 4 ways, wide rows.
+    tax = wide["idx"].taxonomy
+    canon, taxa = extract_pairs(wide["idx"])
+    kh, kl, val, st, _ = layout_table(canon[::30], taxa[::30], 4.0, ways=4)
+    f4 = torch.from_numpy(fuse_table(kh, kl, val, tax.tin, tax.tout)
+                          .view("int32")).to(cuda)
+    s4 = torch.from_numpy(fuse_stash(st, tax.tin, tax.tout)
+                          .view("int32")).to(cuda)
+    if s4.shape[1] == 0:
+        raise AssertionError("the forced-stash table has an empty stash")
+    hi4, lo4 = torch.cat([flat[0], s4[0]]), torch.cat([flat[1], s4[1]])
+    v4 = torch.cat([flat[2], torch.ones(s4.shape[1], dtype=torch.bool,
+                                        device=cuda)])
+    want4 = lookup_std_plain(hi4, lo4, v4, f4, s4, 4)
+    res.check("lookup_std", "7 forced stash", want4,
+              lookup_std(hi4, lo4, v4, f4, s4, 4))
+    stash_hits = int((want4[0][N:] != 0).sum())
+    log(f"[7] lookup_std forced stash: {tuple(f4.shape)}, stash "
+        f"{s4.shape[1]}, {stash_hits} stash keys hit")
+    if stash_hits != s4.shape[1]:
+        raise AssertionError("a stash key missed its own stash")
+    bucket = hash32(flat[0], flat[1]) & (di.fused.shape[0] - 1)
+    need = touched_bytes(torch, bucket, flat[2], want[0] != 0, flat[0],
+                         flat[1], 2 * ways, 3, di.stash)
+    log(f"[7] lookup_std wide touches {need} B of its {table_bytes(di)} B "
+        "table (hi and lo lanes of the rows reached; val, tin and tout of "
+        "the keys hit)")
+    res.time(torch, "lookup_std", "7 wide",
+             lambda: lookup_std(*flat, di.fused, di.stash, ways),
+             lambda: lookup_std_plain(*flat, di.fused, di.stash, ways),
+             nbytes=N * 21 + need, ops=N * (4 * ways + 16),
+             plain_calls=1, plain_reps=PLAIN_REPS)
+    log(f"[7] lookup_std packed: kernel "
+        f"{time_ms(torch, lambda: lookup_std(*pflat, pdi.fused, pdi.stash, pdi.cfg.ways), PIPELINED)}"
+        f" ms a call for {pflat[0].numel()} probes")
+
+    # K3's taxon form and K5 on the wide lookups (lifting), at thresholds.
+    taxon, t_in, t_out = (t.reshape(B, R) for t in want)
+    args = (taxon, t_in, t_out, valid)
+    winners = score_winners_plain(*args, True)
+    res.check("score_taxon", "7 wide winners", winners,
+              score_winners(*args, True))
+    for thr in THRESHOLDS:
+        res.check("score_taxon", f"7 wide, threshold {thr}",
+                  score_reads_taxon_plain(*args, di.tax, thr),
+                  score_reads_taxon(*args, di.tax, thr))
+        res.check("lca_lift", f"7 wide, threshold {thr}",
+                  lca_lift_plain(*winners, di.tax, thr, True),
+                  lca_lift(*winners, di.tax, thr, True))
+    # The direct form, on the k=31 packed lookups (68 taxa).
+    ptaxon, pt_in, pt_out = (t.reshape(phi.shape) for t in pwant)
+    for thr in THRESHOLDS:
+        res.check("score_taxon", f"7 packed direct, threshold {thr}",
+                  score_reads_taxon_plain(ptaxon, pt_in, pt_out, pvalid,
+                                          pdi.tax, thr),
+                  score_reads_taxon(ptaxon, pt_in, pt_out, pvalid, pdi.tax,
+                                    thr))
+    n_hits = int((taxon != 0).sum())
+    levels = di.tax["up"].shape[0]
+    need = lineage_bytes(torch, winners[0], winners[1], di.tax)
+    log(f"[7] lca_lift reaches {need} B of the taxonomy's lifting, parent "
+        "and depth tables")
+    res.time(torch, "score_taxon", "7 wide winners",
+             lambda: score_winners(*args, True),
+             lambda: score_winners_plain(*args, True),
+             nbytes=B * R * 13 + B * 24, ops=n_hits * R * 4 + B * R,
+             plain_calls=1, plain_reps=PLAIN_REPS)
+    res.time(torch, "lca_lift", "7 wide",
+             lambda: lca_lift(*winners, di.tax, 0.0, True),
+             lambda: lca_lift_plain(*winners, di.tax, 0.0, True),
+             nbytes=B * 20 + need, ops=B * (levels * 8 + 24),
+             plain_calls=1, plain_reps=PLAIN_REPS)
+
+    # K5 behind K3's q8 form on the 5,251-taxon q8 world.
+    qdi = q8l["di"]
+    qhi, qlo, qvalid = probes(torch, q8l, Q8_LIFT["k"], Q8_LIFT["w"])
+    hits = [t.reshape(qhi.shape) for t in lookup_q8(
+        qhi.reshape(-1), qlo.reshape(-1), qvalid.reshape(-1), qdi.fused,
+        qdi.stash, Q8_LIFT["k"])]
+    qwin = score_winners_plain(*hits, qvalid, False)
+    for thr in THRESHOLDS:
+        res.check("score_tin", f"7 q8 lifting, threshold {thr}",
+                  score_reads_tin_plain(*hits, qvalid, qdi.tax, thr),
+                  score_reads_tin(*hits, qvalid, qdi.tax, thr))
+        res.check("lca_lift", f"7 q8 lifting, threshold {thr}",
+                  lca_lift_plain(*qwin, qdi.tax, thr, False),
+                  lca_lift(*qwin, qdi.tax, thr, False))
+    # K5 on a chain deep enough for 13 lifting levels: random pairs.
+    ctax = chain_tax(torch, cuda)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    u, v = (torch.randint(0, CHAIN_NODES + 1, (B,), generator=g,
+                          dtype=torch.int32).to(cuda) for _ in range(2))
+    best = torch.randint(0, 4, (B,), generator=g, dtype=torch.int32).to(cuda)
+    nvalid = best + torch.randint(0, 4, (B,), generator=g,
+                                  dtype=torch.int32).to(cuda)
+    cargs = (u, v, ctax["tin"][u.long()], ctax["tin"][v.long()], best,
+             nvalid)
+    log(f"[7] chain: {CHAIN_NODES} nodes, {ctax['up'].shape[0]} lifting "
+        "levels")
+    for thr in THRESHOLDS:
+        res.check("lca_lift", f"7 chain, threshold {thr}",
+                  lca_lift_plain(*cargs, ctax, thr, True),
+                  lca_lift(*cargs, ctax, thr, True))
+    res.assert_clean(("lookup_std", "score_taxon", "lca_lift", "score_tin"))
+
+
+def write_fastq(world) -> tuple:
+    from pangea_tpu_torch.bench import write_fastq_pair
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    paths = (str(work / "reads_1.fastq"), str(work / "reads_2.fastq"))
+    write_fastq_pair(world["reads"], *paths)
+    return paths
 
 
 def main() -> int:
@@ -369,34 +666,62 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from pangea_tpu_torch.kernels import KERNELS as WRAPPERS
+    if set(WRAPPERS) != set(KERNELS):
+        raise AssertionError(f"kernels {sorted(WRAPPERS)} != "
+                             f"{sorted(KERNELS)}")
     cuda = torch.device("cuda", 0)
+    t_start = time.time()
     card = phase_device(torch)
     phase_build()
+    res = Results()
+    none = dict.fromkeys(KERNELS, 0)
 
-    from pangea_tpu_torch.bench import make_bench_world
-    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
-    t0 = time.time()
-    bw = make_bench_world(n_reads=CLI_PAIRS, read_len=READ_LEN, k=K, w=W)
-    rs = bw.reads
-    world = {"idx": bw.index, "reads": rs, "truth": rs.truth,
-             "di": DeviceIndex.from_index(bw.index, cuda, 0.0),
-             "b1": torch.from_numpy(pad_batch(rs.seqs[:BATCH], BATCH,
-                                              READ_LEN)).to(cuda),
-             "b2": torch.from_numpy(pad_batch(rs.mates[:BATCH], BATCH,
-                                              READ_LEN)).to(cuda)}
-    log(f"[3] bench world in {time.time() - t0:.1f} s: {bw.index!r}, "
-        f"{bw.taxonomy.num_taxa} taxa, q8 table "
-        f"{tuple(world['di'].fused.shape)}")
-    results = phase_kernels(torch, world, cuda)
-    out = phase_slice(torch, world, cuda, card)
-    launches = phase_cli(world, out, "cuda")
-    phase_profile(torch, world, card)
+    # Phases 3-6: the q8 headline.
+    q8 = make_world(torch, cuda, "headline", CLI_PAIRS, **HEADLINE)
+    fastq = write_fastq(q8)
+    phase_q8_kernels(torch, q8, cuda, res)
+    out = phase_step(torch, q8, card, "4", {**none, "extract_probes": 2,
+                                            "lookup_q8": 1, "score_tin": 1},
+                     plain_calls=PIPELINED, plain_reps=REPS)
+    q8_cli = phase_cli(q8, out, "5", fastq)
+    phase_profile(torch, q8, card, "6", PROFILE_STEPS["q8"])
+    del q8
 
+    # Phases 7-10: the std layout and the big-taxonomy LCA.
+    worlds = {"wide": make_world(torch, cuda, "wide", CLI_PAIRS, **WIDE),
+              "packed": make_world(torch, cuda, "packed", 1, **PACKED),
+              "q8_lift": make_world(torch, cuda, "q8_lift", 1, **Q8_LIFT)}
+    # The worlds share genomes and seeds, so their reads are the bench's.
+    for name in ("packed", "q8_lift"):
+        worlds[name]["b1"], worlds[name]["b2"] = (worlds["wide"]["b1"],
+                                                  worlds["wide"]["b2"])
+    phase_std_kernels(torch, worlds, cuda, res)
+    wide = worlds["wide"]
+    out = phase_step(torch, wide, card, "8", {
+        **none, "extract_probes": 2, "lookup_std": 1, "score_taxon": 1,
+        "lca_lift": 1}, plain_calls=1, plain_reps=PLAIN_REPS)
+    std_cli = phase_cli(wide, out, "9", fastq)
+    phase_profile(torch, wide, card, "10", PROFILE_STEPS["std"])
+
+    # The main paths' launches: each CLI run's own counts.
+    for path, launches, kernels in (
+            ("q8", q8_cli, ("extract_probes", "lookup_q8", "score_tin")),
+            ("std", std_cli, ("extract_probes", "lookup_std", "score_taxon",
+                              "lca_lift"))):
+        if min(launches[k] for k in kernels) < 1:
+            raise AssertionError(f"the {path} CLI bypassed a kernel: "
+                                 f"{launches}")
+    launches = {k: q8_cli[k] + std_cli[k] for k in KERNELS}
+    log(f"[11] kernel launches of the two CLI runs: q8 {q8_cli}, std "
+        f"{std_cli}; whole run {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "max_abs_err": res.k[name]["max_abs_err"],
+         "ms": res.k[name]["ms"], "plain_ms": res.k[name]["plain_ms"],
+         "bound_ms": res.k[name]["bound_ms"],
+         "bound_by": res.k[name]["bound_by"], "library_ms": None}
         for name, (src, ref) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,29 @@
-"""The synthetic bench world of the classify path.
+"""The synthetic bench worlds of the classify path.
 
 Counterpart of ``pangea_tpu/bench.py`` ``make_bench_world``: the config-2
 scale world (two phyla of 8 genera of 3 species, 50 kb genomes whose genus
 mates share a core, paired 150 bp reads with planted truth), drawn from the
-same seeds through the reference's jax-free host code, so its first
-``n_reads`` pairs are the reference bench's. It differs in three ways: the
-index is built at the minimizer window ``w`` the port classifies with, no
-world is cached on disk, and only as many pairs are drawn as asked for.
+same seeds, so its first ``n_reads`` pairs are the reference bench's and
+its index (auto bucket width) is the reference's at the same window. It
+differs in three ways: the index is built at the minimizer window ``w`` the
+port classifies with, no world is cached on disk, and only as many pairs
+are drawn as asked for.
+
+``tree=(genera_per_phylum, species_per_genus)`` hangs the same genomes on a
+larger two-phylum tree: the first 3 species of the first 8 genera of each
+phylum carry them, so the sequences, reads and k-mers are the bench's and
+only the taxon ids and the tree around them change. ``tree=(512, 64)`` is a
+66,563-taxon tree, whose Euler stamps exceed 16 bits (the std layout with
+wide rows and binary-lifting LCA); ``tree=(64, 40)`` has 5,251 taxa (q8
+with lifting).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from pangea_tpu.index import Index, build_index
-from pangea_tpu.taxonomy import Taxonomy
-from pangea_tpu.utils import datagen
+from .index import Index, build_index
+from .taxonomy import Taxonomy
+from .utils import datagen
 
 
 @dataclass
@@ -26,15 +35,27 @@ class BenchWorld:
 
 def make_bench_world(n_reads: int = 100_000, read_len: int = 150,
                      n_species: int = 48, genome_len: int = 50_000,
-                     k: int = 21, w: int = 8, seed: int = 0) -> BenchWorld:
-    """The bench world with its index at (k, w) and n_reads read pairs."""
+                     k: int = 21, w: int = 8, seed: int = 0,
+                     tree: tuple[int, int] | None = None) -> BenchWorld:
+    """The bench world with its index at (k, w) and n_reads read pairs, on
+    the bench's own tree or on ``tree`` (see the module docstring)."""
     per_genus = 3
     genera = max(n_species // per_genus // 2, 1)
-    tax = datagen.make_taxonomy(n_phyla=2, genera_per_phylum=genera,
-                                species_per_genus=per_genus, seed=seed)
+    if tree is None:
+        tax = datagen.make_taxonomy(n_phyla=2, genera_per_phylum=genera,
+                                    species_per_genus=per_genus, seed=seed)
+    else:
+        if tree[0] < genera or tree[1] < per_genus:
+            raise ValueError(f"tree {tree} is smaller than the bench's "
+                             f"{genera} genera x {per_genus} species")
+        tax = datagen.make_taxonomy(n_phyla=2, genera_per_phylum=tree[0],
+                                    species_per_genus=tree[1], seed=seed)
+        ids = {name: t for t, name in enumerate(tax.names)}
+        tax.species_ids = [ids[f"Species_{p}_{g}_{s}"] for p in range(2)
+                           for g in range(genera) for s in range(per_genus)]
     genomes = datagen.make_genomes(tax, genome_len=genome_len,
                                    seed=seed + 1)
-    idx = build_index(genomes, tax, k=k, w=w)
+    idx = build_index(genomes, tax, k=k, w=w, ways=0)
     rs = datagen.sample_reads(genomes, n_reads, read_len=read_len,
                               paired=True, n_prob=0.005, seed=seed + 2)
     return BenchWorld(tax, idx, rs)

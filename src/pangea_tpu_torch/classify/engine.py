@@ -1,11 +1,12 @@
-"""The classify step: reads -> probes -> q8 lookup -> per-read score.
+"""The classify step: reads -> probes -> table lookup -> per-read score.
 
-Counterpart of ``pangea_tpu/classify/engine.py`` for one device and the q8
-layout. A batch is an int8 [B, L] code tensor (pad = 4); mates are
-concatenated at the probe level, mate 1 first (SEMANTICS.md §8), and
-``nvalid`` counts the valid windows over both mates. On CUDA tensors the
-step is four kernel launches (K1 per mate, K2, K3); on CPU tensors it is
-their plain versions.
+Counterpart of ``pangea_tpu/classify/engine.py`` for one device, with the
+q8 and std table layouts. A batch is an int8 [B, L] code tensor (pad = 4);
+mates are concatenated at the probe level, mate 1 first (SEMANTICS.md §8),
+and ``nvalid`` counts the valid windows over both mates. On CUDA tensors
+the step is K1 once a mate, then K2 (q8) or K4 (std), then K3, plus K5
+when the taxonomy has more than 4,096 entries; on CPU tensors it is their
+plain versions.
 """
 from __future__ import annotations
 
@@ -16,11 +17,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..index.quot import Q8_WAYS, q8_gate, relayout_q8
-from ..kernels.lookup import lookup_q8, lookup_q8_plain
+from ..index import pick_layout, relayout_q8, relayout_std
+from ..index.quot import Q8_WAYS
+from ..kernels.lookup import (fuse_stash, fuse_table, lookup_q8,
+                              lookup_q8_plain, lookup_std, lookup_std_plain)
 from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
-from ..kernels.score import score_reads_tin, score_reads_tin_plain
+from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
+                             score_reads_tin, score_reads_tin_plain)
+
+# The taxonomy arrays the scorer reads (Taxonomy.device_arrays).
+TAX_KEYS = ("tin", "tout", "depth", "parent", "up", "tin2node")
 
 
 @dataclass(frozen=True)
@@ -38,8 +45,9 @@ class ClassifyConfig:
 
 @dataclass
 class DeviceIndex:
-    """One q8 index on one device: fused int32 [NB, 2W], stash int32
-    [5, S] and the taxonomy's tin/tout/depth int32 [T+1]."""
+    """One index on one device: fused int32 [NB, 2W] (q8) or [NB, 4W | 6W]
+    (std) rows, the stash int32 [5, S] and the taxonomy's arrays (int32
+    [T+1], ``up`` [levels, T+1], ``tin2node`` [max tin + 2])."""
     fused: torch.Tensor
     stash: torch.Tensor
     tax: dict
@@ -48,20 +56,31 @@ class DeviceIndex:
     @classmethod
     def from_index(cls, index, device, confidence_threshold: float = 0.0
                    ) -> "DeviceIndex":
-        """Relay a host :class:`pangea_tpu.index.Index` out as the q8
-        table and place it on ``device``."""
+        """Lay a host :class:`~pangea_tpu_torch.index.Index` out as the
+        device table :func:`~pangea_tpu_torch.index.pick_layout` chooses
+        for it (q8 or std; q12 raises) and place it on ``device``."""
         tax = index.taxonomy
-        q8_gate(index.meta.n_kmers, index.meta.k,
-                int(tax.tout.max(initial=0)))
-        out = relayout_q8(index, Q8_WAYS)
-        if out is None:
+        layout = pick_layout(index.meta.n_kmers, 1, index.meta.k,
+                             int(tax.tout.max(initial=0)))
+        if layout == "q12":
             raise NotImplementedError(
-                "the q8 relayout is ineligible for this index; the std and "
-                "q12 layouts are not ported yet (ROADMAP B8/B9, B10)")
-        fused, stash, _nb = out
+                f"k={index.meta.k} with {index.meta.n_kmers} k-mers needs "
+                "the q12 layout, which is not ported yet (ROADMAP B10)")
+        if layout == "q8":
+            out = relayout_q8(index, Q8_WAYS)
+            if out is None:
+                raise NotImplementedError(
+                    "the q8 relayout is ineligible for this index")
+            fused, stash3, _nb = out
+            ways = Q8_WAYS
+        else:
+            key_hi, key_lo, val, stash3 = relayout_std(index)
+            fused = fuse_table(key_hi, key_lo, val, tax.tin, tax.tout)
+            ways = key_hi.shape[-1]
+        stash = fuse_stash(stash3[0], tax.tin, tax.tout)[None]
         cfg = ClassifyConfig(k=index.meta.k,
                              confidence_threshold=confidence_threshold,
-                             w=index.meta.w, ways=Q8_WAYS, layout="q8")
+                             w=index.meta.w, ways=ways, layout=layout)
         tables = {"fused": fused, "stash": stash,
                   "tax": tax.device_arrays()}
         return cls.from_numpy_tables(tables, cfg, device)
@@ -69,15 +88,17 @@ class DeviceIndex:
     @classmethod
     def from_numpy_tables(cls, tables: dict, cfg, device) -> "DeviceIndex":
         """Carry the reference's host tables over: ``tables`` is
-        ``pangea_tpu`` ``DeviceIndex.from_index(idx, layout="q8",
-        device_put=False).tables`` (numpy: fused uint32 [1, NB, 2W], stash
-        uint32 [1, 5, S], tax dict) and ``cfg`` its ``cfg``."""
+        ``pangea_tpu`` ``DeviceIndex.from_index(idx, layout=...,
+        device_put=False).tables`` for layout "q8" or "std" (numpy: fused
+        uint32 [1, NB, lanes], stash uint32 [1, 5, S], the tax dict) and
+        ``cfg`` its ``cfg``."""
         cfg = ClassifyConfig(**dataclasses.asdict(cfg))
-        if cfg.layout != "q8" or cfg.n_shards != 1 or cfg.n_sub != 1:
+        if cfg.layout not in ("q8", "std") or cfg.n_shards != 1 \
+                or cfg.n_sub != 1:
             raise NotImplementedError(
                 f"layout {cfg.layout!r} on {cfg.n_shards} shards x "
-                f"{cfg.n_sub} sub-tables: the port runs one q8 table "
-                "(ROADMAP B8-B10, A6)")
+                f"{cfg.n_sub} sub-tables: the port runs one q8 or std "
+                "table (ROADMAP B10, A6)")
 
         def lanes(a, ndim):
             a = np.asarray(a)
@@ -90,7 +111,7 @@ class DeviceIndex:
 
         tax = {name: torch.from_numpy(np.ascontiguousarray(
                    tables["tax"][name], dtype=np.int32)).to(device)
-               for name in ("tin", "tout", "depth")}
+               for name in TAX_KEYS}
         return cls(fused=lanes(tables["fused"], 2),
                    stash=lanes(tables["stash"], 2), tax=tax, cfg=cfg)
 
@@ -124,13 +145,17 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
     reference the kernels are held to). Returns dict(taxon, best, nvalid)
     int32 [B]."""
     hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain)
-    lookup = lookup_q8_plain if plain else lookup_q8
-    hit, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
-                              tables["stash"], cfg.k)
-    score = score_reads_tin_plain if plain else score_reads_tin
-    tax = tables["tax"]
-    taxon, best, nvalid = score(hit, t_in, t_out, valid, tax["tin"],
-                                tax["tout"], tax["depth"],
+    if cfg.layout == "q8":
+        lookup = lookup_q8_plain if plain else lookup_q8
+        score = score_reads_tin_plain if plain else score_reads_tin
+        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
+                                    tables["stash"], cfg.k)
+    else:
+        lookup = lookup_std_plain if plain else lookup_std
+        score = score_reads_taxon_plain if plain else score_reads_taxon
+        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
+                                    tables["stash"], cfg.ways)
+    taxon, best, nvalid = score(lanes, t_in, t_out, valid, tables["tax"],
                                 cfg.confidence_threshold)
     return {"taxon": taxon, "best": best, "nvalid": nvalid}
 
@@ -144,15 +169,15 @@ class Classifier(nn.Module):
         self.cfg = index.cfg
         self.register_buffer("fused", index.fused, persistent=False)
         self.register_buffer("stash", index.stash, persistent=False)
-        for name, t in index.tax.items():
-            self.register_buffer(name, t, persistent=False)
+        for name in TAX_KEYS:
+            self.register_buffer(name, index.tax[name], persistent=False)
 
     @property
     def index(self) -> DeviceIndex:
         """The index over the module's buffers, wherever they now live."""
         return DeviceIndex(fused=self.fused, stash=self.stash,
                            tax={name: getattr(self, name)
-                                for name in ("tin", "tout", "depth")},
+                                for name in TAX_KEYS},
                            cfg=self.cfg)
 
     def forward(self, bases, mate_bases=None) -> dict:

@@ -5,7 +5,7 @@
         [--device cuda] [key.dotted=value ...]
 
 The flags are those of ``pangea-tpu classify``; every argument after the
-known ones is a dotted config override (``pangea_tpu.config``), e.g.
+known ones is a dotted config override (``config.py``), e.g.
 ``input.batch_size=8192``. ``--device`` names the torch device (default
 ``cuda``); there is no fallback to another device.
 """
@@ -76,8 +76,7 @@ def _rescue_overrides(args, argv) -> None:
 def _cmd_classify(args) -> int:
     import torch
 
-    from pangea_tpu.config import load_config
-
+    from .config import load_config
     from .pipeline import run_classify_basic
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

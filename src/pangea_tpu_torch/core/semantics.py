@@ -1,0 +1,102 @@
+"""The frozen k-mer semantics on the host, numpy only (docs/SEMANTICS.md
+§1-§4).
+
+The port's copy of ``pangea_tpu/core/semantics_np.py``, with the parts the
+index builder and the FASTQ reader use: base codes, canonical k-mers,
+hash32 and the build-side minimizer mask. ``tests/test_torch_host.py``
+holds it equal to the reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+AMBIG = np.uint8(4)  # SEMANTICS.md §1
+
+# 256-entry base→code LUT (case-insensitive; U→T; everything else AMBIG).
+_BASE_LUT = np.full(256, AMBIG, dtype=np.uint8)
+for _b, _c in (("A", 0), ("C", 1), ("G", 2), ("T", 3), ("U", 3)):
+    _BASE_LUT[ord(_b)] = _c
+    _BASE_LUT[ord(_b.lower())] = _c
+
+
+def canonical_kmers(codes: np.ndarray, k: int):
+    """All k-mer positions of one sequence.
+
+    Returns ``(canon: uint64[P], valid: bool[P])`` with P = max(len-k+1, 0).
+    canon[i] = min(fwd, rc) per SEMANTICS.md §2; invalid positions carry
+    canon value 0.
+    """
+    codes = np.asarray(codes, dtype=np.uint8)
+    L = codes.shape[0]
+    P = L - k + 1
+    if P <= 0:
+        return np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=bool)
+    good = codes <= 3
+    # valid[i] = all(good[i:i+k]) via cumulative sum of violations.
+    bad = (~good).astype(np.int32)
+    cs = np.concatenate([[0], np.cumsum(bad)])
+    valid = (cs[k:] - cs[:P]) == 0
+    c64 = codes.astype(np.uint64)
+    cc64 = (np.uint64(3) - np.clip(c64, 0, 3))  # complement (masked by valid)
+    # Rolling big-endian forward value and rolling rc value.
+    fwd = np.zeros(P, dtype=np.uint64)
+    rc = np.zeros(P, dtype=np.uint64)
+    mask = np.uint64((1 << (2 * k)) - 1)
+    f = np.uint64(0)
+    r = np.uint64(0)
+    shift_hi = np.uint64(2 * (k - 1))
+    two = np.uint64(2)
+    for j in range(L):
+        f = ((f << two) | c64[j]) & mask
+        r = (r >> two) | (cc64[j] << shift_hi)
+        if j >= k - 1:
+            fwd[j - k + 1] = f
+            rc[j - k + 1] = r
+    canon = np.where(fwd <= rc, fwd, rc)
+    canon = np.where(valid, canon, np.uint64(0))
+    return canon, valid
+
+
+def mix32_np(v: np.ndarray) -> np.ndarray:
+    """MurmurHash3 fmix32 finalizer, elementwise on uint32 (SEMANTICS.md §4)."""
+    v = v.astype(np.uint32)
+    v ^= v >> np.uint32(16)
+    v = (v * np.uint32(0x85EBCA6B)).astype(np.uint32)
+    v ^= v >> np.uint32(13)
+    v = (v * np.uint32(0xC2B2AE35)).astype(np.uint32)
+    v ^= v >> np.uint32(16)
+    return v
+
+
+def hash32_np(canon: np.ndarray) -> np.ndarray:
+    """uint64 canonical k-mers → uint32 table hash (SEMANTICS.md §4)."""
+    canon = np.asarray(canon, dtype=np.uint64)
+    hi = (canon >> np.uint64(32)).astype(np.uint32)
+    lo = (canon & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    h = mix32_np(lo ^ np.uint32(0x9E3779B9))
+    h = mix32_np(h ^ hi)
+    return h
+
+
+def minimizer_mask(canon: np.ndarray, valid: np.ndarray, w: int) -> np.ndarray:
+    """SEMANTICS.md §3: boolean mask of k-mer positions selected as window
+    minimizers (w consecutive *valid* positions; ties → leftmost). w == 1
+    selects every valid position. Invalid positions are never selected and
+    break windows."""
+    P = canon.shape[0]
+    sel = np.zeros(P, dtype=bool)
+    if w <= 1:
+        return valid.copy()
+    if P < w:
+        return sel
+    h = hash32_np(canon)
+    # A window starts at s iff positions s..s+w-1 are all valid; its
+    # selection = s + argmin(h[s:s+w]) (first occurrence = leftmost tie).
+    bad = (~np.asarray(valid, dtype=bool)).astype(np.int32)
+    cs = np.concatenate([[0], np.cumsum(bad)])
+    win_ok = (cs[w:] - cs[:P - w + 1]) == 0          # [P-w+1]
+    hv = np.lib.stride_tricks.sliding_window_view(h, w)  # [P-w+1, w]
+    arg = np.argmin(hv, axis=1)                      # leftmost min per window
+    pos = np.arange(P - w + 1) + arg
+    sel[pos[win_ok]] = True
+    return sel

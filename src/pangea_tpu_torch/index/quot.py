@@ -1,32 +1,32 @@
-"""The q8 host relayout, numpy only.
+"""The one-shard device relayouts of an index, numpy only.
 
-A jax-free copy of the reference's q8 table builders
+The port's copy of the reference's q8 table builders and q8/q12 sizing
 (``pangea_tpu/kernels/lookup.py`` ``q8_hash_np``, ``q8_rem_bits``,
-``q8_nb_for``, ``q8_layout``, ``_bucket_rank``, ``fuse_stash``), of its
-single-shard relayout (``pangea_tpu/index/shard.py`` ``shard_tables_quot``)
-and of the q8 branch of its layout policy (``pangea_tpu/index/build.py``
-``_q8_sane_nb``, ``q8_plan_sharded``, ``pick_layout``). The reference
-modules reach ``jax`` when they are imported or called, so the port keeps
-its own copy; ``tests/test_torch_quot.py`` holds it byte-identical to the
-reference.
+``q8_nb_for``, ``q12_nb_for``, ``q8_layout``, ``_bucket_rank``) and of its
+one-shard relayouts (``pangea_tpu/index/shard.py`` ``extract_pairs``,
+``shard_tables_quot`` and ``shard_tables`` at one shard).
+``tests/test_torch_quot.py`` holds them byte-identical to the reference.
 
-Layout (SEMANTICS.md §5, q8): the canonical k-mer K (2k bits) is mixed by
-the bijection h = K·A mod 2^(2k); bucket = the top log2(NB) bits of h, rem
-= the low r = 2k − log2(NB) ≤ 31 bits. A fused row holds W rem lanes
-(empty = 0xFFFFFFFF) then W payload lanes (tin << 16 | tout of the k-mer's
-taxon). Bucket overflow goes to a full-key stash in ascending canonical
-order; a stash above ``stash_max`` doubles NB and restarts.
+q8 (SEMANTICS.md §5): the canonical k-mer K (2k bits) is mixed by the
+bijection h = K·A mod 2^(2k); bucket = the top log2(NB) bits of h, rem =
+the low r = 2k − log2(NB) ≤ 31 bits. A row holds W rem lanes (empty =
+0xFFFFFFFF) then W payload lanes (tin << 16 | tout of the k-mer's taxon).
+Bucket overflow goes to a full-key stash in ascending canonical order; a
+stash above ``stash_max`` doubles NB and restarts.
+
+std: the index's own layout (``build.layout_table``) at its bucket width,
+with the stash padded to at least one column of EMPTY_HI keys, as the
+reference's ``stack_parts`` does.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from pangea_tpu.index.build import FAST_ROWS
-from pangea_tpu.index.container import EMPTY_HI
-from pangea_tpu.index.shard import extract_pairs, stack_q8_parts
+from .container import EMPTY_HI
 
 Q8_A = np.uint64(0x9E3779B1)          # odd multiplier of the bijective mix
 Q8_WAYS = 64                          # 8 B x 64 = 512 B fused rows
+Q12_WAYS = 42                         # 42 slots x 3 lanes + pad = 512 B
 
 
 def q8_hash_np(canon: np.ndarray, k: int) -> np.ndarray:
@@ -59,6 +59,16 @@ def q8_nb_for(n: int, k: int, ways: int = Q8_WAYS,
     while q8_rem_bits(k, nb) > 31 and nb <= (1 << 26):
         nb *= 2
     return None if q8_rem_bits(k, nb) > 31 else nb
+
+
+def q12_nb_for(n: int, k: int, ways: int = Q12_WAYS,
+               load_factor: float = 0.5, min_nb: int = 0) -> int:
+    """q12 bucket count: capacity growth and the min_nb floor only (the
+    two-lane remainder always fits)."""
+    nb = _capacity_nb(n, ways, load_factor)
+    while nb < min_nb:
+        nb *= 2
+    return nb
 
 
 def _bucket_rank(b, n: int, ways: int):
@@ -128,23 +138,31 @@ def q8_layout(kmers, taxa, tin, tout, k: int, ways: int = Q8_WAYS,
         return fused, stash, nb
 
 
-def fuse_stash(stash, tin, tout):
-    """uint32 [3, S] (hi, lo, val-bits) -> uint32 [5, S] with the taxon's
-    tin and tout appended as rows 3 and 4."""
-    stash = np.asarray(stash, dtype=np.uint32)
-    sval = stash[2].view(np.int32)
-    tin = np.asarray(tin, dtype=np.int32)
-    tout = np.asarray(tout, dtype=np.int32)
-    return np.concatenate(
-        [stash, tin[sval].view(np.uint32)[None, :],
-         tout[sval].view(np.uint32)[None, :]], axis=0)
+def extract_pairs(index):
+    """Recover (canon uint64[N] ascending, taxon int32[N]) from an index's
+    table (bucket rows + stash; padded stash columns excluded)."""
+    occ = index.key_hi != np.uint32(EMPTY_HI)
+    hi = index.key_hi[occ].astype(np.uint64)
+    lo = index.key_lo[occ].astype(np.uint64)
+    canon = (hi << np.uint64(32)) | lo
+    taxa = np.asarray(index.val)[occ]
+    stash = index.stash
+    if stash is not None and stash.shape[1]:
+        s_hi, s_lo, s_val = stash
+        s_real = s_hi != np.uint32(EMPTY_HI)
+        canon = np.concatenate(
+            [canon, (s_hi[s_real].astype(np.uint64) << np.uint64(32))
+             | s_lo[s_real].astype(np.uint64)])
+        taxa = np.concatenate([taxa, s_val.view(np.int32)[s_real]])
+    order = np.argsort(canon, kind="stable")
+    return canon[order], taxa[order]
 
 
 def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
-    """One-shard q8 relayout of an index: the arrays of the reference's
-    ``DeviceIndex._from_index_quot(index, 1, "q8", ...)``.
+    """One-shard q8 relayout of an index: the reference's
+    ``shard_tables_quot(index, 1, ways, load_factor, "q8")``.
 
-    Returns (fused uint32 [1, NB, 2W], stash uint32 [1, 5, S], nb), or
+    Returns (fused uint32 [1, NB, 2W], stash uint32 [1, 3, S], nb), or
     None when the layout is ineligible."""
     tax = index.taxonomy
     if int(tax.tout.max(initial=0)) > 0xFFFF:
@@ -163,25 +181,21 @@ def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
         if nb_s <= nb:
             break
         nb = nb_s
-    fused, stash3 = stack_q8_parts([(fused, stash3)])
-    stash = fuse_stash(stash3[0], tax.tin, tax.tout)[None]
-    return fused, stash, nb
+    return fused[None], stash3[None], nb
 
 
-def q8_gate(n_kmers: int, k: int, tout_max: int, ways: int = Q8_WAYS,
-            load_factor: float = 0.5) -> str:
-    """The reference's auto layout decision for one shard
-    (``pick_layout(n_kmers, 1, k, tout_max)``), restricted to what the
-    port runs: returns "q8", and raises NotImplementedError where the
-    reference would choose another layout."""
-    if tout_max > 0xFFFF:
-        raise NotImplementedError(
-            "Euler stamps above 16 bits need the std layout, which the "
-            "port does not run yet (ROADMAP B8/B9)")
-    nb_cap = _capacity_nb(n_kmers, ways, load_factor)
-    nb = q8_nb_for(n_kmers, k, ways, load_factor)
-    if nb is None or (nb > 2 * nb_cap and nb > FAST_ROWS):
-        raise NotImplementedError(
-            f"k={k} with {n_kmers} k-mers needs the q12 or std layout, "
-            "which the port does not run yet (ROADMAP B10, B8/B9)")
-    return "q8"
+def relayout_std(index, load_factor: float = 0.5):
+    """One-shard std relayout of an index: the reference's
+    ``shard_tables(index, 1, load_factor)``, the index's pairs laid out
+    again at ``index.meta.ways``.
+
+    Returns (key_hi uint32 [1, NB, W], key_lo uint32 [1, NB, W], val int32
+    [1, NB, W], stash uint32 [1, 3, max(S, 1)])."""
+    from .build import layout_table
+    canon, taxa = extract_pairs(index)
+    key_hi, key_lo, val, st, _nb = layout_table(canon, taxa, load_factor,
+                                                ways=index.meta.ways)
+    stash = np.zeros((1, 3, max(st.shape[1], 1)), dtype=np.uint32)
+    stash[:, 0, :] = EMPTY_HI
+    stash[0, :, :st.shape[1]] = st
+    return key_hi[None], key_lo[None], val[None], stash

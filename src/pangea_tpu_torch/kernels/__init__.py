@@ -1,13 +1,19 @@
 """Device functions of the port: each has a plain PyTorch version and a
 wrapper that launches a hand-written CUDA kernel on CUDA tensors."""
 from .encode import extract_kmers
-from .lookup import hash32, lookup_q8, lookup_q8_plain, mix32
+from .lookup import (fuse_stash, fuse_table, hash32, lookup_q8,
+                     lookup_q8_plain, lookup_std, lookup_std_plain, mix32)
 from .minimize import extract_probes, extract_probes_plain, select_minimizers
-from .score import score_reads_tin, score_reads_tin_plain
+from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
+                    score_reads_plain, score_reads_taxon,
+                    score_reads_taxon_plain, score_reads_tin,
+                    score_reads_tin_plain, score_winners,
+                    score_winners_plain)
 
 # The kernel wrappers, whose `launches` attribute counts kernel launches.
 KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
-           "score_tin": score_reads_tin}
+           "score_tin": score_reads_tin, "lookup_std": lookup_std,
+           "score_taxon": score_reads_taxon, "lca_lift": lca_lift}
 
 
 def kernel_launches() -> dict:
@@ -21,6 +27,11 @@ def reset_kernel_launches() -> None:
 
 
 __all__ = ["KERNELS", "extract_kmers", "extract_probes",
-           "extract_probes_plain", "hash32", "kernel_launches", "lookup_q8",
-           "lookup_q8_plain", "mix32", "reset_kernel_launches",
-           "score_reads_tin", "score_reads_tin_plain", "select_minimizers"]
+           "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
+           "kernel_launches", "lca_lift", "lca_lift_plain",
+           "lca_pairs_plain", "lookup_q8", "lookup_q8_plain", "lookup_std",
+           "lookup_std_plain", "mix32", "reset_kernel_launches",
+           "score_reads_plain", "score_reads_taxon",
+           "score_reads_taxon_plain", "score_reads_tin",
+           "score_reads_tin_plain", "score_winners", "score_winners_plain",
+           "select_minimizers"]

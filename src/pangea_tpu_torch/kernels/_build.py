@@ -1,11 +1,14 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``. The
-library is built at first use into a per-user cache directory named by the
-hash of the sources and flags, ``$XDG_CACHE_HOME/pangea_tpu_torch/<hash>/``
-(``~/.cache`` without ``XDG_CACHE_HOME``), so builds from different sources
-never replace one another. Nothing is built or loaded when this module is
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and one link joins the objects into a shared library
+with a plain C interface, loaded through ``ctypes``. The library is built
+at first use into a directory named by the hash of the sources and flags,
+so builds from different sources never replace one another:
+``build/kernels/<hash>/`` of the repository when the package runs from a
+checkout (``build/`` is ignored by git), else
+``$XDG_CACHE_HOME/pangea_tpu_torch/<hash>/`` (``~/.cache`` without
+``XDG_CACHE_HOME``). Nothing is built or loaded when this module is
 imported.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIB_NAME = "libpangea_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,10 +38,18 @@ SIGNATURES = {
     # hi, lo, valid, N, fused, NB, W, stash, S, k, hit, t_in, t_out, stream
     "pangea_lookup_q8": (_P, _P, _P, _I64, _P, _I64, _I, _P, _I, _I,
                          _P, _P, _P, _P),
-    # hit, t_in, t_out, valid, B, R, tin, tout, depth, T1, thr,
-    # taxon, best, nvalid, stream
-    "pangea_score_tin": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _F,
-                         _P, _P, _P, _P),
+    # hi, lo, valid, N, fused, NB, W, packed, stash, S, taxon, t_in, t_out,
+    # stream
+    "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I,
+                          _P, _P, _P, _P),
+    # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
+    # thr, o0..o5, stream
+    "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
+                     _P, _P, _P, _P, _P, _P, _P),
+    # u, v, tin_u, tin_v, best, nvalid, B, tin2node, M, parent, depth, up,
+    # levels, T1, thr, taxon, stream
+    "pangea_lca_lift": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                        _I, _I, _F, _P, _P),
 }
 
 
@@ -62,10 +73,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _checkout_root() -> Path | None:
+    """The repository root when the sources lie in its
+    ``src/pangea_tpu_torch/csrc``, else None (an installed package)."""
+    root = CSRC.parent.parent.parent
+    if CSRC.parent.parent.name == "src" and (root / "pyproject.toml").is_file():
+        return root
+    return None
+
+
 def build_dir() -> Path:
     """Where the library of the current sources lives."""
-    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-    return Path(cache) / "pangea_tpu_torch" / _source_hash()
+    root = _checkout_root()
+    if root is not None:
+        base = root / "build" / "kernels"
+    else:
+        cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+        base = Path(cache) / "pangea_tpu_torch"
+    return base / _source_hash()
+
+
+def run_all(cmds: list[list[str]]) -> None:
+    """Run the commands all at once; raise with the output of each that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def compile_library(nvcc: str, lib: Path) -> None:
+    """Compile csrc/*.cu into the shared library ``lib``: one nvcc a
+    source, all started together, then one link."""
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [lib.parent / f"{p.stem}.{os.getpid()}.o" for p in srcs]
+    try:
+        run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                 for p, o in zip(srcs, objs)])
+        run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def build() -> Path:
@@ -75,14 +130,10 @@ def build() -> Path:
     lib = out / LIB_NAME
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     out.mkdir(parents=True, exist_ok=True)
     tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    compile_library(nvcc, tmp)
     os.replace(tmp, lib)
     return lib
 

@@ -1,7 +1,9 @@
-"""hash32 and the q8 table probe (SEMANTICS.md §4-5).
+"""hash32 and the table probes (SEMANTICS.md §4-5).
 
 Counterpart of ``pangea_tpu/kernels/lookup.py``: ``mix32``/``hash32``
-(``mix32_jnp``/``hash32_jnp``) and ``lookup_q8`` (``lookup_q8_jnp``).
+(``mix32_jnp``/``hash32_jnp``), ``lookup_q8`` (``lookup_q8_jnp``, kernel K2)
+and ``lookup_std`` (``lookup_jnp`` for one shard, kernel K4), with the
+host builders of the std device rows, ``fuse_table`` and ``fuse_stash``.
 
 Lane rule: 32-bit unsigned lanes live in ``torch.int32`` tensors holding
 the uint32 bit pattern. The plain versions widen them to int64
@@ -10,6 +12,7 @@ halves (:func:`_mul32`) and narrow back at the end (:func:`narrow`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -147,3 +150,122 @@ def lookup_q8(hi, lo, valid, fused, stash, k: int):
 
 
 lookup_q8.launches = 0
+
+
+def fuse_table(key_hi, key_lo, val, tin, tout) -> np.ndarray:
+    """Host: [..., NB, W] x3 table arrays and the taxonomy's Euler arrays
+    ([T+1]) -> one uint32 device row a bucket carrying the hit taxon's
+    Euler interval (the reference's ``fuse_table``):
+
+    - packed [..., NB, 4W] = [hi | lo | val | tin << 16 | tout] when the
+      stamps fit 16 bits (tout <= 0xFFFF);
+    - wide [..., NB, 6W] = [hi | lo | val | tin | tout | pad] otherwise.
+    """
+    key_hi = np.asarray(key_hi, dtype=np.uint32)
+    val = np.asarray(val, dtype=np.int32)
+    tin = np.asarray(tin, dtype=np.int32)
+    tout = np.asarray(tout, dtype=np.int32)
+    if int(tout.max(initial=0)) <= 0xFFFF:
+        pk = (tin[val].astype(np.uint32) << np.uint32(16)) \
+            | tout[val].astype(np.uint32)
+        return np.concatenate(
+            [key_hi, np.asarray(key_lo, dtype=np.uint32),
+             val.view(np.uint32), pk], axis=-1)
+    pad = np.zeros(key_hi.shape, dtype=np.uint32)
+    return np.concatenate(
+        [key_hi, np.asarray(key_lo, dtype=np.uint32),
+         val.view(np.uint32),
+         tin[val].view(np.uint32),
+         tout[val].view(np.uint32), pad], axis=-1)
+
+
+def fuse_stash(stash, tin, tout) -> np.ndarray:
+    """Host: uint32 [3, S] (hi, lo, val-bits) -> uint32 [5, S] with the
+    taxon's tin and tout appended as rows 3 and 4 (padding columns keep
+    val 0 and an EMPTY_HI key, which no valid probe matches)."""
+    stash = np.asarray(stash, dtype=np.uint32)
+    sval = stash[2].view(np.int32)
+    tin = np.asarray(tin, dtype=np.int32)
+    tout = np.asarray(tout, dtype=np.int32)
+    return np.concatenate(
+        [stash, tin[sval].view(np.uint32)[None, :],
+         tout[sval].view(np.uint32)[None, :]], axis=0)
+
+
+def _std_geometry(fused: torch.Tensor, ways: int) -> bool:
+    """True for packed rows, False for wide; raises for anything else."""
+    nb, lanes = fused.shape
+    if nb < 1 or nb & (nb - 1) or lanes not in (4 * ways, 6 * ways):
+        raise ValueError(f"std table {tuple(fused.shape)} with W={ways}: "
+                         "want a power-of-two NB and 4W (packed) or 6W "
+                         "(wide) lanes")
+    return lanes == 4 * ways
+
+
+def lookup_std_plain(hi, lo, valid, fused, stash, ways: int):
+    """Plain PyTorch std probe (any device), one shard. hi/lo int32 bit
+    patterns and valid bool, any shape; fused int32 [NB, 4W | 6W]; stash
+    int32 [5, S]. Returns (taxon, t_in, t_out) int32 like hi: the hit
+    taxon (0 = miss or invalid) and its Euler interval; every sum wraps
+    in 32 bits, as the reference's do."""
+    packed = _std_geometry(fused, ways)
+    W = ways
+    shape = hi.shape
+    hi, lo, valid = hi.reshape(-1), lo.reshape(-1), valid.reshape(-1)
+    mask = fused.shape[0] - 1
+    outs = []
+    for s in range(0, max(hi.shape[0], 1), _PLAIN_CHUNK):
+        h_c, l_c, v_c = (x[s:s + _PLAIN_CHUNK] for x in (hi, lo, valid))
+        bucket = _hash32(widen(h_c), widen(l_c)) & mask
+        rows = fused[bucket]                            # [n, 4W | 6W]
+        match = (v_c[:, None] & (rows[:, :W] == h_c[:, None])
+                 & (rows[:, W:2 * W] == l_c[:, None]))
+
+        def lane_sum(j):
+            return torch.where(match, rows[:, j * W:(j + 1) * W].long(),
+                               0).sum(1)
+
+        taxon = lane_sum(2)
+        if packed:
+            pk = torch.where(match, widen(rows[:, 3 * W:]), 0).sum(1) & M32
+            t_in, t_out = pk >> 16, pk & 0xFFFF
+        else:
+            t_in, t_out = lane_sum(3), lane_sum(4)
+        if stash.shape[1]:
+            shit = (v_c[:, None] & (h_c[:, None] == stash[0][None, :])
+                    & (l_c[:, None] == stash[1][None, :]))
+            taxon, t_in, t_out = (
+                acc + torch.where(shit, stash[r].long()[None, :], 0).sum(1)
+                for acc, r in ((taxon, 2), (t_in, 3), (t_out, 4)))
+        outs.append((narrow(taxon), narrow(t_in), narrow(t_out)))
+    return tuple(torch.cat(o).reshape(shape) for o in zip(*outs))
+
+
+def lookup_std(hi, lo, valid, fused, stash, ways: int):
+    """std probe: the plain version for CPU tensors, kernel K4
+    (``csrc/lookup_std.cu``) for CUDA tensors. Same contract as
+    :func:`lookup_std_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_std_plain(hi, lo, valid, fused, stash, ways)
+    _build.check(hi, torch.int32, name="hi")
+    _build.check(lo, torch.int32, shape=hi.shape, name="lo")
+    _build.check(valid, torch.bool, shape=hi.shape, name="valid")
+    _build.check(fused, torch.int32, ndim=2, name="fused")
+    _build.check(stash, torch.int32, ndim=2, name="stash")
+    packed = _std_geometry(fused, ways)
+    if stash.shape[0] != 5:
+        raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
+    taxon = torch.empty(hi.shape, dtype=torch.int32, device=dev)
+    t_in = torch.empty_like(taxon)
+    t_out = torch.empty_like(taxon)
+    _build.launch("pangea_lookup_std", dev, hi.data_ptr(), lo.data_ptr(),
+                  valid.data_ptr(), hi.numel(), fused.data_ptr(),
+                  fused.shape[0], ways, int(packed), stash.data_ptr(),
+                  stash.shape[1], taxon.data_ptr(), t_in.data_ptr(),
+                  t_out.data_ptr())
+    lookup_std.launches += 1
+    return taxon, t_in, t_out
+
+
+lookup_std.launches = 0

@@ -1,10 +1,20 @@
-"""Per-read consensus score and LCA for the q8 path (SEMANTICS.md §7).
+"""Per-read consensus score and LCA (SEMANTICS.md §6-7).
 
-Counterpart of ``pangea_tpu/kernels/score.py`` ``score_reads_tin_jnp``
-with the quadratic pscore (``_pscore_quadratic``) and the direct LCA scan
-(``_lca_by_tin_direct``). :func:`score_reads_tin` runs kernel K3
-(``csrc/score_tin.cu``) on CUDA tensors and :func:`score_reads_tin_plain`
-on CPU tensors.
+Counterpart of ``pangea_tpu/kernels/score.py`` ``_score_impl`` with the
+quadratic pscore, for both lookups:
+
+- the q8 form (``score_reads_tin_jnp``): the lanes are hit counts, and the
+  winners' node ids are recovered from their Euler tins;
+- the taxon form (``score_reads_jnp``, the std lookup): the lanes are hit
+  taxa, and the winners' node ids are read from them.
+
+The LCA of the winners is the direct scan over the taxonomy
+(``_lca_by_tin_direct``) when it has at most :data:`DIRECT_LCA_MAX_TAXA`
+entries (T + 1), and binary lifting (``lca_pairs_jnp``) above that. On CUDA
+tensors :func:`score_reads_tin` and :func:`score_reads_taxon` run kernel
+K3 (``csrc/score_tin.cu``, one launch with the direct scan, or its winners
+form followed by K5, ``csrc/lca_lift.cu``, :func:`lca_lift`); on CPU
+tensors they run :func:`score_reads_plain`.
 """
 from __future__ import annotations
 
@@ -13,74 +23,286 @@ import torch
 from . import _build
 
 _I32_MAX = 2**31 - 1
-# Kernel K3 limits: its four [R] shared-memory arrays, and the direct LCA
-# scan (bigger taxonomies take binary lifting, ROADMAP B12).
-MAX_PROBES = 2048
-MAX_TAXA = 4096
+MAX_PROBES = 2048            # K3's shared-memory arrays hold R <= 2048
+DIRECT_LCA_MAX_TAXA = 4096   # the reference's _DIRECT_LCA_MAX_TAXA
+_PLAIN_PSCORE_ELEMS = 1 << 26   # [B, R, R] elements a plain pscore step
 
 
-def score_reads_tin_plain(hit, t_in, t_out, valid, tin, tout, depth,
-                          confidence_threshold: float):
-    """Plain PyTorch K3 (any device). hit/t_in/t_out int32 and valid bool
-    [B, R]; tin/tout/depth int32 [T+1]. Returns (taxon, best, nvalid)
-    int32 [B]."""
-    hitb = hit != 0
-    anc = ((t_in[:, :, None] <= t_in[:, None, :])
-           & (t_in[:, None, :] < t_out[:, :, None]) & hitb[:, :, None])
-    pscore = torch.where(hitb, anc.sum(1, dtype=torch.int32), 0)
+def _pscore_plain(t_in, t_out, hit):
+    """[B, R] count of hit intervals containing each probe's t_in, over row
+    chunks that bound the [Bc, R, R] intermediate."""
+    B, R = t_in.shape
+    bc = max(_PLAIN_PSCORE_ELEMS // max(R * R, 1), 1)
+    parts = []
+    for s in range(0, B, bc):
+        ti, to, h = t_in[s:s + bc], t_out[s:s + bc], hit[s:s + bc]
+        anc = ((ti[:, :, None] <= ti[:, None, :])
+               & (ti[:, None, :] < to[:, :, None]) & h[:, :, None])
+        parts.append(anc.sum(1, dtype=torch.int32))
+    return torch.cat(parts) if parts else torch.zeros_like(t_in)
+
+
+def score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes: bool):
+    """The part of :func:`score_reads_plain` before the LCA. lanes int32
+    [B, R]: hit counts (q8) or hit taxa (taxon_lanes). Returns (u, v,
+    tin_u, tin_v, best, nvalid) int32 [B]: the min-tin and max-tin winners'
+    node ids (q8: 1 if the read has a winner, else 0) and tins (INT_MAX and
+    -2 without a winner), the best pscore and the valid-probe count."""
+    hit = lanes != 0
+    pscore = torch.where(hit, _pscore_plain(t_in, t_out, hit), 0)
     best = pscore.max(dim=1).values
-    winner = hitb & (pscore == best[:, None]) & (best[:, None] > 0)
+    winner = hit & (pscore == best[:, None]) & (best[:, None] > 0)
     tin_u = torch.where(winner, t_in, _I32_MAX).min(dim=1).values
     tin_v = torch.where(winner, t_in, -2).max(dim=1).values
-    ca = ((tin[None, :] <= tin_u[:, None]) & (tin_u[:, None] < tout[None, :])
-          & (tin[None, :] <= tin_v[:, None])
-          & (tin_v[:, None] < tout[None, :]))
-    d = torch.where(ca, depth[None, :], -1)
-    assigned = torch.where(best > 0, d.argmax(dim=1), 0)   # first maximum
+    if taxon_lanes:
+        u = torch.where(winner & (t_in == tin_u[:, None]), lanes,
+                        0).max(dim=1).values
+        v = torch.where(winner & (t_in == tin_v[:, None]), lanes,
+                        0).max(dim=1).values
+    else:
+        u = v = (best > 0).to(torch.int32)
     nvalid = valid.sum(dim=1, dtype=torch.int32)
+    return (u.to(torch.int32), v.to(torch.int32), tin_u.to(torch.int32),
+            tin_v.to(torch.int32), best.to(torch.int32), nvalid)
+
+
+def _identity(res, u, v):
+    """The LCA's identity rules for 0 (the reference's score.py:154)."""
+    return torch.where((u == 0) & (v == 0), 0,
+                       torch.where(u == 0, v, torch.where(v == 0, u, res)))
+
+
+def _threshold(assigned, best, nvalid, confidence_threshold: float):
+    """taxon = 0 when float32(best) < float32(thr) * float32(nvalid) (one
+    rounded multiply) or nvalid == 0."""
     thr = torch.tensor(confidence_threshold, dtype=torch.float32,
                        device=nvalid.device)
     below = best.to(torch.float32) < thr * nvalid.to(torch.float32)
-    taxon = torch.where(below | (nvalid == 0), 0, assigned)
-    return taxon.to(torch.int32), best.to(torch.int32), nvalid
+    return torch.where(below | (nvalid == 0), 0, assigned).to(torch.int32)
 
 
-def score_reads_tin(hit, t_in, t_out, valid, tin, tout, depth,
-                    confidence_threshold: float):
-    """Same contract as :func:`score_reads_tin_plain`: the plain version
-    for CPU tensors, kernel K3 for CUDA tensors."""
-    dev = _build.dispatch_device(hit, t_in, t_out, valid, tin, tout, depth)
-    if dev is None:
-        return score_reads_tin_plain(hit, t_in, t_out, valid, tin, tout,
-                                     depth, confidence_threshold)
-    _build.check(hit, torch.int32, ndim=2, name="hit")
-    B, R = hit.shape
+def lca_direct_plain(u, v, tin_u, tin_v, tin, tout, depth):
+    """Pairwise LCA by scanning the taxonomy: the deepest taxon whose
+    [tin, tout) holds both tins (first index on a tie), then the identity
+    rules for 0."""
+    ca = ((tin[None, :] <= tin_u[:, None]) & (tin_u[:, None] < tout[None, :])
+          & (tin[None, :] <= tin_v[:, None])
+          & (tin_v[:, None] < tout[None, :]))
+    res = torch.where(ca, depth[None, :], -1).argmax(dim=1)
+    return _identity(res, u, v).to(torch.int32)
+
+
+def lca_pairs_plain(u, v, parent, depth, up):
+    """Pairwise LCA by binary lifting (the reference's ``lca_pairs_jnp``).
+    u, v int32 [B]; parent/depth int32 [T+1]; up int32 [levels, T+1].
+    0 acts as identity."""
+    u, v = u.long(), v.long()
+    zu, zv = u == 0, v == 0
+    uu = torch.where(zu, 1, u)
+    vv = torch.where(zv, 1, v)
+    du, dv = depth[uu].long(), depth[vv].long()
+    swap = dv > du
+    a = torch.where(swap, vv, uu)            # a is the deeper node
+    b = torch.where(swap, uu, vv)
+    diff = (du - dv).abs()
+    for lvl in range(up.shape[0] - 1, -1, -1):
+        a = torch.where(((diff >> lvl) & 1) == 1, up[lvl][a].long(), a)
+    equal = a == b
+    for lvl in range(up.shape[0] - 1, -1, -1):
+        ua, ub = up[lvl][a].long(), up[lvl][b].long()
+        move = ~equal & (ua != ub)
+        a = torch.where(move, ua, a)
+        b = torch.where(move, ub, b)
+    res = torch.where(equal, a, parent[a].long())
+    return _identity(res, u, v).to(torch.int32)
+
+
+def _recover_nodes(u, v, tin_u, tin_v, tin2node):
+    """q8: node ids of the winners from their tins (0 without a winner)."""
+    top = tin2node.shape[0] - 1
+    has = u != 0
+    u = torch.where(has, tin2node[tin_u.clamp(0, top).long()], 0)
+    v = torch.where(has, tin2node[tin_v.clamp(0, top).long()], 0)
+    return u, v
+
+
+def lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax: dict,
+                   confidence_threshold: float, taxon_lanes: bool):
+    """Plain K5: the winners' LCA by binary lifting (q8: node ids first
+    recovered through ``tin2node``), then the threshold. int32 [B] in,
+    taxon int32 [B] out."""
+    if not taxon_lanes:
+        u, v = _recover_nodes(u, v, tin_u, tin_v, tax["tin2node"])
+    assigned = lca_pairs_plain(u, v, tax["parent"], tax["depth"], tax["up"])
+    return _threshold(assigned, best, nvalid, confidence_threshold)
+
+
+def score_reads_plain(lanes, t_in, t_out, valid, tax: dict,
+                      confidence_threshold: float, taxon_lanes: bool):
+    """Plain PyTorch K3 (+ K5) on any device. lanes/t_in/t_out int32 and
+    valid bool [B, R]; tax: the taxonomy's device arrays (tin, tout, depth,
+    parent, up, tin2node). Returns (taxon, best, nvalid) int32 [B]."""
+    u, v, tin_u, tin_v, best, nvalid = score_winners_plain(
+        lanes, t_in, t_out, valid, taxon_lanes)
+    if tax["tin"].shape[0] <= DIRECT_LCA_MAX_TAXA:
+        assigned = lca_direct_plain(u, v, tin_u, tin_v, tax["tin"],
+                                    tax["tout"], tax["depth"])
+        taxon = _threshold(assigned, best, nvalid, confidence_threshold)
+    else:
+        taxon = lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax,
+                               confidence_threshold, taxon_lanes)
+    return taxon, best, nvalid
+
+
+def score_reads_tin_plain(hit, t_in, t_out, valid, tax: dict,
+                          confidence_threshold: float):
+    """:func:`score_reads_plain` of the q8 lookup's hit lanes."""
+    return score_reads_plain(hit, t_in, t_out, valid, tax,
+                             confidence_threshold, taxon_lanes=False)
+
+
+def score_reads_taxon_plain(taxon, t_in, t_out, valid, tax: dict,
+                            confidence_threshold: float):
+    """:func:`score_reads_plain` of the std lookup's taxon lanes."""
+    return score_reads_plain(taxon, t_in, t_out, valid, tax,
+                             confidence_threshold, taxon_lanes=True)
+
+
+def _check_tax(tax: dict, names) -> int:
+    """Raise unless the named taxonomy arrays are int32, contiguous and
+    sized for T + 1 = len(tin) taxa (``up`` [levels >= 1, T + 1]); return
+    T + 1."""
+    T1 = tax["tin"].shape[0]
+    for name in names:
+        _build.check(tax[name], torch.int32,
+                     shape=None if name in ("up", "tin2node") else (T1,),
+                     ndim=2 if name == "up" else 1, name=name)
+    if "up" in names and (tax["up"].shape[1] != T1
+                          or tax["up"].shape[0] < 1):
+        raise ValueError(f"up {tuple(tax['up'].shape)} is not "
+                         f"[levels >= 1, {T1}]")
+    return T1
+
+
+def _check_lanes(lanes, t_in, t_out, valid):
+    _build.check(lanes, torch.int32, ndim=2, name="lanes")
+    B, R = lanes.shape
     for t, name in ((t_in, "t_in"), (t_out, "t_out")):
         _build.check(t, torch.int32, shape=(B, R), name=name)
     _build.check(valid, torch.bool, shape=(B, R), name="valid")
-    T1 = tin.shape[0]
-    for t, name in ((tin, "tin"), (tout, "tout"), (depth, "depth")):
-        _build.check(t, torch.int32, shape=(T1,), name=name)
     if R > MAX_PROBES:
         raise NotImplementedError(
             f"{R} probes a read exceed kernel K3's {MAX_PROBES}: long reads "
             "need the ranked pscore (ROADMAP B11)")
-    if T1 > MAX_TAXA:
-        raise NotImplementedError(
-            f"{T1} taxa exceed the direct LCA scan's {MAX_TAXA}: binary "
-            "lifting is not ported yet (ROADMAP B12)")
     if R == 0:
-        raise ValueError("score_reads_tin needs at least one probe a read")
+        raise ValueError("the scorer needs at least one probe a read")
+    return B, R
+
+
+def _k3_wrapper(taxon_lanes: bool):
+    """The wrapper whose count a launch of K3's form raises."""
+    return score_reads_taxon if taxon_lanes else score_reads_tin
+
+
+def score_winners(lanes, t_in, t_out, valid, taxon_lanes: bool):
+    """K3's winners form on CUDA tensors (the plain
+    :func:`score_winners_plain` on CPU tensors): the part of the score
+    before a lifted LCA. Same contract as :func:`score_winners_plain`; the
+    launch counts on :func:`score_reads_taxon` or :func:`score_reads_tin`,
+    the wrapper of its form."""
+    dev = _build.dispatch_device(lanes, t_in, t_out, valid)
+    if dev is None:
+        return score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes)
+    B, R = _check_lanes(lanes, t_in, t_out, valid)
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    _build.launch("pangea_score", dev, lanes.data_ptr(), t_in.data_ptr(),
+                  t_out.data_ptr(), valid.data_ptr(), B, R,
+                  int(taxon_lanes), 0, 0, 0, 0, 0.0,
+                  *(o.data_ptr() for o in out))
+    _k3_wrapper(taxon_lanes).launches += 1
+    return tuple(out)
+
+
+def _score(lanes, t_in, t_out, valid, tax: dict,
+           confidence_threshold: float, taxon_lanes: bool):
+    """The body of :func:`score_reads_tin` and :func:`score_reads_taxon`:
+    the plain version on CPU tensors; on CUDA tensors K3's direct form in
+    one launch for up to DIRECT_LCA_MAX_TAXA taxa, else its winners form
+    and then K5. Only the taxonomy arrays the form reads are checked."""
+    direct = tax["tin"].shape[0] <= DIRECT_LCA_MAX_TAXA
+    names = ("tin", "tout", "depth") if direct else \
+        ("parent", "depth", "up", "tin2node")
+    dev = _build.dispatch_device(lanes, t_in, t_out, valid,
+                                 *(tax[n] for n in names))
+    if dev is None:
+        return score_reads_plain(lanes, t_in, t_out, valid, tax,
+                                 confidence_threshold, taxon_lanes)
+    if not direct:
+        u, v, tin_u, tin_v, best, nvalid = score_winners(
+            lanes, t_in, t_out, valid, taxon_lanes)
+        taxon = lca_lift(u, v, tin_u, tin_v, best, nvalid, tax,
+                         confidence_threshold, taxon_lanes)
+        return taxon, best, nvalid
+    B, R = _check_lanes(lanes, t_in, t_out, valid)
+    T1 = _check_tax(tax, names)
+    out = torch.empty((3, B), dtype=torch.int32, device=dev)
+    _build.launch("pangea_score", dev, lanes.data_ptr(), t_in.data_ptr(),
+                  t_out.data_ptr(), valid.data_ptr(), B, R,
+                  int(taxon_lanes), tax["tin"].data_ptr(),
+                  tax["tout"].data_ptr(), tax["depth"].data_ptr(), T1,
+                  float(confidence_threshold),
+                  *(o.data_ptr() for o in out), 0, 0, 0)
+    _k3_wrapper(taxon_lanes).launches += 1
+    return tuple(out)
+
+
+def score_reads_tin(hit, t_in, t_out, valid, tax: dict,
+                    confidence_threshold: float):
+    """Score the q8 lookup's hits: the plain version for CPU tensors,
+    kernel K3's q8 form (plus K5 above DIRECT_LCA_MAX_TAXA taxa) for CUDA
+    tensors. Same contract as :func:`score_reads_tin_plain`."""
+    return _score(hit, t_in, t_out, valid, tax, confidence_threshold,
+                  taxon_lanes=False)
+
+
+def score_reads_taxon(taxon, t_in, t_out, valid, tax: dict,
+                      confidence_threshold: float):
+    """Score the std lookup's hit taxa: the plain version for CPU tensors,
+    kernel K3's taxon form (plus K5 above DIRECT_LCA_MAX_TAXA taxa) for
+    CUDA tensors. Same contract as :func:`score_reads_taxon_plain`."""
+    return _score(taxon, t_in, t_out, valid, tax, confidence_threshold,
+                  taxon_lanes=True)
+
+
+def lca_lift(u, v, tin_u, tin_v, best, nvalid, tax: dict,
+             confidence_threshold: float, taxon_lanes: bool):
+    """K5 on CUDA tensors, the plain version on CPU tensors; same contract
+    as :func:`lca_lift_plain`."""
+    names = ("parent", "depth", "up", "tin2node")
+    dev = _build.dispatch_device(u, v, tin_u, tin_v, best, nvalid,
+                                 *(tax[n] for n in names))
+    if dev is None:
+        return lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax,
+                              confidence_threshold, taxon_lanes)
+    B = u.shape[0]
+    for t, name in ((u, "u"), (v, "v"), (tin_u, "tin_u"), (tin_v, "tin_v"),
+                    (best, "best"), (nvalid, "nvalid")):
+        _build.check(t, torch.int32, shape=(B,), name=name)
+    T1 = _check_tax(tax, names)
+    levels = tax["up"].shape[0]
+    t2n = tax["tin2node"]
     taxon = torch.empty(B, dtype=torch.int32, device=dev)
-    best = torch.empty_like(taxon)
-    nvalid = torch.empty_like(taxon)
-    _build.launch("pangea_score_tin", dev, hit.data_ptr(), t_in.data_ptr(),
-                  t_out.data_ptr(), valid.data_ptr(), B, R, tin.data_ptr(),
-                  tout.data_ptr(), depth.data_ptr(), T1,
-                  float(confidence_threshold), taxon.data_ptr(),
-                  best.data_ptr(), nvalid.data_ptr())
-    score_reads_tin.launches += 1
-    return taxon, best, nvalid
+    _build.launch("pangea_lca_lift", dev, u.data_ptr(), v.data_ptr(),
+                  tin_u.data_ptr(), tin_v.data_ptr(), best.data_ptr(),
+                  nvalid.data_ptr(), B,
+                  0 if taxon_lanes else t2n.data_ptr(), t2n.shape[0],
+                  tax["parent"].data_ptr(), tax["depth"].data_ptr(),
+                  tax["up"].data_ptr(), levels, T1,
+                  float(confidence_threshold), taxon.data_ptr())
+    lca_lift.launches += 1
+    return taxon
 
 
 score_reads_tin.launches = 0
+score_reads_taxon.launches = 0
+lca_lift.launches = 0

@@ -1,8 +1,8 @@
 """Basic streaming classify run on one device.
 
 Counterpart of the general (non-native) branch of
-``pangea_tpu/pipeline/run.py`` ``run_classify`` for one q8 index on one
-device: read files (single or paired) stream through ``read_batches`` at
+``pangea_tpu/pipeline/run.py`` ``run_classify`` for one index (q8 or std
+layout) on one device: read files (single or paired) stream through ``read_batches`` at
 ``input.batch_size``, each batch runs the :class:`Classifier`, and the run
 writes ``{sample}.assign.tsv``, ``{sample}.summary.tsv`` (plus
 ``cohort.summary.tsv`` for several samples) and ``stats.json`` exactly as
@@ -24,16 +24,14 @@ import time
 import numpy as np
 import torch
 
-from pangea_tpu.config import RunConfig, dump_config
-from pangea_tpu.index import load_index_any
-from pangea_tpu.io.fastx import read_batches
-from pangea_tpu.report import stats as report_stats
-from pangea_tpu.report.writers import (AssignmentRecord, format_assignment,
-                                       summarize, write_cohort_summary,
-                                       write_summary)
-
 from ..classify.engine import Classifier, DeviceIndex, pad_batch
+from ..config import RunConfig, dump_config
+from ..index import load_index_any
+from ..io.fastx import read_batches
 from ..kernels import kernel_launches
+from ..report import stats as report_stats
+from ..report.writers import (AssignmentRecord, format_assignment, summarize,
+                              write_cohort_summary, write_summary)
 
 
 def default_sample_names(files) -> list:

@@ -1,0 +1,130 @@
+"""Report writers, numpy only.
+
+The port's copy of the parts of ``pangea_tpu/report/writers.py`` a classify
+run writes: per-read assignment lines and the clade-rollup summaries,
+exactly per SEMANTICS.md §10 — byte-stable output (fixed ordering, fixed
+float formatting), since the reports are what is compared with the
+reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..taxonomy import RANK_NAMES, Taxonomy
+
+
+@dataclass
+class AssignmentRecord:
+    read_id: str
+    taxon: int
+    best: int
+    nvalid: int
+
+    def conf(self) -> np.float32:
+        if self.nvalid == 0:
+            return np.float32(0.0)
+        return np.float32(self.best) / np.float32(self.nvalid)
+
+
+def format_assignment(r: AssignmentRecord, taxonomy: Taxonomy) -> str:
+    """One SEMANTICS.md §10.1 assignment line."""
+    if r.taxon != 0:
+        flag = "C"
+        rank = RANK_NAMES[int(taxonomy.rank[r.taxon])]
+        name = taxonomy.names[r.taxon]
+    else:
+        flag, rank, name = "U", "no_rank", "unclassified"
+    conf = float(r.conf())
+    return (f"{flag}\t{r.read_id}\t{r.taxon}\t{rank}\t{name}\t"
+            f"{r.best}/{r.nvalid}\t{conf:.6f}\n")
+
+
+def summarize_counts(direct: np.ndarray, taxonomy: Taxonomy):
+    """Clade rollup from per-taxon direct counts (int64[T+1], index 0 =
+    unclassified). Returns (direct, clade); clade[t] counts reads assigned
+    to t or any descendant (Euler-interval prefix sums)."""
+    T = taxonomy.num_taxa
+    direct = np.asarray(direct, dtype=np.int64)
+    by_tin = np.zeros(T + 1, dtype=np.int64)
+    by_tin[taxonomy.tin[1:]] = direct[1:]
+    cs = np.concatenate([[0], np.cumsum(by_tin[:T])])
+    clade = np.zeros(T + 1, dtype=np.int64)
+    clade[1:] = cs[taxonomy.tout[1:]] - cs[taxonomy.tin[1:]]
+    clade[0] = direct[0]
+    return direct, clade
+
+
+def summarize(taxa: np.ndarray, taxonomy: Taxonomy):
+    """Per-taxon direct and clade counts from assigned taxa (0 allowed)."""
+    direct = np.bincount(taxa, minlength=taxonomy.num_taxa + 1)
+    return summarize_counts(direct, taxonomy)
+
+
+def write_summary(path: str, taxa: np.ndarray, taxonomy: Taxonomy) -> None:
+    """SEMANTICS.md §10.2 clade-rollup summary for one sample."""
+    direct = np.bincount(np.asarray(taxa, dtype=np.int64),
+                         minlength=taxonomy.num_taxa + 1)
+    write_summary_counts(path, direct, taxonomy)
+
+
+def write_summary_counts(path: str, direct: np.ndarray,
+                         taxonomy: Taxonomy) -> None:
+    """§10.2 summary from per-taxon direct counts."""
+    direct, clade = summarize_counts(direct, taxonomy)
+    total = int(direct.sum())
+    with open(path, "w") as fh:
+        fh.write(_summary_line(100.0 * direct[0] / total if total else 0.0,
+                               int(direct[0]), int(direct[0]), "no_rank", 0,
+                               0, "unclassified"))
+        for t in _dfs_order(taxonomy):
+            if clade[t] == 0:
+                continue
+            pct = 100.0 * clade[t] / total if total else 0.0
+            fh.write(_summary_line(
+                pct, int(clade[t]), int(direct[t]),
+                RANK_NAMES[int(taxonomy.rank[t])], int(t),
+                int(taxonomy.depth[t]), taxonomy.names[t]))
+
+
+def _summary_line(pct, clade, direct, rank, taxid, depth, name) -> str:
+    return (f"{pct:.2f}\t{clade}\t{direct}\t{rank}\t{taxid}\t"
+            f"{'  ' * depth}{name}\n")
+
+
+def _dfs_order(taxonomy: Taxonomy) -> np.ndarray:
+    """Taxa 1..T in DFS (tin) order."""
+    return np.argsort(taxonomy.tin[1:], kind="stable") + 1
+
+
+def write_cohort_summary(path: str, sample_taxa: dict[str, np.ndarray],
+                         taxonomy: Taxonomy, sample_order=None) -> None:
+    """Cohort table (SEMANTICS.md §10.3) from per-sample assigned-taxa
+    arrays."""
+    counts = {n: np.bincount(np.asarray(t, dtype=np.int64),
+                             minlength=taxonomy.num_taxa + 1)
+              for n, t in sample_taxa.items()}
+    write_cohort_summary_counts(path, counts, taxonomy,
+                                sample_order=sample_order)
+
+
+def write_cohort_summary_counts(path: str, sample_direct: dict,
+                                taxonomy: Taxonomy,
+                                sample_order=None) -> None:
+    """Cohort table: one row per taxon (DFS order), clade counts per sample
+    column; samples in given order (default: insertion order)."""
+    names = list(sample_order) if sample_order else list(sample_direct)
+    per = {n: summarize_counts(d, taxonomy)
+           for n, d in sample_direct.items()}
+    with open(path, "w") as fh:
+        fh.write("taxid\trank\tname\t" + "\t".join(names) + "\n")
+        row0 = [str(int(per[n][0][0])) for n in names]
+        fh.write("0\tno_rank\tunclassified\t" + "\t".join(row0) + "\n")
+        for t in _dfs_order(taxonomy):
+            counts = [int(per[n][1][t]) for n in names]
+            if not any(counts):
+                continue
+            fh.write(f"{int(t)}\t{RANK_NAMES[int(taxonomy.rank[t])]}\t"
+                     f"{taxonomy.names[t]}\t"
+                     + "\t".join(str(c) for c in counts) + "\n")

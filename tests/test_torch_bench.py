@@ -1,4 +1,6 @@
 """The port's bench world against the reference bench's world (CPU)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -34,12 +36,12 @@ def test_reads_are_a_prefix_of_the_reference_bench(worlds):
 
 def test_index_is_built_at_the_window(worlds):
     (tax, genomes, _, rs), bw = worlds
-    want = build_index(genomes, tax, k=21, w=8)
-    assert bw.index.meta == want.meta
+    want = build_index(genomes, tax, k=21, w=8, ways=0)
+    assert dataclasses.asdict(bw.index.meta) == dataclasses.asdict(want.meta)
     for name in ("key_hi", "key_lo", "val", "stash"):
         np.testing.assert_array_equal(getattr(bw.index, name),
                                       getattr(want, name))
-    gold = classify_reads_golden(bw.reads.seqs, bw.index, 0.0,
+    gold = classify_reads_golden(bw.reads.seqs, want, 0.0,
                                  mates=bw.reads.mates)
     assert sum(g.taxon != 0 for g in gold) > 30
 

@@ -13,6 +13,7 @@ from pangea_tpu.classify.engine import pad_batch as ref_pad_batch
 from pangea_tpu.golden import classify_reads_golden
 from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
                                        make_classify_fn, pad_batch)
+from pangea_tpu_torch.classify.engine import TAX_KEYS
 
 from .helpers import small_world
 
@@ -66,7 +67,7 @@ def test_numpy_tables_carry_over(world):
     b = DeviceIndex.from_index(idx, "cpu", 0.05)
     assert a.cfg == b.cfg
     for x, y in ((a.fused, b.fused), (a.stash, b.stash),
-                 *((a.tax[k], b.tax[k]) for k in ("tin", "tout", "depth"))):
+                 *((a.tax[k], b.tax[k]) for k in TAX_KEYS)):
         assert x.dtype == y.dtype and torch.equal(x, y)
     b1, b2 = (torch.from_numpy(x) for x in _batch(rs))
     fn = make_classify_fn(a.cfg, paired=True)
@@ -84,7 +85,8 @@ def test_pad_batch_is_the_reference_copy(world):
 
 
 def test_unsupported_layouts_raise(world):
+    """q12 (the reference's k=31 layout) is not ported: its tables raise."""
     _, _, idx, _ = world
-    ref = RefDeviceIndex.from_index(idx, layout="std", device_put=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ref = RefDeviceIndex.from_index(idx, layout="q12", device_put=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
         DeviceIndex.from_numpy_tables(ref.tables, ref.cfg, "cpu")

@@ -12,20 +12,39 @@ import pytest
 import torch
 
 from pangea_tpu.golden import classify_reads_golden
+from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
+from pangea_tpu.utils import datagen as ref_datagen
 from pangea_tpu_torch.bench import make_bench_world
 from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
                                        classify_reads, pad_batch)
 from pangea_tpu_torch.index import relayout_q8
+from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
-                                      kernel_launches, lookup_q8,
-                                      lookup_q8_plain,
+                                      fuse_stash, fuse_table,
+                                      kernel_launches, lca_lift,
+                                      lca_lift_plain, lookup_q8,
+                                      lookup_q8_plain, lookup_std,
+                                      lookup_std_plain,
                                       reset_kernel_launches,
+                                      score_reads_taxon,
+                                      score_reads_taxon_plain,
                                       score_reads_tin, score_reads_tin_plain)
+from pangea_tpu_torch.taxonomy import Taxonomy
 
 from .helpers import small_world
 
 pytestmark = pytest.mark.gpu
+
+# Kernel launches of one paired step, by path.
+_NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
+         "lookup_std": 0, "score_taxon": 0, "lca_lift": 0}
+Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
+
+
+def _tax(tax, device):
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in tax.device_arrays().items()}
 
 
 @pytest.fixture(scope="module")
@@ -81,11 +100,13 @@ def _probes(world):
 @pytest.mark.parametrize("ways,load_factor", [(64, 0.5), (4, 2.0)])
 def test_lookup_q8_kernel_matches_plain(cuda, world, ways, load_factor):
     _, _, idx, _ = world
-    fused, stash, _ = relayout_q8(idx, ways, load_factor)
+    fused, stash3, _ = relayout_q8(idx, ways, load_factor)
     if ways == 4:
-        assert stash.shape[2] > 0, "stash not exercised"
+        assert stash3.shape[2] > 0, "stash not exercised"
+    tax = idx.taxonomy
+    stash = fuse_stash(stash3[0], tax.tin, tax.tout)
     f = torch.from_numpy(fused[0].view(np.int32))
-    s = torch.from_numpy(stash[0].view(np.int32))
+    s = torch.from_numpy(stash.view(np.int32))
     hi, lo, valid = _probes(world)
     want = lookup_q8_plain(hi, lo, valid, f, s, idx.meta.k)
     got = lookup_q8(hi.to(cuda), lo.to(cuda), valid.to(cuda), f.to(cuda),
@@ -107,12 +128,10 @@ def test_score_tin_kernel_matches_plain(cuda, world, thr):
     t_out = np.where(hit, tax.tout[taxa], 0).astype(np.int32)
     valid = rng.random((B, R)) < 0.8
     valid[20:30] = False                             # nvalid = 0
-    args = [torch.from_numpy(a) for a in (hit, t_in, t_out, valid,
-                                          tax.tin.astype(np.int32),
-                                          tax.tout.astype(np.int32),
-                                          tax.depth.astype(np.int32))]
-    want = score_reads_tin_plain(*args, thr)
-    got = score_reads_tin(*[a.to(cuda) for a in args], thr)
+    args = [torch.from_numpy(a) for a in (hit, t_in, t_out, valid)]
+    tax_t = _tax(tax, "cpu")
+    want = score_reads_tin_plain(*args, tax_t, thr)
+    got = score_reads_tin(*[a.to(cuda) for a in args], _tax(tax, cuda), thr)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
 
@@ -125,8 +144,7 @@ def test_classifier_cuda_matches_plain_and_golden(cuda, world):
     model = Classifier(DeviceIndex.from_index(idx, cuda, 0.05))
     reset_kernel_launches()
     got = {k: v.cpu() for k, v in model(b.to(cuda), m.to(cuda)).items()}
-    assert kernel_launches() == {"extract_probes": 2, "lookup_q8": 1,
-                                 "score_tin": 1}
+    assert kernel_launches() == Q8_STEP
     plain = classify_reads(model.index.tables, b.to(cuda), model.cfg,
                            mate_bases=m.to(cuda), plain=True)
     for key in got:
@@ -148,7 +166,8 @@ def test_bench_world_on_the_card_matches_golden(cuda):
     assert tuple(model.fused.shape) == (16384, 128)
     got = model(torch.from_numpy(pad_batch(rs.seqs, n, L)).to(cuda),
                 torch.from_numpy(pad_batch(rs.mates, n, L)).to(cuda))
-    gold = classify_reads_golden(rs.seqs, bw.index, 0.0, mates=rs.mates)
+    ref = _ref_world_index(21, 8, None, 50_000)
+    gold = classify_reads_golden(rs.seqs, ref, 0.0, mates=rs.mates)
     for key in ("taxon", "best", "nvalid"):
         assert got[key].cpu().tolist() == [getattr(g, key) for g in gold]
 
@@ -168,8 +187,7 @@ def test_kernels_launch_on_a_device_that_is_not_current(world):
     reset_kernel_launches()
     got = Classifier(DeviceIndex.from_index(idx, dev, 0.05))(b.to(dev),
                                                              m.to(dev))
-    assert kernel_launches() == {"extract_probes": 2, "lookup_q8": 1,
-                                 "score_tin": 1}
+    assert kernel_launches() == Q8_STEP
     assert torch.cuda.current_device() == 0
     for key in want:
         assert got[key].device == dev
@@ -185,3 +203,135 @@ def test_wrappers_refuse_bad_inputs(cuda):
         extract_probes(codes, 21, 1, out, 0)
     with pytest.raises(ValueError):
         extract_probes(codes.to(torch.int8).cpu(), 21, 1, out, 0)
+
+
+# name -> (k, w, tree, launches of one paired step)
+STD_WORLDS = {
+    "wide": (21, 1, (512, 64), {**_NONE, "extract_probes": 2,
+                                "lookup_std": 1, "score_taxon": 1,
+                                "lca_lift": 1}),
+    "k31_packed": (31, 8, None, {**_NONE, "extract_probes": 2,
+                                 "lookup_std": 1, "score_taxon": 1}),
+    "q8_lifting": (21, 1, (64, 40), {**Q8_STEP, "lca_lift": 1}),
+}
+
+
+def _ref_world_index(k, w, tree, genome_len):
+    """The same world through the reference's jax-free builder, for
+    golden."""
+    tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
+    if tree:
+        ids = {name: t for t, name in enumerate(tax.names)}
+        tax.species_ids = [ids[f"Species_{p}_{g}_{s}"] for p in range(2)
+                           for g in range(8) for s in range(3)]
+    genomes = ref_datagen.make_genomes(tax, genome_len=genome_len, seed=1)
+    return ref_build_index(genomes, tax, k=k, w=w, ways=0)
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.05])
+@pytest.mark.parametrize("name", list(STD_WORLDS))
+def test_std_and_lifting_classifier_cuda_matches_plain_and_golden(
+        cuda, name, thr):
+    """K4, K3's taxon form and K5 (and K2 + K5 on a q8 index beyond 4,096
+    taxa) on the card: the step equals the plain path and golden."""
+    k, w, tree, launches = STD_WORLDS[name]
+    n, L = 512, 150
+    bw = make_bench_world(n_reads=n, read_len=L, genome_len=4000, k=k, w=w,
+                          tree=tree)
+    rs = bw.reads
+    model = Classifier(DeviceIndex.from_index(bw.index, cuda, thr))
+    b = torch.from_numpy(pad_batch(rs.seqs, n, L)).to(cuda)
+    m = torch.from_numpy(pad_batch(rs.mates, n, L)).to(cuda)
+    reset_kernel_launches()
+    got = {key: v.cpu() for key, v in model(b, m).items()}
+    assert kernel_launches() == launches
+    plain = classify_reads(model.index.tables, b, model.cfg, mate_bases=m,
+                           plain=True)
+    for key in got:
+        assert torch.equal(got[key], plain[key].cpu())
+    ref = _ref_world_index(k, w, tree, 4000)
+    gold = classify_reads_golden(rs.seqs, ref, thr, mates=rs.mates)
+    for key in ("taxon", "best", "nvalid"):
+        assert got[key].tolist() == [getattr(g, key) for g in gold]
+
+
+@pytest.mark.parametrize("tree,ways,load_factor", [
+    (None, 16, 0.5), ((512, 64), 32, 0.5), ((512, 64), 4, 4.0)],
+    ids=["packed", "wide", "forced_stash"])
+def test_lookup_std_kernel_matches_plain(cuda, tree, ways, load_factor):
+    bw = make_bench_world(n_reads=1, read_len=150, genome_len=3000, k=21,
+                          w=1, tree=tree)
+    tax = bw.taxonomy
+    canon, taxa = extract_pairs(bw.index)
+    kh, kl, val, st, _ = layout_table(canon, taxa, load_factor, ways=ways)
+    f = torch.from_numpy(fuse_table(kh, kl, val, tax.tin,
+                                    tax.tout).view(np.int32))
+    s = torch.from_numpy(fuse_stash(st, tax.tin, tax.tout).view(np.int32))
+    if load_factor > 1:
+        assert s.shape[1] > 0, "stash not exercised"
+    rng = np.random.default_rng(8)
+    keys = np.concatenate([canon, rng.integers(0, 1 << 42, size=500,
+                                               dtype=np.uint64)])
+    hi = torch.from_numpy((keys >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32))
+    lo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                          .view(np.int32))
+    valid = torch.from_numpy(rng.random(keys.shape[0]) < 0.9)
+    want = lookup_std_plain(hi, lo, valid, f, s, ways)
+    got = lookup_std(hi.to(cuda), lo.to(cuda), valid.to(cuda), f.to(cuda),
+                     s.to(cuda), ways)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    assert int((want[0] != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("tree", [None, (512, 64)], ids=["direct",
+                                                         "lifting"])
+def test_score_taxon_kernel_matches_plain(cuda, tree, thr):
+    tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
+    rng = np.random.default_rng(6)
+    B, R = 400, 260
+    lineage = rng.integers(1, tax.num_taxa + 1, size=(B, 4))
+    taxa = lineage[np.arange(B)[:, None], rng.integers(0, 4, size=(B, R))]
+    taxon = np.where(rng.random((B, R)) < 0.5, taxa, 0).astype(np.int32)
+    taxon[:20] = 0
+    t_in = np.where(taxon != 0, tax.tin[taxon], 0).astype(np.int32)
+    t_out = np.where(taxon != 0, tax.tout[taxon], 0).astype(np.int32)
+    valid = (rng.random((B, R)) < 0.8) | (taxon != 0)
+    valid[20:30] = False
+    args = [torch.from_numpy(a) for a in (taxon, t_in, t_out, valid)]
+    reset_kernel_launches()
+    got = score_reads_taxon(*[a.to(cuda) for a in args], _tax(tax, cuda),
+                            thr)
+    assert kernel_launches()["lca_lift"] == (1 if tree else 0)
+    want = score_reads_taxon_plain(*args, _tax(tax, "cpu"), thr)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["taxon", "q8"])
+def test_lca_lift_kernel_matches_plain_on_a_chain(cuda, q8):
+    """A 5,000-node chain: 13 lifting levels, every pair a deep walk."""
+    n = 5000
+    parent = np.arange(-1, n, dtype=np.int32)
+    parent[:2] = (0, 1)
+    tax = Taxonomy(parent=parent, rank=np.zeros(n + 1, np.int8),
+                   names=["unclassified"] + [f"n{i}" for i in range(n)])
+    assert tax.lifting_table().shape[0] >= 10
+    rng = np.random.default_rng(9)
+    B = 20000
+    u, v = (rng.integers(0, n + 1, size=B).astype(np.int32)
+            for _ in range(2))
+    tin_u, tin_v = tax.tin[u], tax.tin[v]
+    best = rng.integers(0, 5, size=B).astype(np.int32)
+    nvalid = best + rng.integers(0, 5, size=B).astype(np.int32)
+    if q8:
+        u = v = (best > 0).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            for a in (u, v, tin_u, tin_v, best, nvalid)]
+    for thr in (0.0, 0.5):
+        want = lca_lift_plain(*args, _tax(tax, "cpu"), thr, not q8)
+        got = lca_lift(*[a.to(cuda) for a in args], _tax(tax, cuda), thr,
+                       not q8)
+        assert torch.equal(want, got.cpu())

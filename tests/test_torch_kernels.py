@@ -4,6 +4,8 @@ Inputs come from numpy seeds and go through both sides as numpy arrays.
 Every output is an integer, so the tolerance is exact equality; the one
 float op, the threshold compare, is float32 on both sides.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ from pangea_tpu.kernels import (extract_kmers_jnp, hash32_jnp, lookup_q8_jnp,
                                 select_minimizers_jnp)
 from pangea_tpu_torch.index import relayout_q8
 from pangea_tpu_torch.kernels import (extract_kmers, extract_probes,
-                                      hash32, lookup_q8, mix32,
+                                      fuse_stash, hash32, lookup_q8, mix32,
                                       score_reads_tin, select_minimizers)
 
 from .helpers import small_world
@@ -111,9 +113,11 @@ def test_lookup_q8_matches_jax(world, ways, load_factor):
     """Hits (every stored key), absent keys and invalid probes, on the bench
     layout and on a table whose stash is non-empty."""
     idx = world[2]
-    fused, stash, _ = relayout_q8(idx, ways, load_factor)
+    fused, stash3, _ = relayout_q8(idx, ways, load_factor)
     if ways == 4:
-        assert stash.shape[2] > 0, "stash not exercised"
+        assert stash3.shape[2] > 0, "stash not exercised"
+    tax = idx.taxonomy
+    stash = fuse_stash(stash3[0], tax.tin, tax.tout)[None]
     canon, _ = extract_pairs(idx)
     rng = np.random.default_rng(2)
     absent = rng.integers(0, 1 << 42, size=3000, dtype=np.uint64)
@@ -148,10 +152,9 @@ def test_score_reads_tin_matches_jax(world, thr):
     valid = rng.random((B, R)) < 0.8
     valid[10:20] = False                             # nvalid = 0
     valid[20:, :3] |= hit[20:, :3] != 0
-    tin, tout, depth = (a.astype(np.int32)
-                        for a in (tax.tin, tax.tout, tax.depth))
+    tax_t = {k: torch.from_numpy(v) for k, v in tax.device_arrays().items()}
     got = score_reads_tin(*(torch.from_numpy(a) for a in
-                            (hit, t_in, t_out, valid, tin, tout, depth)), thr)
+                            (hit, t_in, t_out, valid)), tax_t, thr)
     want = score_reads_tin_jnp(
         (jnp.asarray(hit), jnp.asarray(t_in), jnp.asarray(t_out)),
         jnp.asarray(valid.sum(1).astype(np.int32)),
@@ -178,39 +181,53 @@ def test_wrappers_refuse_devices_without_a_kernel():
         lookup_q8(hi, hi, valid, torch.empty((1024, 128), **i32),
                   torch.empty((5, 0), **i32), 21)
     h2 = torch.empty((2, 4), **i32)
+    tax = {name: hi for name in ("tin", "tout", "depth", "parent",
+                                 "tin2node")}
+    tax["up"] = torch.empty((1, 8), **i32)
     with pytest.raises(ValueError, match="no kernel"):
-        score_reads_tin(h2, h2, h2, out[2][:, :4], hi, hi, hi, 0.0)
+        score_reads_tin(h2, h2, h2, out[2][:, :4], tax, 0.0)
     with pytest.raises(ValueError, match="several devices"):
         extract_probes(torch.zeros((2, 40), dtype=torch.int8), 21, 1, out,
                        0)
 
 
+def _outside_copy(tmp_path, monkeypatch, _build):
+    """Point the builder at a copy of csrc/ outside any checkout."""
+    csrc = tmp_path / "pkg" / "csrc"
+    csrc.mkdir(parents=True)
+    for p in _build._sources():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    return csrc
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     from pangea_tpu_torch.kernels import _build
+    _outside_copy(tmp_path, monkeypatch, _build)
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert not (_build.build_dir() / _build.LIB_NAME).exists()
+    assert not _build.build_dir().exists()
 
 
 def test_kernel_build_dir_is_per_user_and_per_source(tmp_path, monkeypatch):
-    """The library lives in the user's cache, in a directory named by the
-    hash of the sources, so other sources never overwrite it."""
+    """From a checkout the library lives in its ignored build/kernels/;
+    outside one, in the user's cache; either way in a directory named by
+    the hash of the sources, so other sources never overwrite them."""
     from pangea_tpu_torch.kernels import _build
+    root = Path(__file__).resolve().parents[1]
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert _build.build_dir() == root / "build" / "kernels" / \
+        _build._source_hash()
+    csrc = _outside_copy(tmp_path, monkeypatch, _build)
     first = _build.build_dir()
     assert first.parent == tmp_path / "cache" / "pangea_tpu_torch"
     assert first.name == _build._source_hash()
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    for p in _build._sources():
-        (csrc / p.name).write_bytes(p.read_bytes())
     (csrc / "common.cuh").write_text("// edited\n")
-    monkeypatch.setattr(_build, "CSRC", csrc)
     assert _build.build_dir() != first
     lib = _build.build_dir() / _build.LIB_NAME
-    lib.parent.mkdir(parents=True)
+    _build.build_dir().mkdir(parents=True)
     lib.write_bytes(b"")
     assert _build.build() == lib          # a built library is reused

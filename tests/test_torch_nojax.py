@@ -1,17 +1,26 @@
-"""The port runs where jax is absent: the GPU machine has no jax.
+"""The port stands alone: it imports neither jax nor the JAX package.
 
-Every module of ``pangea_tpu_torch``, ``chip_smoke.py`` and every
-``pangea_tpu`` module they import must load with ``jax`` blocked, and a
-tiny world must classify on the CPU there.
+The GPU machine has no jax, and the port keeps its own copy of every piece
+of the reference's host code it needs. No source of ``pangea_tpu_torch``
+and not ``chip_smoke.py`` imports ``jax`` or any ``pangea_tpu`` module;
+with both blocked, every port module and ``chip_smoke.py`` load and a tiny
+world built by the port alone classifies on the CPU, equal to the
+reference's golden model.
 """
 import ast
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+from pangea_tpu.golden import classify_reads_golden
+from pangea_tpu.index import build_index
+from pangea_tpu.utils import datagen
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "pangea_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "pangea_tpu")
 
 
 def _sources():
@@ -30,45 +39,49 @@ def _imports(path: Path) -> set:
 
 
 def test_no_source_imports_jax():
+    """Neither jax nor any module of the JAX package, by top-level name."""
     for path in _sources():
         bad = sorted(n for n in _imports(path)
-                     if n == "jax" or n.startswith(("jax.", "jaxlib")))
+                     if n.split(".")[0] in BLOCKED)
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_chip_smoke_imports_only_torch_and_the_port():
-    """chip_smoke.py reaches the reference package only through the port."""
     allowed = {"torch", "pangea_tpu_torch", "__future__"}
     for name in _imports(ROOT / "chip_smoke.py"):
         top = name.split(".")[0]
         assert top in allowed or top in sys.stdlib_module_names, name
 
 
+# (k, w) of the worlds: q8 at k=21, std (packed rows) at k=31.
+WORLDS = ((21, 8), (31, 8))
+
 _SCRIPT = """
+import json
 import sys
-sys.modules["jax"] = None          # any `import jax` now raises ImportError
+for name in ("jax", "jaxlib", "pangea_tpu"):
+    sys.modules[name] = None       # `import <name>` now raises ImportError
 import importlib
-for name in sys.argv[1:]:
+for name in sys.argv[2:]:
     importlib.import_module(name)
-import numpy as np
 import torch
-from pangea_tpu.golden import classify_reads_golden
-from pangea_tpu.index import build_index
-from pangea_tpu.utils import datagen
 from pangea_tpu_torch.classify import Classifier, DeviceIndex, pad_batch
-tax = datagen.make_taxonomy(seed=1)
-genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
-idx = build_index(genomes, tax, k=21, w=8)
-rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
-model = Classifier(DeviceIndex.from_index(idx, torch.device("cpu"), 0.0))
-out = model(torch.from_numpy(pad_batch(rs.seqs, 40, 100)),
-            torch.from_numpy(pad_batch(rs.mates, 40, 100)))
-gold = classify_reads_golden(rs.seqs, idx, 0.0, mates=rs.mates)
-assert out["taxon"].tolist() == [g.taxon for g in gold]
-assert out["best"].tolist() == [g.best for g in gold]
-assert out["nvalid"].tolist() == [g.nvalid for g in gold]
-assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
-print("NOJAX-OK")
+from pangea_tpu_torch.index import build_index
+from pangea_tpu_torch.utils import datagen
+out = []
+for k, w in json.loads(sys.argv[1]):
+    tax = datagen.make_taxonomy(seed=1)
+    genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
+    idx = build_index(genomes, tax, k=k, w=w)
+    rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
+    di = DeviceIndex.from_index(idx, torch.device("cpu"), 0.0)
+    res = Classifier(di)(torch.from_numpy(pad_batch(rs.seqs, 40, 100)),
+                         torch.from_numpy(pad_batch(rs.mates, 40, 100)))
+    out.append({"layout": di.cfg.layout,
+                **{key: v.tolist() for key, v in res.items()}})
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
+assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
+print("NOJAX " + json.dumps(out))
 """
 
 
@@ -76,13 +89,23 @@ def test_port_imports_and_classifies_without_jax():
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__") for p in PORT.rglob("*.py"))
-    modules += sorted({n for p in _sources() for n in _imports(p)
-                       if n.startswith("pangea_tpu.")})
     modules.append("chip_smoke")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT, *modules],
-                          capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, json.dumps(WORLDS), *modules],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "NOJAX-OK" in proc.stdout
+    line = [s for s in proc.stdout.splitlines() if s.startswith("NOJAX ")]
+    got = json.loads(line[-1][len("NOJAX "):])
+    assert [g["layout"] for g in got] == ["q8", "std"]
+    for (k, w), g in zip(WORLDS, got):
+        tax = datagen.make_taxonomy(seed=1)
+        genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
+        idx = build_index(genomes, tax, k=k, w=w)
+        rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True,
+                                  seed=3)
+        gold = classify_reads_golden(rs.seqs, idx, 0.0, mates=rs.mates)
+        for key in ("taxon", "best", "nvalid"):
+            assert g[key] == [getattr(x, key) for x in gold], (k, key)
+        assert any(g["taxon"])
