@@ -8,7 +8,10 @@ Run from the root of the repository, on a machine with a CUDA device:
 Phases 1-6 drive the q8 headline (the reference bench's world: k=21,
 minimizer w=8, a 16384 x 128 q8 table); phases 7-10 drive the std layout
 with binary-lifting LCA on the same genomes hung on a 66,563-taxon tree
-(k=21, w=1: 2.0M k-mers in a std table of 131,072 wide 768 B rows):
+(k=21, w=1: 2.0M k-mers in a std table of 131,072 wide 768 B rows); phases
+11-14 drive config 4's multi-k consensus on the bench's species at 64 kb
+genomes (a k=21, w=8 q8 index of 32,768 rows and a k=31, w=1 q12 index of
+2.56M k-mers in 131,072 rows of 512 B, 67.1 MB, merged on the card):
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -34,11 +37,24 @@ with binary-lifting LCA on the same genomes hung on a 66,563-taxon tree
      the outputs against the plain path and the planted truth, step times;
   9. the CLI on the std index (written by the port's Index.save) with
      config 2's file and 24,576 pairs, its lines against phase 8's outputs;
- 10. torch.profiler over back-to-back std steps.
+ 10. torch.profiler over back-to-back std steps;
+ 11. K2's q12 form and K7 against their plain versions, bit for bit: K2-q12
+     on the 67.1 MB table with 16384 pairs x 240 probes, on a table with a
+     forced stash, on absent 62-bit keys and on a forced-q12 table at k=21
+     (remainder below 32 bits); K7 on the full-width calls at thresholds 0
+     and 0.05, on the int32 extreme cases, on conflicting pairs of the
+     66,563-taxon tree and of the 5,000-node chain;
+ 12. the multi-k step at full width: launch counts (K1 four times, K2 and
+     its q12 form, K3 twice, K7), the outputs against the plain path and
+     the planted truth, step times;
+ 13. the CLI on the two indexes (written by the port's Index.save) with
+     config 4's file and 24,576 pairs, its lines against phase 12's;
+ 14. torch.profiler over back-to-back multi-k steps.
 
 The plain paths are held to the JAX reference and its golden model by the
-CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py), and the
-kernels to the golden model on the card by tests/test_torch_gpu.py. This
+CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
+tests/test_torch_q12.py, tests/test_torch_merge.py), and the kernels to the
+golden model on the card by tests/test_torch_gpu.py. This
 script imports nothing but the standard library, torch and
 pangea_tpu_torch.
 
@@ -47,9 +63,10 @@ once, each output written once) over 3.35 TB/s and its 32-bit integer
 operations, counted from this run's inputs, over 67 T/s (the H100 SXM's
 non-tensor 32-bit peak, an optimistic rate for integer work). A table
 counts only what this run's probes need: the key lanes of the buckets they
-reach, the payload lanes of the keys they hit and the stash (K2, K4); for
-K5, the depth, parent and lifting entries of the lineages its pairs reach,
-beside its [B] inputs and output.
+reach, the payload lanes of the keys they hit and the stash (K2, K2-q12,
+K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
+entries of the lineages its pairs (K7: its conflicting pairs) reach, beside
+their [B] inputs and outputs.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -75,12 +92,15 @@ HEADLINE = {"k": 21, "w": 8}
 WIDE = {"k": 21, "w": 1, "tree": (512, 64)}
 PACKED = {"k": 31, "w": 8}
 Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
+# Config 4's world (make_multik_world arguments) and its threshold.
+MULTIK = {"genome_len": 64_000, "indexes": ((21, 8), (31, 1))}
+C4_THRESHOLD = 0.05
 CHAIN_NODES = 5000
 CLI_PAIRS, CLI_BATCH = 24576, 8192
 WARMUP, REPS = 3, 20
 PLAIN_REPS = 5           # samples of a plain version at the std shapes
 PIPELINED = 10           # back-to-back calls a timing sample
-PROFILE_STEPS = {"q8": 100, "std": 20}
+PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20}
 MAX_OFF_LINEAGE = 0.001  # share of pairs assigned off their truth's lineage
 THRESHOLDS = (0.0, 0.05)
 HBM_BYTES_PER_S = 3.35e12
@@ -99,7 +119,24 @@ KERNELS = {
                     "src/pangea_tpu/kernels/score.py:221"),
     "lca_lift": ("src/pangea_tpu_torch/csrc/lca_lift.cu",
                  "src/pangea_tpu/kernels/score.py:127"),
+    "lookup_q12": ("src/pangea_tpu_torch/csrc/lookup_q8.cu",
+                   "src/pangea_tpu/kernels/lookup.py:629"),
+    "merge_multik": ("src/pangea_tpu_torch/csrc/merge_multik.cu",
+                     "src/pangea_tpu/classify/merge.py:39"),
 }
+# The int32 extreme cases of tests/test_hardening.py:28-38: (taxon, best,
+# nvalid) of the two calls, products beyond int32.
+BIG = 2**30
+MERGE_EXTREMES = [
+    ((3, BIG, BIG + 1), (3, BIG + 1, BIG)),
+    ((3, BIG + 1, BIG), (3, BIG, BIG + 1)),
+    ((3, BIG, BIG), (5, BIG - 1, BIG)),
+    ((5, BIG - 1, BIG), (3, BIG, BIG)),
+    ((3, 70000, 70001), (3, 70000, 70001)),
+    ((0, 0, 40000), (7, 123, 70000)),
+    ((0, 0, 50000), (0, 0, 60000)),
+    ((3, 2**31 - 1, 2**31 - 1), (5, 2**31 - 2, 2**31 - 1)),
+]
 
 
 def log(msg: str) -> None:
@@ -202,22 +239,67 @@ def phase_build() -> None:
     log(f"[2] built {_build.build()} in {time.time() - t0:.1f} s")
 
 
+def _batches(torch, cuda, reads, n_reads: int) -> dict:
+    from pangea_tpu_torch.classify import pad_batch
+    n = min(BATCH, n_reads)
+    return {"b1": torch.from_numpy(pad_batch(reads.seqs[:n], n,
+                                             READ_LEN)).to(cuda),
+            "b2": torch.from_numpy(pad_batch(reads.mates[:n], n,
+                                             READ_LEN)).to(cuda)}
+
+
 def make_world(torch, cuda, name: str, n_reads: int, **kw) -> dict:
+    """A bench world with one index: its Classifier (model), the plain path
+    (plain) and config 2's file for the CLI."""
     from pangea_tpu_torch.bench import make_bench_world
-    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
+    from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
+                                           classify_reads)
     t0 = time.time()
     bw = make_bench_world(n_reads=n_reads, read_len=READ_LEN, **kw)
     di = DeviceIndex.from_index(bw.index, cuda, 0.0)
-    n = min(BATCH, n_reads)
-    world = {"name": name, "idx": bw.index, "reads": bw.reads, "di": di,
-             "b1": torch.from_numpy(pad_batch(bw.reads.seqs[:n], n,
-                                              READ_LEN)).to(cuda),
-             "b2": torch.from_numpy(pad_batch(bw.reads.mates[:n], n,
-                                              READ_LEN)).to(cuda)}
+    model = Classifier(di)
+    world = {"name": name, "idx": bw.index, "idxs": [bw.index],
+             "reads": bw.reads, "di": di, "tax": di.tax, "model": model,
+             "plain": lambda b1, b2: classify_reads(
+                 model.index.tables, b1, model.cfg, mate_bases=b2,
+                 plain=True),
+             "config": "config2_16s_paired.json",
+             **_batches(torch, cuda, bw.reads, n_reads)}
     log(f"[3] world {name} in {time.time() - t0:.1f} s: {bw.index!r}, "
         f"{bw.taxonomy.num_taxa} taxa, {di.cfg.layout} table "
         f"{tuple(di.fused.shape)} ({di.fused.numel() * 4} B), stash "
         f"{di.stash.shape[1]}")
+    return world
+
+
+def make_multik(torch, cuda, n_reads: int) -> dict:
+    """Config 4's world: both indexes at config 4's threshold, the
+    MultiKClassifier (model), its plain path and config 4's file."""
+    from pangea_tpu_torch.bench import make_multik_world
+    from pangea_tpu_torch.classify import (DeviceIndex, MultiKClassifier,
+                                           classify_multik)
+    t0 = time.time()
+    mw = make_multik_world(n_reads=n_reads, read_len=READ_LEN, **MULTIK)
+    dis = [DeviceIndex.from_index(ix, cuda, C4_THRESHOLD)
+           for ix in mw.indexes]
+    if [d.cfg.layout for d in dis] != ["q8", "q12"]:
+        raise AssertionError(f"layouts {[d.cfg.layout for d in dis]}, want "
+                             "q8 and q12")
+    model = MultiKClassifier(dis)
+    tables = tuple(c.index.tables for c in model.classifiers)
+    cfgs = tuple(c.cfg for c in model.classifiers)
+    world = {"name": "config4", "idxs": mw.indexes, "reads": mw.reads,
+             "dis": dis, "tax": dis[0].tax, "model": model,
+             "plain": lambda b1, b2: classify_multik(
+                 tables, b1, cfgs, mate_bases=b2, plain=True),
+             "config": "config4_multik.json",
+             **_batches(torch, cuda, mw.reads, n_reads)}
+    for ix, di in zip(mw.indexes, dis):
+        log(f"[11] world config4 index {ix!r}: {di.cfg.layout} table "
+            f"{tuple(di.fused.shape)} ({di.fused.numel() * 4} B), stash "
+            f"{di.stash.shape[1]}")
+    log(f"[11] world config4 in {time.time() - t0:.1f} s, "
+        f"{mw.taxonomy.num_taxa} taxa")
     return world
 
 
@@ -345,13 +427,13 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
 
 def phase_step(torch, world, card: str, tag: str, want_launches: dict,
                plain_calls: int, plain_reps: int) -> dict:
-    """The Classifier on a world's batch: launch counts, the plain path,
-    the planted truth and step times. Returns the outputs on the host."""
-    from pangea_tpu_torch.classify import Classifier, classify_reads
+    """A world's step (its model) on its batch: launch counts, the plain
+    path, the planted truth and step times. Returns the outputs on the
+    host."""
     from pangea_tpu_torch.kernels import (kernel_launches,
                                           reset_kernel_launches)
     b1, b2 = world["b1"], world["b2"]
-    model = Classifier(world["di"])
+    model = world["model"]
     reset_kernel_launches()
     out = model(b1, b2)
     torch.cuda.synchronize()
@@ -365,8 +447,7 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
             raise AssertionError(f"{k}: {v.dtype} {tuple(v.shape)}")
 
     def plain_step():
-        return classify_reads(model.index.tables, b1, model.cfg,
-                              mate_bases=b2, plain=True)
+        return world["plain"](b1, b2)
 
     plain = plain_step()
     mism, _ = compare([plain[k].cpu() for k in out], list(out.values()))
@@ -374,7 +455,7 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
         f"{mism}")
     # Planted truth: a classified pair's taxon is its source species or an
     # ancestor of it (genus mates share a core, whose k-mers LCA-merge).
-    tin, tout = (world["di"].tax[n].cpu().long() for n in ("tin", "tout"))
+    tin, tout = (world["tax"][n].cpu().long() for n in ("tin", "tout"))
     taxon = out["taxon"].long()
     truth = torch.from_numpy(world["reads"].truth[:BATCH]).long()
     classified = taxon != 0
@@ -399,17 +480,19 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
 
 
 def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
-    """`python -m pangea_tpu_torch.cli classify` on config 2's file, the
-    world's index and 24,576 pairs; returns the kernel launches of that
-    run (the CLI's own counts, which start at 0 in its process)."""
+    """`python -m pangea_tpu_torch.cli classify` on the world's config file,
+    its indexes and 24,576 pairs; returns the kernel launches of that run
+    (the CLI's own counts, which start at 0 in its process)."""
     work = ROOT / "build" / "chip_smoke" / world["name"]
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    world["idx"].save(str(work / "idx"))
+    idx_dirs = [str(work / f"idx{i}") for i in range(len(world["idxs"]))]
+    for ix, d in zip(world["idxs"], idx_dirs):
+        ix.save(d)
     out_dir = work / "out"
     cmd = [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
-           "--config", str(ROOT / "configs" / "config2_16s_paired.json"),
-           "--index", str(work / "idx"), "--reads", fastq[0],
+           "--config", str(ROOT / "configs" / world["config"]),
+           "--index", *idx_dirs, "--reads", fastq[0],
            "--mates", fastq[1], "--samples", "smoke", "--out", str(out_dir),
            "--device", "cuda", f"input.batch_size={CLI_BATCH}"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -450,9 +533,7 @@ def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
     busy share of their wall (one stream: kernels never overlap, so their
     summed time is the busy time)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from pangea_tpu_torch.classify import Classifier
-    model = Classifier(world["di"])
+    model = world["model"]
     b1, b2 = world["b1"], world["b2"]
     for _ in range(WARMUP):
         model(b1, b2)
@@ -647,11 +728,170 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     res.assert_clean(("lookup_std", "score_taxon", "lca_lift", "score_tin"))
 
 
-def write_fastq(world) -> tuple:
+def _check_q12(res: Results, what: str, args, k: int, ways: int):
+    from pangea_tpu_torch.kernels import lookup_q12, lookup_q12_plain
+    want = lookup_q12_plain(*args, k, ways)
+    res.check("lookup_q12", what, want, lookup_q12(*args, k, ways))
+    return want
+
+
+def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
+    import dataclasses
+
+    from pangea_tpu_torch.classify import (classify_reads, merge_multik,
+                                           merge_multik_plain)
+    from pangea_tpu_torch.index import extract_pairs, relayout_q12
+    from pangea_tpu_torch.index.quot import Q12_WAYS, q12_layout
+    from pangea_tpu_torch.kernels import (fuse_stash, lookup_q12,
+                                          lookup_q12_plain)
+    from pangea_tpu_torch.kernels.lookup import (_q8_split, _q12_geometry,
+                                                 narrow, widen)
+    from pangea_tpu_torch.utils import datagen
+    (k21, w21), (k31, w31) = MULTIK["indexes"]
+    di21, di31 = world["dis"]
+    idx21, idx31 = world["idxs"]
+    tax = idx31.taxonomy
+    W = Q12_WAYS
+
+    def to_cuda(a):
+        return torch.from_numpy(a.view("int32")).to(cuda)
+
+    # K2-q12 at full width: both mates' k=31, w=1 probes.
+    hi, lo, valid = probes(torch, world, k31, w31)
+    B, R = hi.shape
+    flat = [t.reshape(-1) for t in (hi, lo, valid)]
+    N = flat[0].numel()
+    fused, stash = di31.fused, di31.stash
+    want = _check_q12(res, "11 full width", (*flat, fused, stash), k31, W)
+    log(f"[11] lookup_q12: {N} probes ([{B}, {R}]) on {tuple(fused.shape)} "
+        f"({table_bytes(di31)} B), stash {stash.shape[1]}, hits "
+        f"{int((want[0] != 0).sum())}")
+    # A forced stash: every 30th pair of the k=31 index at 4 ways.
+    canon, taxa = extract_pairs(idx31)
+    f4, s4, _ = q12_layout(canon[::30], taxa[::30], tax.tin, tax.tout, k31,
+                           ways=4, load_factor=2.0)
+    f4, s4 = to_cuda(f4), to_cuda(fuse_stash(s4, tax.tin, tax.tout))
+    if s4.shape[1] == 0:
+        raise AssertionError("the forced-stash table has an empty stash")
+    v4 = torch.cat([flat[2], torch.ones(s4.shape[1], dtype=torch.bool,
+                                        device=cuda)])
+    want4 = _check_q12(res, "11 forced stash",
+                       (torch.cat([flat[0], s4[0]]),
+                        torch.cat([flat[1], s4[1]]), v4, f4, s4), k31, 4)
+    stash_hits = int((want4[0][N:] != 0).sum())
+    log(f"[11] lookup_q12 forced stash: {tuple(f4.shape)}, stash "
+        f"{s4.shape[1]}, {stash_hits} stash keys hit")
+    if stash_hits != s4.shape[1]:
+        raise AssertionError("a stash key missed its own stash")
+    # Absent 62-bit keys: random ones, and the near misses of stored keys
+    # (bit 32 of the mix flipped and mixed back: the stored key's bucket
+    # and rem_lo, another rem_hi). Every one misses.
+    g = torch.Generator(device="cpu").manual_seed(11)
+    u64 = canon.dtype.type
+    mask = u64((1 << (2 * k31)) - 1)
+    mix = (canon * u64(0x9E3779B1)) & mask
+    near = ((mix ^ u64(1 << 32)) * u64(pow(0x9E3779B1, -1, 1 << (2 * k31)))
+            ) & mask
+    keys = torch.cat([torch.randint(0, 1 << (2 * k31), (1 << 20,),
+                                    generator=g, dtype=torch.int64),
+                      torch.from_numpy(near.view("int64"))])
+    keys = keys[~torch.isin(keys, torch.from_numpy(canon.view("int64")))]
+    keys = keys.to(cuda)
+    ahi, alo = (keys >> 32).to(torch.int32), narrow(keys)
+    awant = _check_q12(res, "11 absent keys",
+                       (ahi, alo, torch.ones_like(ahi, dtype=torch.bool),
+                        fused, stash), k31, W)
+    log(f"[11] lookup_q12 on {keys.numel()} absent keys ({near.size} near "
+        f"misses): hits {int((awant[0] != 0).sum())}")
+    if (awant[0] != 0).any():
+        raise AssertionError("an absent key hit")
+    # The k=21 index forced to q12: a remainder below 32 bits.
+    f21, s21, nb21 = relayout_q12(idx21)
+    r21 = 2 * k21 - (nb21.bit_length() - 1)
+    if r21 >= 32:
+        raise AssertionError(f"the k=21 q12 remainder is {r21} bits")
+    f21 = to_cuda(f21[0])
+    s21 = to_cuda(fuse_stash(s21[0], tax.tin, tax.tout))
+    h21 = [t.reshape(-1) for t in probes(torch, world, k21, w21)]
+    want21 = _check_q12(res, f"11 k={k21} (r={r21})",
+                        (*h21, f21, s21), k21, W)
+    log(f"[11] lookup_q12 at k={k21}: {tuple(f21.shape)}, r={r21}, "
+        f"{h21[0].numel()} probes, hits {int((want21[0] != 0).sum())}")
+    log2nb = _q12_geometry(fused, k31, W)
+    bucket, _ = _q8_split(widen(flat[0]), widen(flat[1]), k31, log2nb)
+    need = touched_bytes(torch, bucket, flat[2], want[0] != 0, flat[0],
+                         flat[1], 2 * W, 1, stash)
+    log(f"[11] lookup_q12 touches {need} B of its {table_bytes(di31)} B "
+        "table (rem_lo and rem_hi lanes of the rows reached; the payload "
+        "lane of the keys hit)")
+    res.time(torch, "lookup_q12", "11",
+             lambda: lookup_q12(*flat, fused, stash, k31, W),
+             lambda: lookup_q12_plain(*flat, fused, stash, k31, W),
+             nbytes=N * 21 + need, ops=N * (3 * W + 10),
+             plain_calls=1, plain_reps=PLAIN_REPS)
+
+    # K7 on the full-width calls of both indexes, at two thresholds.
+    b1, b2 = world["b1"], world["b2"]
+    for thr in THRESHOLDS:
+        calls = [classify_reads(di.tables, b1, dataclasses.replace(
+                     di.cfg, confidence_threshold=thr), mate_bases=b2)
+                 for di in (di21, di31)]
+        res.check("merge_multik", f"11 full width, threshold {thr}",
+                  merge_multik_plain(*calls, di21.tax).values(),
+                  merge_multik(*calls, di21.tax).values())
+    t1, t2 = calls[0]["taxon"], calls[1]["taxon"]
+    conflict = (t1 != 0) & (t2 != 0) & (t1 != t2)
+    agree = (t1 != 0) & (t1 == t2)
+    log(f"[11] merge_multik on {B} pairs: {int(agree.sum())} agree, "
+        f"{int(conflict.sum())} conflict, "
+        f"{int(((t1 == 0) != (t2 == 0)).sum())} one-sided")
+    # The int32 extreme cases, on config 4's taxonomy.
+    ext = [{key: torch.tensor([c[j][i] for c in MERGE_EXTREMES],
+                              dtype=torch.int32, device=cuda)
+            for i, key in enumerate(("taxon", "best", "nvalid"))}
+           for j in (0, 1)]
+    res.check("merge_multik", "11 int32 extremes",
+              merge_multik_plain(*ext, di21.tax).values(),
+              merge_multik(*ext, di21.tax).values())
+    # Conflicting pairs across the 66,563-taxon tree and the chain.
+    wide = datagen.make_taxonomy(2, *WIDE["tree"], seed=0)
+    for name, deep in (("66,563-taxon tree", {
+            k: torch.from_numpy(v).to(cuda)
+            for k, v in wide.device_arrays().items()}),
+            (f"{CHAIN_NODES}-node chain", chain_tax(torch, cuda))):
+        T = deep["tin"].numel() - 1
+        u, v = (torch.randint(1, T + 1, (B,), generator=g,
+                              dtype=torch.int32).to(cuda) for _ in range(2))
+        n = torch.randint(1, 300, (2, B), generator=g,
+                          dtype=torch.int32).to(cuda)
+        calls = [{"taxon": t, "best": (n[j] * 3) // 4, "nvalid": n[j]}
+                 for j, t in enumerate((u, v))]
+        res.check("merge_multik", f"11 {name}, levels "
+                  f"{deep['up'].shape[0]}",
+                  merge_multik_plain(*calls, deep).values(),
+                  merge_multik(*calls, deep).values())
+    # Timing on the full-width calls at config 4's threshold.
+    calls = [classify_reads(di.tables, b1, di.cfg, mate_bases=b2)
+             for di in (di21, di31)]
+    t1, t2 = calls[0]["taxon"], calls[1]["taxon"]
+    conflict = (t1 != 0) & (t2 != 0) & (t1 != t2)
+    need = lineage_bytes(torch, t1[conflict], t2[conflict], di21.tax)
+    levels = di21.tax["up"].shape[0]
+    log(f"[11] merge_multik's {int(conflict.sum())} conflicts reach {need} B "
+        "of the lifting, parent and depth tables")
+    res.time(torch, "merge_multik", "11",
+             lambda: merge_multik(*calls, di21.tax),
+             lambda: merge_multik_plain(*calls, di21.tax),
+             nbytes=B * 36 + need,
+             ops=B * 20 + int(conflict.sum()) * levels * 8)
+    res.assert_clean(("lookup_q12", "merge_multik"))
+
+
+def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    paths = (str(work / "reads_1.fastq"), str(work / "reads_2.fastq"))
+    paths = (str(work / f"{name}_1.fastq"), str(work / f"{name}_2.fastq"))
     write_fastq_pair(world["reads"], *paths)
     return paths
 
@@ -703,18 +943,33 @@ def main() -> int:
         "lca_lift": 1}, plain_calls=1, plain_reps=PLAIN_REPS)
     std_cli = phase_cli(wide, out, "9", fastq)
     phase_profile(torch, wide, card, "10", PROFILE_STEPS["std"])
+    del worlds, wide
+
+    # Phases 11-14: config 4's multi-k consensus.
+    c4 = make_multik(torch, cuda, CLI_PAIRS)
+    c4_fastq = write_fastq(c4, "config4")
+    phase_multik_kernels(torch, c4, cuda, res)
+    out = phase_step(torch, c4, card, "12", {
+        **none, "extract_probes": 4, "lookup_q8": 1, "lookup_q12": 1,
+        "score_tin": 2, "merge_multik": 1}, plain_calls=1,
+        plain_reps=PLAIN_REPS)
+    c4_cli = phase_cli(c4, out, "13", c4_fastq)
+    phase_profile(torch, c4, card, "14", PROFILE_STEPS["multik"])
 
     # The main paths' launches: each CLI run's own counts.
-    for path, launches, kernels in (
-            ("q8", q8_cli, ("extract_probes", "lookup_q8", "score_tin")),
-            ("std", std_cli, ("extract_probes", "lookup_std", "score_taxon",
-                              "lca_lift"))):
-        if min(launches[k] for k in kernels) < 1:
+    clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli}
+    for path, kernels in (
+            ("q8", ("extract_probes", "lookup_q8", "score_tin")),
+            ("std", ("extract_probes", "lookup_std", "score_taxon",
+                     "lca_lift")),
+            ("multik", ("extract_probes", "lookup_q8", "lookup_q12",
+                        "score_tin", "merge_multik"))):
+        if min(clis[path][k] for k in kernels) < 1:
             raise AssertionError(f"the {path} CLI bypassed a kernel: "
-                                 f"{launches}")
-    launches = {k: q8_cli[k] + std_cli[k] for k in KERNELS}
-    log(f"[11] kernel launches of the two CLI runs: q8 {q8_cli}, std "
-        f"{std_cli}; whole run {time.time() - t_start:.1f} s")
+                                 f"{clis[path]}")
+    launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
+    log(f"[15] kernel launches of the three CLI runs: {json.dumps(clis)}; "
+        f"whole run {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],

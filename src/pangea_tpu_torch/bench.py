@@ -16,6 +16,12 @@ only the taxon ids and the tree around them change. ``tree=(512, 64)`` is a
 66,563-taxon tree, whose Euler stamps exceed 16 bits (the std layout with
 wide rows and binary-lifting LCA); ``tree=(64, 40)`` has 5,251 taxa (q8
 with lifting).
+
+``make_multik_world`` is config 4's world: one genome set and one taxonomy
+(the bench's species and seeds, at 64 kb genomes) indexed at several (k, w),
+k=21, w=8 and k=31, w=1 by default. At that size the k=31, w=1 index has
+2,559,507 k-mers, past the 2,097,152 that a std table in the reference's
+fast regime holds, so ``pick_layout`` gives it q12; the k=21 index is q8.
 """
 from __future__ import annotations
 
@@ -33,12 +39,16 @@ class BenchWorld:
     reads: datagen.ReadSet        # paired: reads.mates holds mate 2
 
 
-def make_bench_world(n_reads: int = 100_000, read_len: int = 150,
-                     n_species: int = 48, genome_len: int = 50_000,
-                     k: int = 21, w: int = 8, seed: int = 0,
-                     tree: tuple[int, int] | None = None) -> BenchWorld:
-    """The bench world with its index at (k, w) and n_reads read pairs, on
-    the bench's own tree or on ``tree`` (see the module docstring)."""
+@dataclass
+class MultiKWorld:
+    taxonomy: Taxonomy
+    indexes: list                 # one Index a (k, w), in the given order
+    reads: datagen.ReadSet        # paired: reads.mates holds mate 2
+
+
+def _bench_genomes(n_species: int, genome_len: int, seed: int,
+                   tree: tuple[int, int] | None):
+    """The bench's taxonomy (or ``tree``) and genomes."""
     per_genus = 3
     genera = max(n_species // per_genus // 2, 1)
     if tree is None:
@@ -53,12 +63,37 @@ def make_bench_world(n_reads: int = 100_000, read_len: int = 150,
         ids = {name: t for t, name in enumerate(tax.names)}
         tax.species_ids = [ids[f"Species_{p}_{g}_{s}"] for p in range(2)
                            for g in range(genera) for s in range(per_genus)]
-    genomes = datagen.make_genomes(tax, genome_len=genome_len,
-                                   seed=seed + 1)
+    return tax, datagen.make_genomes(tax, genome_len=genome_len,
+                                     seed=seed + 1)
+
+
+def _bench_reads(genomes, n_reads: int, read_len: int, seed: int):
+    return datagen.sample_reads(genomes, n_reads, read_len=read_len,
+                                paired=True, n_prob=0.005, seed=seed + 2)
+
+
+def make_bench_world(n_reads: int = 100_000, read_len: int = 150,
+                     n_species: int = 48, genome_len: int = 50_000,
+                     k: int = 21, w: int = 8, seed: int = 0,
+                     tree: tuple[int, int] | None = None) -> BenchWorld:
+    """The bench world with its index at (k, w) and n_reads read pairs, on
+    the bench's own tree or on ``tree`` (see the module docstring)."""
+    tax, genomes = _bench_genomes(n_species, genome_len, seed, tree)
     idx = build_index(genomes, tax, k=k, w=w, ways=0)
-    rs = datagen.sample_reads(genomes, n_reads, read_len=read_len,
-                              paired=True, n_prob=0.005, seed=seed + 2)
-    return BenchWorld(tax, idx, rs)
+    return BenchWorld(tax, idx, _bench_reads(genomes, n_reads, read_len,
+                                             seed))
+
+
+def make_multik_world(n_reads: int = 100_000, read_len: int = 150,
+                      n_species: int = 48, genome_len: int = 64_000,
+                      indexes=((21, 8), (31, 1)),
+                      seed: int = 0) -> MultiKWorld:
+    """Config 4's world: the bench's genomes (at ``genome_len``) and
+    n_reads read pairs, indexed once for each (k, w) of ``indexes``."""
+    tax, genomes = _bench_genomes(n_species, genome_len, seed, None)
+    idxs = [build_index(genomes, tax, k=k, w=w, ways=0) for k, w in indexes]
+    return MultiKWorld(tax, idxs, _bench_reads(genomes, n_reads, read_len,
+                                               seed))
 
 
 def write_fastq_pair(reads: datagen.ReadSet, path1: str, path2: str) -> None:

@@ -1,5 +1,9 @@
 from .engine import (Classifier, ClassifyConfig, DeviceIndex,
-                     classify_reads, make_classify_fn, pad_batch)
+                     MultiKClassifier, classify_multik, classify_reads,
+                     make_classify_fn, make_multik_classify_fn, pad_batch)
+from .merge import merge_multik, merge_multik_plain
 
-__all__ = ["Classifier", "ClassifyConfig", "DeviceIndex", "classify_reads",
-           "make_classify_fn", "pad_batch"]
+__all__ = ["Classifier", "ClassifyConfig", "DeviceIndex", "MultiKClassifier",
+           "classify_multik", "classify_reads", "make_classify_fn",
+           "make_multik_classify_fn", "merge_multik", "merge_multik_plain",
+           "pad_batch"]

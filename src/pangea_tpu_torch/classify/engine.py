@@ -1,12 +1,18 @@
 """The classify step: reads -> probes -> table lookup -> per-read score.
 
 Counterpart of ``pangea_tpu/classify/engine.py`` for one device, with the
-q8 and std table layouts. A batch is an int8 [B, L] code tensor (pad = 4);
-mates are concatenated at the probe level, mate 1 first (SEMANTICS.md §8),
-and ``nvalid`` counts the valid windows over both mates. On CUDA tensors
-the step is K1 once a mate, then K2 (q8) or K4 (std), then K3, plus K5
-when the taxonomy has more than 4,096 entries; on CPU tensors it is their
-plain versions.
+q8, q12 and std table layouts. A batch is an int8 [B, L] code tensor (pad =
+4); mates are concatenated at the probe level, mate 1 first (SEMANTICS.md
+§8), and ``nvalid`` counts the valid windows over both mates. On CUDA
+tensors the step is K1 once a mate, then K2 (q8), K2's q12 form (q12) or K4
+(std), then K3, plus K5 when the taxonomy has more than 4,096 entries; on
+CPU tensors it is their plain versions.
+
+The multi-k step (the one-device counterpart of ``pangea_tpu/dist/mesh.py``
+``make_multik_sharded_classify_fn``) classifies the same batch against
+several indexes built on one taxonomy and folds their calls left to right
+with the SEMANTICS.md §9 merge (K7 on CUDA tensors), over the first index's
+taxonomy arrays.
 """
 from __future__ import annotations
 
@@ -17,14 +23,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..index import pick_layout, relayout_q8, relayout_std
-from ..index.quot import Q8_WAYS
+from ..index import pick_layout, relayout_q8, relayout_q12, relayout_std
+from ..index.quot import Q8_WAYS, Q12_WAYS
 from ..kernels.lookup import (fuse_stash, fuse_table, lookup_q8,
-                              lookup_q8_plain, lookup_std, lookup_std_plain)
+                              lookup_q8_plain, lookup_q12, lookup_q12_plain,
+                              lookup_std, lookup_std_plain)
 from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
                              score_reads_tin, score_reads_tin_plain)
+from .merge import merge_multik, merge_multik_plain
 
 # The taxonomy arrays the scorer reads (Taxonomy.device_arrays).
 TAX_KEYS = ("tin", "tout", "depth", "parent", "up", "tin2node")
@@ -45,9 +53,10 @@ class ClassifyConfig:
 
 @dataclass
 class DeviceIndex:
-    """One index on one device: fused int32 [NB, 2W] (q8) or [NB, 4W | 6W]
-    (std) rows, the stash int32 [5, S] and the taxonomy's arrays (int32
-    [T+1], ``up`` [levels, T+1], ``tin2node`` [max tin + 2])."""
+    """One index on one device: fused int32 [NB, 2W] (q8), [NB, 128] (q12)
+    or [NB, 4W | 6W] (std) rows, the stash int32 [5, S] and the taxonomy's
+    arrays (int32 [T+1], ``up`` [levels, T+1], ``tin2node`` [max tin +
+    2])."""
     fused: torch.Tensor
     stash: torch.Tensor
     tax: dict
@@ -58,21 +67,18 @@ class DeviceIndex:
                    ) -> "DeviceIndex":
         """Lay a host :class:`~pangea_tpu_torch.index.Index` out as the
         device table :func:`~pangea_tpu_torch.index.pick_layout` chooses
-        for it (q8 or std; q12 raises) and place it on ``device``."""
+        for it (q8, q12 or std) and place it on ``device``."""
         tax = index.taxonomy
         layout = pick_layout(index.meta.n_kmers, 1, index.meta.k,
                              int(tax.tout.max(initial=0)))
-        if layout == "q12":
-            raise NotImplementedError(
-                f"k={index.meta.k} with {index.meta.n_kmers} k-mers needs "
-                "the q12 layout, which is not ported yet (ROADMAP B10)")
-        if layout == "q8":
-            out = relayout_q8(index, Q8_WAYS)
+        if layout in ("q8", "q12"):
+            ways = Q8_WAYS if layout == "q8" else Q12_WAYS
+            relayout = relayout_q8 if layout == "q8" else relayout_q12
+            out = relayout(index, ways)
             if out is None:
                 raise NotImplementedError(
-                    "the q8 relayout is ineligible for this index")
+                    f"the {layout} relayout is ineligible for this index")
             fused, stash3, _nb = out
-            ways = Q8_WAYS
         else:
             key_hi, key_lo, val, stash3 = relayout_std(index)
             fused = fuse_table(key_hi, key_lo, val, tax.tin, tax.tout)
@@ -89,16 +95,16 @@ class DeviceIndex:
     def from_numpy_tables(cls, tables: dict, cfg, device) -> "DeviceIndex":
         """Carry the reference's host tables over: ``tables`` is
         ``pangea_tpu`` ``DeviceIndex.from_index(idx, layout=...,
-        device_put=False).tables`` for layout "q8" or "std" (numpy: fused
-        uint32 [1, NB, lanes], stash uint32 [1, 5, S], the tax dict) and
-        ``cfg`` its ``cfg``."""
+        device_put=False).tables`` for layout "q8", "q12" or "std" (numpy:
+        fused uint32 [1, NB, lanes], stash uint32 [1, 5, S], the tax dict)
+        and ``cfg`` its ``cfg``."""
         cfg = ClassifyConfig(**dataclasses.asdict(cfg))
-        if cfg.layout not in ("q8", "std") or cfg.n_shards != 1 \
+        if cfg.layout not in ("q8", "q12", "std") or cfg.n_shards != 1 \
                 or cfg.n_sub != 1:
             raise NotImplementedError(
                 f"layout {cfg.layout!r} on {cfg.n_shards} shards x "
-                f"{cfg.n_sub} sub-tables: the port runs one q8 or std "
-                "table (ROADMAP B10, A6)")
+                f"{cfg.n_sub} sub-tables: the port runs one q8, q12 or std "
+                "table (ROADMAP A6)")
 
         def lanes(a, ndim):
             a = np.asarray(a)
@@ -150,6 +156,11 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
         score = score_reads_tin_plain if plain else score_reads_tin
         lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
                                     tables["stash"], cfg.k)
+    elif cfg.layout == "q12":
+        lookup = lookup_q12_plain if plain else lookup_q12
+        score = score_reads_tin_plain if plain else score_reads_tin
+        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
+                                    tables["stash"], cfg.k, cfg.ways)
     else:
         lookup = lookup_std_plain if plain else lookup_std
         score = score_reads_taxon_plain if plain else score_reads_taxon
@@ -197,6 +208,61 @@ def make_classify_fn(cfg: ClassifyConfig, paired: bool = False):
     if paired:
         return fn
     return lambda tables, bases: fn(tables, bases)
+
+
+def classify_multik(tables_tuple, bases, cfgs, *, mate_bases=None,
+                    plain: bool = False) -> dict:
+    """The multi-k step: :func:`classify_reads` of the same batch against
+    each index in order (``tables_tuple`` holds each
+    :attr:`DeviceIndex.tables`, ``cfgs`` each config), folded left to right
+    by the merge over the first index's taxonomy arrays. plain=True runs
+    the plain versions throughout. Returns dict(taxon, best, nvalid) int32
+    [B]."""
+    merge = merge_multik_plain if plain else merge_multik
+    res = None
+    for tables, cfg in zip(tables_tuple, cfgs, strict=True):
+        out = classify_reads(tables, bases, cfg, mate_bases=mate_bases,
+                             plain=plain)
+        res = out if res is None else merge(res, out,
+                                            tables_tuple[0]["tax"])
+    return res
+
+
+class MultiKClassifier(nn.Module):
+    """The multi-k step as a module: one :class:`Classifier` for each index,
+    in the given order. The indexes share one taxonomy, whose buffers the
+    classifiers hold in common (the first index's)."""
+
+    def __init__(self, indexes):
+        super().__init__()
+        if not indexes:
+            raise ValueError("the multi-k step needs at least one index")
+        tax = indexes[0].tax
+        self.classifiers = nn.ModuleList(
+            Classifier(dataclasses.replace(di, tax=tax)) for di in indexes)
+
+    def forward(self, bases, mate_bases=None) -> dict:
+        """bases (and mate_bases) int8 [B, L] codes on the indexes' device
+        -> the merged {"taxon", "best", "nvalid"} int32 [B]."""
+        return classify_multik(
+            tuple(c.index.tables for c in self.classifiers), bases,
+            tuple(c.cfg for c in self.classifiers), mate_bases=mate_bases)
+
+
+def make_multik_classify_fn(cfgs, paired: bool = False):
+    """fn(tables_tuple, bases[, mate_bases]) -> dict(taxon, best, nvalid):
+    the one-device counterpart of the reference's
+    ``make_multik_sharded_classify_fn``; tables_tuple holds each
+    :attr:`DeviceIndex.tables` in index order."""
+    cfgs = tuple(cfgs)
+
+    def fn(tables_tuple, bases, mate_bases=None):
+        return classify_multik(tables_tuple, bases, cfgs,
+                               mate_bases=mate_bases)
+
+    if paired:
+        return fn
+    return lambda tables_tuple, bases: fn(tables_tuple, bases)
 
 
 def pad_batch(seqs, batch: int, length: int) -> np.ndarray:

@@ -1,12 +1,14 @@
 """CLI of the PyTorch/CUDA port.
 
-    python -m pangea_tpu_torch.cli classify --index idx/ --reads r1.fq \\
-        [--mates r2.fq] [--samples s] [--out dir] [--config run.json] \\
-        [--device cuda] [key.dotted=value ...]
+    python -m pangea_tpu_torch.cli classify --index idx/ [idx2/ ...] \\
+        --reads r1.fq [--mates r2.fq] [--samples s] [--out dir] \\
+        [--config run.json] [--device cuda] [key.dotted=value ...]
 
 The flags are those of ``pangea-tpu classify``; every argument after the
 known ones is a dotted config override (``config.py``), e.g.
-``input.batch_size=8192``. ``--device`` names the torch device (default
+``input.batch_size=8192``. Several indexes (built on one taxonomy) are
+classified together and merged per read (SEMANTICS.md §9), as config 4
+does with k=21 and k=31. ``--device`` names the torch device (default
 ``cuda``); there is no fallback to another device.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("classify", help="classify reads against an index")
     c.add_argument("--config", default=None, help="RunConfig JSON")
-    c.add_argument("--index", nargs="+", default=None, help="index dir")
+    c.add_argument("--index", nargs="+", default=None, help="index dir(s)")
     c.add_argument("--reads", nargs="+", default=None)
     c.add_argument("--mates", nargs="+", default=None,
                    help="mate-2 files (paired-end)")

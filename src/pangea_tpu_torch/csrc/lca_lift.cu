@@ -14,12 +14,9 @@
 // threads in flight hide.
 //
 // Rules: q8 (tin2node given): has = u != 0; u = has ? tin2node[clamp(
-// tin_u, 0, M-1)] : 0, v likewise from tin_v. Then 0 is the identity:
-// u == v == 0 -> 0, u == 0 -> v, v == 0 -> u; otherwise lift the deeper
-// of (u, v) by the depth difference bit by bit from the top level, and if
-// they differ move both while up[l] differs; the LCA is the common node,
-// or the parent of the last pair. taxon = 0 if (float)best < thr *
-// (float)nvalid (one rounded float32 multiply) or nvalid == 0.
+// tin_u, 0, M-1)] : 0, v likewise from tin_v. Then the LCA by
+// lca_lift_pair (common.cuh, shared with K7). taxon = 0 if (float)best <
+// thr * (float)nvalid (one rounded float32 multiply) or nvalid == 0.
 #include "common.cuh"
 
 namespace {
@@ -46,28 +43,7 @@ __global__ void lca_lift_kernel(const int32_t* __restrict__ u_in,
     u = has ? tin2node[min(max(tin_u[b], 0), M - 1)] : 0;
     v = has ? tin2node[min(max(tin_v[b], 0), M - 1)] : 0;
   }
-  const bool zu = u == 0, zv = v == 0;
-  const int uu = zu ? 1 : u, vv = zv ? 1 : v;
-  const int du = depth[uu], dv = depth[vv];
-  int a = dv > du ? vv : uu;               // a is the deeper node
-  int c = dv > du ? uu : vv;
-  const int diff = du > dv ? du - dv : dv - du;
-  for (int l = levels - 1; l >= 0; --l) {
-    if ((diff >> l) & 1) a = up[static_cast<size_t>(l) * T1 + a];
-  }
-  const bool equal = a == c;
-  if (!equal) {
-    for (int l = levels - 1; l >= 0; --l) {
-      const int ua = up[static_cast<size_t>(l) * T1 + a];
-      const int uc = up[static_cast<size_t>(l) * T1 + c];
-      if (ua != uc) {
-        a = ua;
-        c = uc;
-      }
-    }
-  }
-  const int res = equal ? a : parent[a];
-  const int assigned = (zu && zv) ? 0 : zu ? v : zv ? u : res;
+  const int assigned = lca_lift_pair(u, v, parent, depth, up, levels, T1);
   const int n = nvalid[b];
   const bool below = static_cast<float>(best[b]) <
                      __fmul_rn(thr, static_cast<float>(n));

@@ -1,39 +1,52 @@
-// K2: q8 bucket-row probe plus full-key stash scan.
+// K2: q8 and q12 bucket-row probes plus the full-key stash scan.
 //
-// Replaces the XLA-compiled reference function
+// Replaces the XLA-compiled reference functions
 //   src/pangea_tpu/kernels/lookup.py:710  lookup_q8_jnp (B4)
-// (with _umulh32_jnp :694 and the stash scan :775-782). The reference
-// gathers whole [N, 2W] rows into device memory and compares them in a
-// second pass; here one warp owns one probe, reads its 2W-lane row once
-// (each lane reads W/32 rem lanes and, only on a match, their payload
-// lanes) and reduces with shuffles, so no row copy reaches device memory.
+// (with _umulh32_jnp :694 and the stash scan :775-782) and
+//   src/pangea_tpu/kernels/lookup.py:629  lookup_q12_jnp (B10)
+// (its three remainder branches :650-662 and the stash scan :683-690). The
+// reference gathers whole rows into device memory and compares them in a
+// second pass; here one warp owns one probe, reads its row once (each lane
+// reads the rem lanes j = lane, lane + 32, ... and, only on a match, the
+// payload lane) and reduces with shuffles, so no row copy reaches device
+// memory.
 //
-// What bounds it on an H100: one random 512 B row read a probe (the
-// bench's 8.4 MB table stays in the 50 MB L2), so it is bound by L2 row
-// fetches and warp issue, not by HBM bandwidth. The TPU needed 32-bit limb
-// arithmetic for the 64-bit mix; Hopper multiplies in 64 bits natively.
+// What bounds it on an H100: one random 512 B row read a probe. The q8
+// bench table (8.4 MB) stays in the 50 MB L2, so q8 is bound by L2 row
+// fetches and warp issue; the config-4 q12 table (67.1 MB) does not, so
+// q12 pays an HBM sector read for its rem_lo lanes on most probes. The TPU
+// needed 32-bit limb arithmetic for the 62-bit mix; Hopper multiplies in 64
+// bits natively, so all three of the reference's q12 remainder branches are
+// the one split below.
 //
-// Rules: K = hi << 32 | lo, m = 2k, h = K * 0x9E3779B1 mod 2^m,
-// r = m - log2 NB in [0, 31], bucket = h >> r, rem = h & (2^r - 1).
-// pk = wrapping uint32 sum of payload lanes W + j with row[j] == rem, for
-// valid probes only; t_in = pk >> 16, t_out = pk & 0xFFFF, hit = pk != 0.
-// Then every stash column s with valid && hi == stash[0][s] && lo ==
-// stash[1][s] adds stash rows 3 and 4 to t_in / t_out and 1 to hit.
+// Rules: K = hi << 32 | lo, m = 2k, h = K * 0x9E3779B1 mod 2^m, r = m -
+// log2 NB (q8: [0, 31]; q12: [0, 62]), bucket = h >> r, rem = h & (2^r -
+// 1). q8 rows are [rem | payload] x W: a slot matches when row[j] == rem.
+// q12 rows are [rem_lo | rem_hi | payload] x W then pad: a slot matches when
+// row[j] == rem & 0xFFFFFFFF and row[W + j] == rem >> 32 (empty slots hold
+// rem_hi 0xFFFFFFFF, which no remainder reaches, so they never match, even
+// when r < 32 makes every real rem_hi 0). pk = wrapping uint32 sum of the
+// matching payload lanes, for valid probes only; t_in = pk >> 16, t_out =
+// pk & 0xFFFF, hit = pk != 0. Then every stash column s with valid && hi ==
+// stash[0][s] && lo == stash[1][s] adds stash rows 3 and 4 to t_in / t_out
+// and 1 to hit.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-__global__ void lookup_q8_kernel(const uint32_t* __restrict__ hi,
-                                 const uint32_t* __restrict__ lo,
-                                 const uint8_t* __restrict__ valid,
-                                 long long N,
-                                 const uint32_t* __restrict__ fused, int W,
-                                 const uint32_t* __restrict__ stash, int S,
-                                 int m, int r, int32_t* __restrict__ hit,
-                                 int32_t* __restrict__ t_in,
-                                 int32_t* __restrict__ t_out) {
+template <bool kQ12>
+__global__ void lookup_quot_kernel(const uint32_t* __restrict__ hi,
+                                   const uint32_t* __restrict__ lo,
+                                   const uint8_t* __restrict__ valid,
+                                   long long N,
+                                   const uint32_t* __restrict__ fused, int W,
+                                   int row_lanes,
+                                   const uint32_t* __restrict__ stash, int S,
+                                   int m, int r, int32_t* __restrict__ hit,
+                                   int32_t* __restrict__ t_in,
+                                   int32_t* __restrict__ t_out) {
   const int lane = threadIdx.x & 31;
   long long q = blockIdx.x * static_cast<long long>(kWarpsPerBlock) +
                 (threadIdx.x >> 5);
@@ -46,10 +59,15 @@ __global__ void lookup_q8_kernel(const uint32_t* __restrict__ hi,
     const uint64_t K = (static_cast<uint64_t>(qhi) << 32) | qlo;
     const uint64_t h = (K * 0x9E3779B1ull) & ((1ull << m) - 1);
     const uint64_t bucket = h >> r;
-    const uint32_t rem = static_cast<uint32_t>(h & ((1ull << r) - 1));
-    const uint32_t* row = fused + bucket * (2ull * W);
+    const uint64_t rem = h & ((1ull << r) - 1);
+    const uint32_t rem_lo = static_cast<uint32_t>(rem);
+    const uint32_t rem_hi = static_cast<uint32_t>(rem >> 32);
+    const uint32_t* row = fused + bucket * static_cast<uint64_t>(row_lanes);
+    const uint32_t* payload = row + (kQ12 ? 2 * W : W);
     for (int j = lane; j < W; j += 32) {
-      if (row[j] == rem) pk += row[W + j];
+      if (row[j] == rem_lo && (!kQ12 || row[W + j] == rem_hi)) {
+        pk += payload[j];
+      }
     }
     for (int s = lane; s < S; s += 32) {
       if (stash[s] == qhi && stash[S + s] == qlo) {
@@ -72,6 +90,30 @@ __global__ void lookup_q8_kernel(const uint32_t* __restrict__ hi,
   }
 }
 
+// log2 of NB, or -1 when NB is not a power of two.
+int log2_exact(long long NB) {
+  int log2nb = 0;
+  while ((1ll << log2nb) < NB) ++log2nb;
+  return (1ll << log2nb) == NB ? log2nb : -1;
+}
+
+template <bool kQ12>
+int launch(const void* hi, const void* lo, const void* valid, long long N,
+           const void* fused, int W, int row_lanes, const void* stash, int S,
+           int m, int r, void* hit, void* t_in, void* t_out, void* stream) {
+  if (N == 0) return 0;
+  lookup_quot_kernel<kQ12>
+      <<<blocks_for(N, kWarpsPerBlock), 32 * kWarpsPerBlock, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+          static_cast<const uint8_t*>(valid), N,
+          static_cast<const uint32_t*>(fused), W, row_lanes,
+          static_cast<const uint32_t*>(stash), S, m, r,
+          static_cast<int32_t*>(hit), static_cast<int32_t*>(t_in),
+          static_cast<int32_t*>(t_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // hi/lo int32 bit patterns and valid bytes [N]; fused [NB, 2W] and stash
@@ -81,21 +123,28 @@ extern "C" int pangea_lookup_q8(const void* hi, const void* lo,
                                 const void* fused, long long NB, int W,
                                 const void* stash, int S, int k, void* hit,
                                 void* t_in, void* t_out, void* stream) {
-  int log2nb = 0;
-  while ((1ll << log2nb) < NB) ++log2nb;
-  const int m = 2 * k;
-  const int r = m - log2nb;
-  if ((1ll << log2nb) != NB || r < 0 || r > 31) {
+  const int log2nb = log2_exact(NB);
+  const int r = 2 * k - log2nb;
+  if (log2nb < 0 || k < 1 || k > 31 || r < 0 || r > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (N == 0) return 0;
-  lookup_q8_kernel<<<blocks_for(N, kWarpsPerBlock), 32 * kWarpsPerBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-      static_cast<const uint8_t*>(valid), N,
-      static_cast<const uint32_t*>(fused), W,
-      static_cast<const uint32_t*>(stash), S, m, r,
-      static_cast<int32_t*>(hit), static_cast<int32_t*>(t_in),
-      static_cast<int32_t*>(t_out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(hi, lo, valid, N, fused, W, 2 * W, stash, S, 2 * k, r,
+                       hit, t_in, t_out, stream);
+}
+
+// The q12 form: fused [NB, row_lanes] with row_lanes >= 3W.
+extern "C" int pangea_lookup_q12(const void* hi, const void* lo,
+                                 const void* valid, long long N,
+                                 const void* fused, long long NB, int W,
+                                 int row_lanes, const void* stash, int S,
+                                 int k, void* hit, void* t_in, void* t_out,
+                                 void* stream) {
+  const int log2nb = log2_exact(NB);
+  const int r = 2 * k - log2nb;
+  if (log2nb < 0 || k < 1 || k > 31 || r < 0 || r > 62 ||
+      row_lanes < 3 * W) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<true>(hi, lo, valid, N, fused, W, row_lanes, stash, S, 2 * k,
+                      r, hit, t_in, t_out, stream);
 }

@@ -4,7 +4,8 @@ import os
 
 from .build import build_index, pick_layout
 from .container import EMPTY_HI, Index, IndexMeta
-from .quot import extract_pairs, q8_nb_for, relayout_q8, relayout_std
+from .quot import (extract_pairs, q8_nb_for, relayout_q8, relayout_q12,
+                   relayout_std)
 
 
 def load_index_any(path: str, mmap: bool = True) -> Index:
@@ -22,4 +23,4 @@ def load_index_any(path: str, mmap: bool = True) -> Index:
 
 __all__ = ["EMPTY_HI", "Index", "IndexMeta", "build_index", "extract_pairs",
            "load_index_any", "pick_layout", "q8_nb_for", "relayout_q8",
-           "relayout_std"]
+           "relayout_q12", "relayout_std"]

@@ -1,11 +1,13 @@
 """The one-shard device relayouts of an index, numpy only.
 
-The port's copy of the reference's q8 table builders and q8/q12 sizing
+The port's copy of the reference's q8 and q12 table builders and sizing
 (``pangea_tpu/kernels/lookup.py`` ``q8_hash_np``, ``q8_rem_bits``,
-``q8_nb_for``, ``q12_nb_for``, ``q8_layout``, ``_bucket_rank``) and of its
-one-shard relayouts (``pangea_tpu/index/shard.py`` ``extract_pairs``,
+``q8_nb_for``, ``q12_nb_for``, ``q8_layout``, ``_q12_row_lanes``,
+``_q12_split_np``, ``q12_layout``, ``_bucket_rank``) and of its one-shard
+relayouts (``pangea_tpu/index/shard.py`` ``extract_pairs``,
 ``shard_tables_quot`` and ``shard_tables`` at one shard).
-``tests/test_torch_quot.py`` holds them byte-identical to the reference.
+``tests/test_torch_quot.py`` and ``tests/test_torch_q12.py`` hold them
+byte-identical to the reference.
 
 q8 (SEMANTICS.md §5): the canonical k-mer K (2k bits) is mixed by the
 bijection h = K·A mod 2^(2k); bucket = the top log2(NB) bits of h, rem =
@@ -13,6 +15,11 @@ the low r = 2k − log2(NB) ≤ 31 bits. A row holds W rem lanes (empty =
 0xFFFFFFFF) then W payload lanes (tin << 16 | tout of the k-mer's taxon).
 Bucket overflow goes to a full-key stash in ascending canonical order; a
 stash above ``stash_max`` doubles NB and restarts.
+
+q12 (the k=31 lane, where r = 2k − log2(NB) exceeds 31): the same mix and
+split, with the remainder in two lanes. A row holds W = 42 rem_lo lanes (the
+low 32 remainder bits), W rem_hi lanes (the rest; empty = 0xFFFFFFFF, which
+no real rem_hi reaches), W payload lanes and 2 pad lanes: 128 lanes, 512 B.
 
 std: the index's own layout (``build.layout_table``) at its bucket width,
 with the stash padded to at least one column of EMPTY_HI keys, as the
@@ -138,6 +145,75 @@ def q8_layout(kmers, taxa, tin, tout, k: int, ways: int = Q8_WAYS,
         return fused, stash, nb
 
 
+def _q12_row_lanes(ways: int) -> int:
+    """Lanes of a q12 row: the next power of two >= 3 * ways."""
+    return 1 << (3 * ways - 1).bit_length()
+
+
+def _q12_split_np(h: np.ndarray, r: int):
+    """(bucket int64, rem_lo uint32, rem_hi uint32) of the q8 mix h."""
+    b = (h >> np.uint64(r)).astype(np.int64)
+    rem_lo = (h & np.uint64((1 << min(r, 32)) - 1)).astype(np.uint32)
+    if r > 32:
+        rem_hi = ((h >> np.uint64(32)) & np.uint64((1 << (r - 32)) - 1)
+                  ).astype(np.uint32)
+    else:
+        rem_hi = np.zeros(h.shape, np.uint32)
+    return b, rem_lo, rem_hi
+
+
+def q12_layout(kmers, taxa, tin, tout, k: int, ways: int = Q12_WAYS,
+               load_factor: float = 0.5, stash_max: int = 128,
+               min_nb: int = 0):
+    """Lay (kmer -> taxon) pairs out as the q12 table.
+
+    Returns (fused uint32 [NB, RL] — lanes [0, W) rem_lo, [W, 2W) rem_hi,
+    [2W, 3W) pk, [3W, RL) pad — stash uint32 [3, S] rows (hi, lo,
+    val-bits), nb), or None when the Euler stamps exceed 16 bits. The
+    placement rule is q8_layout's; a stash overflow doubles NB and
+    restarts."""
+    kmers = np.asarray(kmers, dtype=np.uint64)
+    taxa = np.asarray(taxa, dtype=np.int32)
+    tin = np.asarray(tin, dtype=np.int32)
+    tout = np.asarray(tout, dtype=np.int32)
+    if int(tout.max(initial=0)) > 0xFFFF:
+        return None
+    n = kmers.shape[0]
+    if n > 1 and not (kmers[1:] > kmers[:-1]).all():
+        order = np.argsort(kmers, kind="stable")
+        kmers, taxa = kmers[order], taxa[order]
+    h = q8_hash_np(kmers, k)
+    nb = q12_nb_for(n, k, ways, load_factor, min_nb)
+    while True:
+        r = q8_rem_bits(k, nb)
+        if r < 0:
+            nb = 1 << (2 * k)      # more buckets than k-mer values: clamp
+            r = 0
+        b, rem_lo, rem_hi = _q12_split_np(h, r)
+        order, bs, rank, place = _bucket_rank(b, n, ways)
+        over = np.sort(order[~place])           # ascending canonical
+        if over.size > stash_max and r > 0:
+            nb *= 2
+            continue
+        fused = np.zeros((nb, _q12_row_lanes(ways)), dtype=np.uint32)
+        fused[:, ways:2 * ways] = EMPTY_HI      # empty rem_hi sentinel
+        ks = order[place]
+        val = taxa[ks]
+        pk = (tin[val].astype(np.uint32) << np.uint32(16)) \
+            | tout[val].astype(np.uint32)
+        fused[bs[place], rank[place]] = rem_lo[ks]
+        fused[bs[place], ways + rank[place]] = rem_hi[ks]
+        fused[bs[place], 2 * ways + rank[place]] = pk
+        if over.size:
+            stash = np.stack([
+                (kmers[over] >> np.uint64(32)).astype(np.uint32),
+                (kmers[over] & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                taxa[over].view(np.uint32)])
+        else:
+            stash = np.zeros((3, 0), dtype=np.uint32)
+        return fused, stash, nb
+
+
 def extract_pairs(index):
     """Recover (canon uint64[N] ascending, taxon int32[N]) from an index's
     table (bucket rows + stash; padded stash columns excluded)."""
@@ -158,22 +234,19 @@ def extract_pairs(index):
     return canon[order], taxa[order]
 
 
-def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
-    """One-shard q8 relayout of an index: the reference's
-    ``shard_tables_quot(index, 1, ways, load_factor, "q8")``.
-
-    Returns (fused uint32 [1, NB, 2W], stash uint32 [1, 3, S], nb), or
-    None when the layout is ineligible."""
+def _relayout_quot(index, ways: int, load_factor: float, layout_fn, nb_fn):
+    """The reference's ``shard_tables_quot`` at one shard, for the layout
+    whose builder is ``layout_fn`` and whose sizing is ``nb_fn``."""
     tax = index.taxonomy
     if int(tax.tout.max(initial=0)) > 0xFFFF:
         return None
     k = index.meta.k
     canon, taxa = extract_pairs(index)
-    nb = q8_nb_for(int(canon.shape[0]), k, ways, load_factor)
+    nb = nb_fn(int(canon.shape[0]), k, ways, load_factor)
     if nb is None:
         return None
     while True:                     # a stash overflow can outgrow nb
-        out = q8_layout(canon, taxa, tax.tin, tax.tout, k, ways=ways,
+        out = layout_fn(canon, taxa, tax.tin, tax.tout, k, ways=ways,
                         load_factor=load_factor, min_nb=nb)
         if out is None:
             return None
@@ -182,6 +255,24 @@ def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
             break
         nb = nb_s
     return fused[None], stash3[None], nb
+
+
+def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
+    """One-shard q8 relayout of an index: the reference's
+    ``shard_tables_quot(index, 1, ways, load_factor, "q8")``.
+
+    Returns (fused uint32 [1, NB, 2W], stash uint32 [1, 3, S], nb), or
+    None when the layout is ineligible."""
+    return _relayout_quot(index, ways, load_factor, q8_layout, q8_nb_for)
+
+
+def relayout_q12(index, ways: int = Q12_WAYS, load_factor: float = 0.5):
+    """One-shard q12 relayout of an index: the reference's
+    ``shard_tables_quot(index, 1, ways, load_factor, "q12")``.
+
+    Returns (fused uint32 [1, NB, 128], stash uint32 [1, 3, S], nb), or
+    None when the Euler stamps exceed 16 bits."""
+    return _relayout_quot(index, ways, load_factor, q12_layout, q12_nb_for)
 
 
 def relayout_std(index, load_factor: float = 0.5):

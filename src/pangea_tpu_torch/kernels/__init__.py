@@ -2,7 +2,8 @@
 wrapper that launches a hand-written CUDA kernel on CUDA tensors."""
 from .encode import extract_kmers
 from .lookup import (fuse_stash, fuse_table, hash32, lookup_q8,
-                     lookup_q8_plain, lookup_std, lookup_std_plain, mix32)
+                     lookup_q8_plain, lookup_q12, lookup_q12_plain,
+                     lookup_std, lookup_std_plain, mix32)
 from .minimize import extract_probes, extract_probes_plain, select_minimizers
 from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
                     score_reads_plain, score_reads_taxon,
@@ -10,10 +11,14 @@ from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
                     score_reads_tin_plain, score_winners,
                     score_winners_plain)
 
+# After the kernel modules: the merge's module imports them.
+from ..classify.merge import merge_multik  # noqa: E402
+
 # The kernel wrappers, whose `launches` attribute counts kernel launches.
 KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "score_tin": score_reads_tin, "lookup_std": lookup_std,
-           "score_taxon": score_reads_taxon, "lca_lift": lca_lift}
+           "score_taxon": score_reads_taxon, "lca_lift": lca_lift,
+           "lookup_q12": lookup_q12, "merge_multik": merge_multik}
 
 
 def kernel_launches() -> dict:
@@ -29,8 +34,9 @@ def reset_kernel_launches() -> None:
 __all__ = ["KERNELS", "extract_kmers", "extract_probes",
            "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
            "kernel_launches", "lca_lift", "lca_lift_plain",
-           "lca_pairs_plain", "lookup_q8", "lookup_q8_plain", "lookup_std",
-           "lookup_std_plain", "mix32", "reset_kernel_launches",
+           "lca_pairs_plain", "lookup_q8", "lookup_q8_plain", "lookup_q12",
+           "lookup_q12_plain", "lookup_std", "lookup_std_plain", "mix32",
+           "reset_kernel_launches",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",
            "score_reads_tin_plain", "score_winners", "score_winners_plain",

@@ -38,6 +38,10 @@ SIGNATURES = {
     # hi, lo, valid, N, fused, NB, W, stash, S, k, hit, t_in, t_out, stream
     "pangea_lookup_q8": (_P, _P, _P, _I64, _P, _I64, _I, _P, _I, _I,
                          _P, _P, _P, _P),
+    # hi, lo, valid, N, fused, NB, W, row_lanes, stash, S, k, hit, t_in,
+    # t_out, stream
+    "pangea_lookup_q12": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
+                          _P, _P, _P, _P),
     # hi, lo, valid, N, fused, NB, W, packed, stash, S, taxon, t_in, t_out,
     # stream
     "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I,
@@ -50,6 +54,10 @@ SIGNATURES = {
     # levels, T1, thr, taxon, stream
     "pangea_lca_lift": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
                         _I, _I, _F, _P, _P),
+    # t1, b1, n1, t2, b2, n2, B, parent, depth, up, levels, T1, taxon, best,
+    # nvalid, stream
+    "pangea_merge_multik": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P),
 }
 
 

@@ -1,9 +1,12 @@
 """hash32 and the table probes (SEMANTICS.md §4-5).
 
 Counterpart of ``pangea_tpu/kernels/lookup.py``: ``mix32``/``hash32``
-(``mix32_jnp``/``hash32_jnp``), ``lookup_q8`` (``lookup_q8_jnp``, kernel K2)
-and ``lookup_std`` (``lookup_jnp`` for one shard, kernel K4), with the
-host builders of the std device rows, ``fuse_table`` and ``fuse_stash``.
+(``mix32_jnp``/``hash32_jnp``), ``lookup_q8`` (``lookup_q8_jnp``, kernel K2),
+``lookup_q12`` (``lookup_q12_jnp``, K2's q12 form) and ``lookup_std``
+(``lookup_jnp`` for one shard, kernel K4), with the host builders of the
+std device rows, ``fuse_table`` and ``fuse_stash``. The port has no
+counterpart of the reference's chunked and sorted gathers (``_chunked_pk``,
+``_sorted_pk``): they leave the outputs unchanged.
 
 Lane rule: 32-bit unsigned lanes live in ``torch.int32`` tensors holding
 the uint32 bit pattern. The plain versions widen them to int64
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..index.quot import Q12_WAYS
 from . import _build
 
 M32 = 0xFFFFFFFF
@@ -64,7 +68,8 @@ def hash32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 
 def _q8_split(hi, lo, k: int, log2nb: int):
-    """(bucket, rem) int64 of h = (K * A) mod 2^(2k) for widened lanes."""
+    """(bucket, rem) int64 of h = (K * A) mod 2^(2k) for widened lanes; rem
+    holds the low r = 2k - log2nb bits (up to 62 for q12)."""
     m = 2 * k
     r = m - log2nb
     p0 = lo * (_Q8_A & 0xFFFF)                  # < 2^48
@@ -90,21 +95,34 @@ def _q8_geometry(fused: torch.Tensor, k: int):
     return log2nb, fused.shape[1] // 2
 
 
-def lookup_q8_plain(hi, lo, valid, fused, stash, k: int):
-    """Plain PyTorch q8 probe (any device). hi/lo int32 bit patterns and
-    valid bool, any shape; fused int32 [NB, 2W] (rem lanes, then payload
-    lanes); stash int32 [5, S]. Returns (hit, t_in, t_out) int32 like hi."""
-    log2nb, W = _q8_geometry(fused, k)
+def _q12_geometry(fused: torch.Tensor, k: int, ways: int) -> int:
+    nb, lanes = fused.shape
+    log2nb = nb.bit_length() - 1
+    r = 2 * k - log2nb
+    if nb != 1 << log2nb or not 0 <= r <= 62 or lanes < 3 * ways:
+        raise ValueError(f"q12 table {tuple(fused.shape)} with W={ways} and "
+                         f"k={k}: want a power-of-two NB, a remainder width "
+                         f"in [0, 62] (got {r}) and at least 3W lanes")
+    return log2nb
+
+
+def _lookup_quot_plain(hi, lo, valid, fused, stash, k: int, log2nb: int,
+                       W: int, q12: bool):
+    """The q8 and q12 probes: the rem lanes of the bucket's row (q12: rem_lo
+    lanes [0, W) and rem_hi lanes [W, 2W)) select the payload lanes that
+    follow them, whose wrapping uint32 sum is pk; then the stash scan."""
     shape = hi.shape
     hi, lo, valid = hi.reshape(-1), lo.reshape(-1), valid.reshape(-1)
     outs = []
     for s in range(0, max(hi.shape[0], 1), _PLAIN_CHUNK):
         h_c, l_c, v_c = (x[s:s + _PLAIN_CHUNK] for x in (hi, lo, valid))
-        hw, lw = widen(h_c), widen(l_c)
-        bucket, rem = _q8_split(hw, lw, k, log2nb)
-        rows = fused[bucket]                            # [n, 2W]
-        match = v_c[:, None] & (widen(rows[:, :W]) == rem[:, None])
-        pk = torch.where(match, widen(rows[:, W:]), 0).sum(1) & M32
+        bucket, rem = _q8_split(widen(h_c), widen(l_c), k, log2nb)
+        rows = fused[bucket]                            # [n, lanes]
+        match = v_c[:, None] & (widen(rows[:, :W]) == (rem & M32)[:, None])
+        if q12:
+            match &= widen(rows[:, W:2 * W]) == (rem >> 32)[:, None]
+        payload = rows[:, (2 if q12 else 1) * W:(3 if q12 else 2) * W]
+        pk = torch.where(match, widen(payload), 0).sum(1) & M32
         t_in = pk >> 16
         t_out = pk & 0xFFFF
         hit = (pk != 0).to(torch.int64)
@@ -120,13 +138,16 @@ def lookup_q8_plain(hi, lo, valid, fused, stash, k: int):
     return tuple(torch.cat(o).reshape(shape) for o in zip(*outs))
 
 
-def lookup_q8(hi, lo, valid, fused, stash, k: int):
-    """q8 probe: the plain version for CPU tensors, kernel K2
-    (``csrc/lookup_q8.cu``) for CUDA tensors. Same contract as
-    :func:`lookup_q8_plain`."""
-    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
-    if dev is None:
-        return lookup_q8_plain(hi, lo, valid, fused, stash, k)
+def lookup_q8_plain(hi, lo, valid, fused, stash, k: int):
+    """Plain PyTorch q8 probe (any device). hi/lo int32 bit patterns and
+    valid bool, any shape; fused int32 [NB, 2W] (rem lanes, then payload
+    lanes); stash int32 [5, S]. Returns (hit, t_in, t_out) int32 like hi."""
+    log2nb, W = _q8_geometry(fused, k)
+    return _lookup_quot_plain(hi, lo, valid, fused, stash, k, log2nb, W,
+                              q12=False)
+
+
+def _check_quot(hi, lo, valid, fused, stash, k: int) -> None:
     _build.check(hi, torch.int32, name="hi")
     _build.check(lo, torch.int32, shape=hi.shape, name="lo")
     _build.check(valid, torch.bool, shape=hi.shape, name="valid")
@@ -134,10 +155,21 @@ def lookup_q8(hi, lo, valid, fused, stash, k: int):
     _build.check(stash, torch.int32, ndim=2, name="stash")
     if not 1 <= k <= 31:
         raise ValueError(f"k={k} outside 1..31")
+    if stash.shape[0] != 5:
+        raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
+
+
+def lookup_q8(hi, lo, valid, fused, stash, k: int):
+    """q8 probe: the plain version for CPU tensors, kernel K2
+    (``csrc/lookup_q8.cu``) for CUDA tensors. Same contract as
+    :func:`lookup_q8_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_q8_plain(hi, lo, valid, fused, stash, k)
+    _check_quot(hi, lo, valid, fused, stash, k)
     _, W = _q8_geometry(fused, k)
-    if fused.shape[1] != 2 * W or stash.shape[0] != 5:
-        raise ValueError(f"fused {tuple(fused.shape)} / stash "
-                         f"{tuple(stash.shape)} are not q8 tables")
+    if fused.shape[1] != 2 * W:
+        raise ValueError(f"fused {tuple(fused.shape)} is not a q8 table")
     hit = torch.empty(hi.shape, dtype=torch.int32, device=dev)
     t_in = torch.empty_like(hit)
     t_out = torch.empty_like(hit)
@@ -150,6 +182,41 @@ def lookup_q8(hi, lo, valid, fused, stash, k: int):
 
 
 lookup_q8.launches = 0
+
+
+def lookup_q12_plain(hi, lo, valid, fused, stash, k: int,
+                     ways: int = Q12_WAYS):
+    """Plain PyTorch q12 probe (any device): the q8 probe with the
+    remainder in two lanes. fused int32 [NB, RL >= 3W] (rem_lo, rem_hi and
+    payload lanes, then pad); stash int32 [5, S]. Returns (hit, t_in, t_out)
+    int32 like hi."""
+    log2nb = _q12_geometry(fused, k, ways)
+    return _lookup_quot_plain(hi, lo, valid, fused, stash, k, log2nb, ways,
+                              q12=True)
+
+
+def lookup_q12(hi, lo, valid, fused, stash, k: int, ways: int = Q12_WAYS):
+    """q12 probe: the plain version for CPU tensors, kernel K2's q12 form
+    (``csrc/lookup_q8.cu``) for CUDA tensors. Same contract as
+    :func:`lookup_q12_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_q12_plain(hi, lo, valid, fused, stash, k, ways)
+    _check_quot(hi, lo, valid, fused, stash, k)
+    _q12_geometry(fused, k, ways)
+    hit = torch.empty(hi.shape, dtype=torch.int32, device=dev)
+    t_in = torch.empty_like(hit)
+    t_out = torch.empty_like(hit)
+    _build.launch("pangea_lookup_q12", dev, hi.data_ptr(), lo.data_ptr(),
+                  valid.data_ptr(), hi.numel(), fused.data_ptr(),
+                  fused.shape[0], ways, fused.shape[1], stash.data_ptr(),
+                  stash.shape[1], k, hit.data_ptr(), t_in.data_ptr(),
+                  t_out.data_ptr())
+    lookup_q12.launches += 1
+    return hit, t_in, t_out
+
+
+lookup_q12.launches = 0
 
 
 def fuse_table(key_hi, key_lo, val, tin, tout) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Basic streaming classify run on one device.
 
 Counterpart of the general (non-native) branch of
-``pangea_tpu/pipeline/run.py`` ``run_classify`` for one index (q8 or std
-layout) on one device: read files (single or paired) stream through ``read_batches`` at
-``input.batch_size``, each batch runs the :class:`Classifier`, and the run
-writes ``{sample}.assign.tsv``, ``{sample}.summary.tsv`` (plus
+``pangea_tpu/pipeline/run.py`` ``run_classify`` on one device, for one or
+more indexes (q8, q12 or std layout each) built on one taxonomy: read files
+(single or paired) stream through ``read_batches`` at ``input.batch_size``,
+each batch runs one :class:`MultiKClassifier` step (several indexes merge
+on the device, SEMANTICS.md §9), and the run writes
+``{sample}.assign.tsv``, ``{sample}.summary.tsv`` (plus
 ``cohort.summary.tsv`` for several samples) and ``stats.json`` exactly as
 the reference does. Options the port does not run yet raise
 NotImplementedError naming their ROADMAP item.
@@ -24,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from ..classify.engine import Classifier, DeviceIndex, pad_batch
+from ..classify.engine import DeviceIndex, MultiKClassifier, pad_batch
 from ..config import RunConfig, dump_config
 from ..index import load_index_any
 from ..io.fastx import read_batches
@@ -48,10 +50,6 @@ def default_sample_names(files) -> list:
 
 
 def _check_supported(c: RunConfig) -> None:
-    if len(c.classify.index) != 1:
-        raise NotImplementedError(
-            f"{len(c.classify.index)} indexes: the multi-k merge is not "
-            "ported yet (ROADMAP A4, B13)")
     if c.mesh.n_data > 1 or c.mesh.n_shard > 1 or c.dist.num_processes > 1:
         raise NotImplementedError(
             "a mesh of more than one device is not ported yet (ROADMAP A6)")
@@ -74,8 +72,8 @@ def _check_lengths(batch, L: int) -> None:
 
 
 def run_classify_basic(cfg: RunConfig, device) -> dict:
-    """Classify cfg.input's read files against the one index of
-    cfg.classify on ``device``; returns run metrics."""
+    """Classify cfg.input's read files against the indexes of cfg.classify
+    on ``device``; returns run metrics."""
     _check_supported(cfg)
     out_dir = cfg.classify.out_dir
     if cfg.input.samples and len(cfg.input.samples) != len(cfg.input.reads):
@@ -87,10 +85,17 @@ def run_classify_basic(cfg: RunConfig, device) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     dump_config(cfg, os.path.join(out_dir, "run_config.json"))
 
-    index = load_index_any(cfg.classify.index[0])
-    tax = index.taxonomy
-    model = Classifier(DeviceIndex.from_index(
-        index, device, cfg.classify.confidence_threshold))
+    indexes = [load_index_any(p) for p in cfg.classify.index]
+    if not indexes:
+        raise ValueError("classify.index must name at least one index")
+    for ix in indexes[1:]:
+        if ix.meta.taxonomy_hash != indexes[0].meta.taxonomy_hash:
+            raise ValueError("multi-k indexes built against different "
+                             "taxonomies")
+    tax = indexes[0].taxonomy
+    model = MultiKClassifier([
+        DeviceIndex.from_index(ix, device, cfg.classify.confidence_threshold)
+        for ix in indexes])
     paired = bool(cfg.input.mates)
     B, L = cfg.input.batch_size, cfg.input.max_read_len
     files = list(cfg.input.reads)

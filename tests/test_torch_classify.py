@@ -85,8 +85,10 @@ def test_pad_batch_is_the_reference_copy(world):
 
 
 def test_unsupported_layouts_raise(world):
-    """q12 (the reference's k=31 layout) is not ported: its tables raise."""
+    """Sharded tables (the reference's placement on a mesh of two shards)
+    are not ported: they raise."""
     _, _, idx, _ = world
-    ref = RefDeviceIndex.from_index(idx, layout="q12", device_put=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
+    ref = RefDeviceIndex.from_index(idx, n_shards=2, layout="q8",
+                                    device_put=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         DeviceIndex.from_numpy_tables(ref.tables, ref.cfg, "cpu")

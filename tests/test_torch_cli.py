@@ -5,6 +5,7 @@ import os
 import pytest
 
 from pangea_tpu import cli as ref_cli
+from pangea_tpu.index import build_index
 from pangea_tpu.utils import datagen
 from pangea_tpu_torch import cli
 
@@ -14,9 +15,18 @@ from .helpers import small_world
 @pytest.fixture(scope="module")
 def testdata(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_cli")
-    tax, _, idx, rs = small_world(k=21, seed=4, genome_len=3000, n_reads=150,
-                                  read_len=120, paired=True, w=8)
+    tax, genomes, idx, rs = small_world(k=21, seed=4, genome_len=3000,
+                                        n_reads=150, read_len=120,
+                                        paired=True, w=8)
     idx.save(str(d / "idx"))
+    # Config 4's second index: k=31 on the same genomes and taxonomy.
+    build_index(genomes, tax, k=31).save(str(d / "idx31"))
+    # An index built against another taxonomy (one more genus a phylum).
+    otax = datagen.make_taxonomy(genera_per_phylum=3)
+    other = build_index(datagen.make_genomes(otax, genome_len=1000, seed=1),
+                        otax, k=21)
+    assert other.meta.taxonomy_hash != idx.meta.taxonomy_hash
+    other.save(str(d / "idx_other"))
     datagen.write_fastq(str(d / "a_1.fastq"), rs, mate=1)
     datagen.write_fastq(str(d / "a_2.fastq"), rs, mate=2)
     half = datagen.ReadSet(ids=rs.ids[:60], seqs=rs.seqs[:60], mates=None,
@@ -25,15 +35,18 @@ def testdata(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("reads", [
-    ["--reads", "a_1.fastq", "--mates", "a_2.fastq", "--samples", "s"],
-    ["--reads", "a_1.fastq", "b.fastq"],
-], ids=["paired", "two_single_files"])
+@pytest.mark.parametrize("indexes,reads", [
+    (["idx"], ["--reads", "a_1.fastq", "--mates", "a_2.fastq",
+               "--samples", "s"]),
+    (["idx"], ["--reads", "a_1.fastq", "b.fastq"]),
+    (["idx", "idx31"], ["--reads", "a_1.fastq", "--mates", "a_2.fastq",
+                        "--samples", "s"]),
+], ids=["paired", "two_single_files", "multi_index"])
 def test_cli_outputs_byte_identical_to_jax(testdata, tmp_path, monkeypatch,
-                                           reads):
+                                           indexes, reads):
     d = testdata
     monkeypatch.setenv("PANGEA_NO_NATIVE", "1")  # the reference's general path
-    args = ["classify", "--index", str(d / "idx"),
+    args = ["classify", "--index", *[str(d / i) for i in indexes],
             *[str(d / a) if a.endswith(".fastq") else a for a in reads],
             "input.batch_size=64", "input.max_read_len=120",
             "mesh.n_data=1", "mesh.n_shard=1",
@@ -50,13 +63,12 @@ def test_cli_outputs_byte_identical_to_jax(testdata, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--index", "idx", "idx"],
     ["mesh.n_data=2"],
     ["trim.min_qual=20"],
     ['demux.barcodes=[["x", "ACGTACGT"]]'],
     ["--resume"],
     ["input.max_read_len=100"],
-], ids=["multi_index", "mesh", "trim", "demux", "resume", "long_reads"])
+], ids=["mesh", "trim", "demux", "resume", "long_reads"])
 def test_cli_unsupported_options_raise(testdata, tmp_path, extra):
     d = testdata
     extra = [str(d / a) if a == "idx" else a for a in extra]
@@ -66,6 +78,16 @@ def test_cli_unsupported_options_raise(testdata, tmp_path, extra):
             "input.batch_size=64", "input.max_read_len=120", *extra]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(args)
+
+
+def test_cli_refuses_indexes_of_different_taxonomies(testdata, tmp_path):
+    d = testdata
+    with pytest.raises(ValueError, match="multi-k indexes built against "
+                                         "different taxonomies"):
+        cli.main(["classify", "--index", str(d / "idx"),
+                  str(d / "idx_other"), "--reads", str(d / "a_1.fastq"),
+                  "--out", str(tmp_path / "out"), "--device", "cpu",
+                  "input.batch_size=64", "input.max_read_len=120"])
 
 
 def test_cli_reports_host_time_by_phase(testdata, tmp_path, capsys):

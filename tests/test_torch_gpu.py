@@ -11,20 +11,27 @@ import numpy as np
 import pytest
 import torch
 
-from pangea_tpu.golden import classify_reads_golden
+from pangea_tpu.golden import (GoldenResult, classify_reads_golden,
+                               merge_multik_golden)
 from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
+from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
 from pangea_tpu.utils import datagen as ref_datagen
 from pangea_tpu_torch.bench import make_bench_world
-from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
-                                       classify_reads, pad_batch)
-from pangea_tpu_torch.index import relayout_q8
+from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
+                                       DeviceIndex, MultiKClassifier,
+                                       classify_multik, classify_reads,
+                                       merge_multik, merge_multik_plain,
+                                       pad_batch)
+from pangea_tpu_torch.index import relayout_q8, relayout_q12
 from pangea_tpu_torch.index.build import layout_table
+from pangea_tpu_torch.index.quot import Q12_WAYS
 from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
                                       fuse_stash, fuse_table,
                                       kernel_launches, lca_lift,
                                       lca_lift_plain, lookup_q8,
-                                      lookup_q8_plain, lookup_std,
+                                      lookup_q8_plain, lookup_q12,
+                                      lookup_q12_plain, lookup_std,
                                       lookup_std_plain,
                                       reset_kernel_launches,
                                       score_reads_taxon,
@@ -38,7 +45,8 @@ pytestmark = pytest.mark.gpu
 
 # Kernel launches of one paired step, by path.
 _NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
-         "lookup_std": 0, "score_taxon": 0, "lca_lift": 0}
+         "lookup_std": 0, "score_taxon": 0, "lca_lift": 0, "lookup_q12": 0,
+         "merge_multik": 0}
 Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 
 
@@ -335,3 +343,147 @@ def test_lca_lift_kernel_matches_plain_on_a_chain(cuda, q8):
         got = lca_lift(*[a.to(cuda) for a in args], _tax(tax, cuda), thr,
                        not q8)
         assert torch.equal(want, got.cpu())
+
+
+def _q12_index(idx, device, thr):
+    """The port's q12 placement of an index, whatever pick_layout says."""
+    tax = idx.taxonomy
+    fused, stash3, _ = relayout_q12(idx)
+    tables = {"fused": fused,
+              "stash": fuse_stash(stash3[0], tax.tin, tax.tout)[None],
+              "tax": tax.device_arrays()}
+    cfg = ClassifyConfig(k=idx.meta.k, confidence_threshold=thr,
+                         w=idx.meta.w, ways=Q12_WAYS, layout="q12")
+    return DeviceIndex.from_numpy_tables(tables, cfg, device)
+
+
+@pytest.fixture(scope="module")
+def world31():
+    return small_world(k=31, seed=7, n_reads=300, read_len=120, paired=True)
+
+
+@pytest.mark.parametrize("name,ways,load_factor", [
+    ("world31", Q12_WAYS, 0.5), ("world", Q12_WAYS, 0.5),
+    ("world31", 4, 2.0)], ids=["k31", "k21_r_below_32", "forced_stash"])
+def test_lookup_q12_kernel_matches_plain(cuda, request, name, ways,
+                                         load_factor):
+    """K2's q12 form: r >= 32 (k=31), r < 32 (k=21) and a forced stash, on
+    every stored key, 500 absent ones and, where r > 32, the near misses of
+    500 stored keys (their bucket and rem_lo, another rem_hi)."""
+    _, _, idx, _ = request.getfixturevalue(name)
+    fused, stash3, nb = relayout_q12(idx, ways, load_factor)
+    if ways == 4:
+        assert stash3.shape[2] > 0, "stash not exercised"
+    tax = idx.taxonomy
+    f = torch.from_numpy(fused[0].view(np.int32))
+    s = torch.from_numpy(fuse_stash(stash3[0], tax.tin,
+                                    tax.tout).view(np.int32))
+    canon, _ = extract_pairs(idx)
+    rng = np.random.default_rng(4)
+    k = idx.meta.k
+    keys = [canon, rng.integers(0, 1 << (2 * k), size=500, dtype=np.uint64)]
+    if 2 * k - (nb.bit_length() - 1) > 32:
+        a = 0x9E3779B1
+        mask = np.uint64((1 << (2 * k)) - 1)
+        h = (canon[:500] * np.uint64(a)) & mask
+        near = ((h ^ np.uint64(1 << 32))
+                * np.uint64(pow(a, -1, 1 << (2 * k)))) & mask
+        keys.append(near[~np.isin(near, canon)])
+    keys = np.concatenate(keys)
+    hi = torch.from_numpy((keys >> np.uint64(32)).astype(np.uint32)
+                          .view(np.int32))
+    lo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                          .view(np.int32))
+    valid = torch.from_numpy(rng.random(keys.shape[0]) < 0.9)
+    want = lookup_q12_plain(hi, lo, valid, f, s, k, ways)
+    got = lookup_q12(hi.to(cuda), lo.to(cuda), valid.to(cuda), f.to(cuda),
+                     s.to(cuda), k, ways)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    assert int(want[0][:canon.shape[0]].sum()) > 0.85 * canon.shape[0]
+    assert not want[0][canon.shape[0]:].any()
+
+
+def _calls(tax, B, rng):
+    out = []
+    t1 = rng.integers(0, tax.num_taxa + 1, size=B)
+    for t in (t1, np.where(rng.random(B) < 0.3, t1,
+                           rng.integers(0, tax.num_taxa + 1, size=B))):
+        nvalid = rng.integers(0, 300, size=B)
+        best = np.minimum(rng.integers(0, 300, size=B), nvalid)
+        out.append({"taxon": t, "best": np.where(t == 0, 0, best),
+                    "nvalid": nvalid})
+    return out
+
+
+def _chain_tax(n):
+    parent = np.arange(-1, n, dtype=np.int32)
+    parent[:2] = (0, 1)
+    return RefTaxonomy(parent=parent, rank=np.zeros(n + 1, np.int8),
+                       names=["unclassified"] + [f"n{i}" for i in range(n)])
+
+
+@pytest.mark.parametrize("tree", ["bench", "wide", "chain"])
+def test_merge_multik_kernel_matches_plain(cuda, tree):
+    """K7 on random calls (agreements, conflicts, zeros, ties), on the
+    bench tree, the 66,563-taxon tree and a 5,000-node chain (13 lifting
+    levels), and on the int32 extreme cases."""
+    tax = {"bench": lambda: ref_datagen.make_taxonomy(2, 8, 3, seed=0),
+           "wide": lambda: ref_datagen.make_taxonomy(2, 512, 64, seed=0),
+           "chain": lambda: _chain_tax(5000)}[tree]()
+    r1, r2 = _calls(tax, 20000, np.random.default_rng(len(tree)))
+    big = 2**30
+    extremes = [((3, big, big + 1), (3, big + 1, big)),
+                ((3, big, big), (5, big - 1, big)),
+                ((5, big - 1, big), (3, big, big)),
+                ((0, 0, 2**31 - 1), (0, 0, 2)),
+                ((3, 2**31 - 1, 2**31 - 1), (5, 2**31 - 2, 2**31 - 1))]
+    for j, r in enumerate((r1, r2)):
+        for i, key in enumerate(("taxon", "best", "nvalid")):
+            r[key] = torch.from_numpy(np.concatenate(
+                [r[key], [c[j][i] for c in extremes]]).astype(np.int32))
+    want = merge_multik_plain(r1, r2, _tax(tax, "cpu"))
+    reset_kernel_launches()
+    got = merge_multik({k: v.to(cuda) for k, v in r1.items()},
+                       {k: v.to(cuda) for k, v in r2.items()},
+                       _tax(tax, cuda))
+    assert kernel_launches()["merge_multik"] == 1
+    for key in want:
+        assert torch.equal(want[key], got[key].cpu())
+    gold = [merge_multik_golden(
+        GoldenResult(*(int(r1[k][i]) for k in ("taxon", "best", "nvalid"))),
+        GoldenResult(*(int(r2[k][i]) for k in ("taxon", "best", "nvalid"))),
+        tax) for i in range(0, 20000, 97)]
+    assert got["taxon"].cpu()[:20000:97].tolist() == [g.taxon for g in gold]
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.05])
+def test_multik_classifier_cuda_matches_plain_and_golden(cuda, world,
+                                                         thr):
+    """Config 4 on a small world: the k=21 q8 index and a k=31 q12 index on
+    the same genomes; the step on the card equals the plain path and the
+    golden merge of the two golden calls."""
+    tax, genomes, _, rs = world
+    idx21 = ref_build_index(genomes, tax, k=21, w=8)
+    idx31 = ref_build_index(genomes, tax, k=31)
+    model = MultiKClassifier([DeviceIndex.from_index(idx21, cuda, thr),
+                              _q12_index(idx31, cuda, thr)])
+    assert [c.cfg.layout for c in model.classifiers] == ["q8", "q12"]
+    n = len(rs.seqs)
+    b = torch.from_numpy(pad_batch(rs.seqs, n, 120)).to(cuda)
+    m = torch.from_numpy(pad_batch(rs.mates, n, 120)).to(cuda)
+    reset_kernel_launches()
+    got = {key: v.cpu() for key, v in model(b, m).items()}
+    assert kernel_launches() == {**_NONE, "extract_probes": 4,
+                                 "lookup_q8": 1, "lookup_q12": 1,
+                                 "score_tin": 2, "merge_multik": 1}
+    plain = classify_multik(tuple(c.index.tables for c in model.classifiers),
+                            b, tuple(c.cfg for c in model.classifiers),
+                            mate_bases=m, plain=True)
+    for key in got:
+        assert torch.equal(got[key], plain[key].cpu())
+    gold = [merge_multik_golden(x, y, tax) for x, y in zip(
+        classify_reads_golden(rs.seqs, idx21, thr, mates=rs.mates),
+        classify_reads_golden(rs.seqs, idx31, thr, mates=rs.mates))]
+    for key in ("taxon", "best", "nvalid"):
+        assert got[key].tolist() == [getattr(g, key) for g in gold]

@@ -4,8 +4,8 @@ The GPU machine has no jax, and the port keeps its own copy of every piece
 of the reference's host code it needs. No source of ``pangea_tpu_torch``
 and not ``chip_smoke.py`` imports ``jax`` or any ``pangea_tpu`` module;
 with both blocked, every port module and ``chip_smoke.py`` load and a tiny
-world built by the port alone classifies on the CPU, equal to the
-reference's golden model.
+world built by the port alone classifies on the CPU, against each index and
+through the multi-k step over both, equal to the reference's golden model.
 """
 import ast
 import json
@@ -14,7 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from pangea_tpu.golden import classify_reads_golden
+from pangea_tpu.golden import classify_reads_golden, merge_multik_golden
 from pangea_tpu.index import build_index
 from pangea_tpu.utils import datagen
 
@@ -65,20 +65,25 @@ import importlib
 for name in sys.argv[2:]:
     importlib.import_module(name)
 import torch
-from pangea_tpu_torch.classify import Classifier, DeviceIndex, pad_batch
+from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
+                                       MultiKClassifier, pad_batch)
 from pangea_tpu_torch.index import build_index
 from pangea_tpu_torch.utils import datagen
 out = []
+tax = datagen.make_taxonomy(seed=1)
+genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
+rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
+batch = [torch.from_numpy(pad_batch(s, 40, 100)) for s in (rs.seqs, rs.mates)]
+dis = []
 for k, w in json.loads(sys.argv[1]):
-    tax = datagen.make_taxonomy(seed=1)
-    genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
     idx = build_index(genomes, tax, k=k, w=w)
-    rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
-    di = DeviceIndex.from_index(idx, torch.device("cpu"), 0.0)
-    res = Classifier(di)(torch.from_numpy(pad_batch(rs.seqs, 40, 100)),
-                         torch.from_numpy(pad_batch(rs.mates, 40, 100)))
-    out.append({"layout": di.cfg.layout,
+    dis.append(DeviceIndex.from_index(idx, torch.device("cpu"), 0.0))
+    res = Classifier(dis[-1])(*batch)
+    out.append({"layout": dis[-1].cfg.layout,
                 **{key: v.tolist() for key, v in res.items()}})
+res = MultiKClassifier(dis)(*batch)
+out.append({"layout": "multi-k",
+            **{key: v.tolist() for key, v in res.items()}})
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
 assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
 print("NOJAX " + json.dumps(out))
@@ -98,14 +103,15 @@ def test_port_imports_and_classifies_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [s for s in proc.stdout.splitlines() if s.startswith("NOJAX ")]
     got = json.loads(line[-1][len("NOJAX "):])
-    assert [g["layout"] for g in got] == ["q8", "std"]
-    for (k, w), g in zip(WORLDS, got):
-        tax = datagen.make_taxonomy(seed=1)
-        genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
-        idx = build_index(genomes, tax, k=k, w=w)
-        rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True,
-                                  seed=3)
-        gold = classify_reads_golden(rs.seqs, idx, 0.0, mates=rs.mates)
+    assert [g["layout"] for g in got] == ["q8", "std", "multi-k"]
+    tax = datagen.make_taxonomy(seed=1)
+    genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
+    rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
+    golds = [classify_reads_golden(rs.seqs, build_index(genomes, tax, k=k,
+                                                        w=w),
+                                   0.0, mates=rs.mates) for k, w in WORLDS]
+    golds.append([merge_multik_golden(a, b, tax) for a, b in zip(*golds)])
+    for name, g, gold in zip(("k=21", "k=31", "multi-k"), got, golds):
         for key in ("taxon", "best", "nvalid"):
-            assert g[key] == [getattr(x, key) for x in gold], (k, key)
+            assert g[key] == [getattr(x, key) for x in gold], (name, key)
         assert any(g["taxon"])
