@@ -11,7 +11,12 @@ with binary-lifting LCA on the same genomes hung on a 66,563-taxon tree
 (k=21, w=1: 2.0M k-mers in a std table of 131,072 wide 768 B rows); phases
 11-14 drive config 4's multi-k consensus on the bench's species at 64 kb
 genomes (a k=21, w=8 q8 index of 32,768 rows and a k=31, w=1 q12 index of
-2.56M k-mers in 131,072 rows of 512 B, 67.1 MB, merged on the card):
+2.56M k-mers in 131,072 rows of 512 B, 67.1 MB, merged on the card);
+phases 15-18 drive the CLI's two read paths on the std world: long reads
+in length buckets with the ranked pscore (K8), and the fast path's packed
+rows (K1's packed form). The CLI runs of phases 5, 9, 13 and 18 take the
+fast path (the native reader, built with g++ from the checkout), phase
+17's the general path:
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -24,8 +29,8 @@ genomes (a k=21, w=8 q8 index of 32,768 rows and a k=31, w=1 q12 index of
      step time of both paths by CUDA events;
   5. the q8 main path as a user drives it: `python -m pangea_tpu_torch.cli
      classify` on config 2's file and 24,576 pairs in three batches of
-     8192, with its kernel launches, its lines against phase 4's outputs,
-     and the host time of its loop by phase;
+     8192 (the fast path), with its kernel launches, its lines against
+     phase 4's outputs, and its host time by phase;
   6. torch.profiler over back-to-back q8 steps: the device time of each
      kernel and the device's busy share of the wall;
   7. K4, K3's taxon form and K5 against their plain versions, bit for bit:
@@ -49,7 +54,26 @@ genomes (a k=21, w=8 q8 index of 32,768 rows and a k=31, w=1 q12 index of
      the planted truth, step times;
  13. the CLI on the two indexes (written by the port's Index.save) with
      config 4's file and 24,576 pairs, its lines against phase 12's;
- 14. torch.profiler over back-to-back multi-k steps.
+ 14. torch.profiler over back-to-back multi-k steps;
+ 15. K8 and K1's packed form against their plain versions, bit for bit: K8
+     at R = 2,049 (512 reads), 16,364 (75 reads: one read of the 16,384
+     bucket, sorted in shared memory) and 32,728 (75 pairs of that bucket,
+     sorted in a device scratch), q8 and taxon forms, with the direct LCA
+     (the headline's 67-taxon tree) and K5's lifting (66,563 taxa), at two
+     thresholds; K1's packed form on the headline pairs as the native
+     reader packs them (w=8 and w=1), held to its plain version and to K1
+     on the codes;
+ 16. the long-read step on the std world: one FASTQ of the bench's first
+     8,192 first mates and 2,048 single-end genome slices of 1,000-20,000
+     bases (log-uniform), each of the CLI's launches (the bucket shapes)
+     through the Classifier: launch counts (K8 at 2,400 bases and more, K3
+     below), the outputs against the plain path and the planted lineage,
+     each bucket's step time;
+ 17. the CLI on that FASTQ with input.long_reads=true (the general path):
+     its lines against phase 16's, truncated_reads (reads past 16,384
+     bases), reads/s and host time by phase;
+ 18. the CLI on that FASTQ on the fast path: every read past 150 bases cut
+     and counted, the 8,192 short reads' lines against phase 17's.
 
 The plain paths are held to the JAX reference and its golden model by the
 CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
@@ -66,7 +90,9 @@ counts only what this run's probes need: the key lanes of the buckets they
 reach, the payload lanes of the keys they hit and the stash (K2, K2-q12,
 K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
 entries of the lineages its pairs (K7: its conflicting pairs) reach, beside
-their [B] inputs and outputs.
+their [B] inputs and outputs. K8's operations are the least a sort
+needs: R log2 R compares for each of the read's two sorts, and log2 R steps
+for each of a hit's two ranks.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -101,7 +127,16 @@ WARMUP, REPS = 3, 20
 PLAIN_REPS = 5           # samples of a plain version at the std shapes
 PIPELINED = 10           # back-to-back calls a timing sample
 PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20}
-MAX_OFF_LINEAGE = 0.001  # share of pairs assigned off their truth's lineage
+MAX_OFF_LINEAGE = 0.001  # share of reads assigned off their truth's lineage
+# K8's checks: (probes a read, reads): a read just past K3's 2,048, one
+# read and one pair of the 16,384-base bucket (75 reads a launch).
+RANKED_SHAPES = ((2049, 512), (16364, 75), (32728, 75))
+# The long-read FASTQ: the bench's first LONG_SHORT first mates, then
+# LONG_READS genome slices of log-uniform length; reads past MAX_LONG
+# bases (input.max_long_read_len, its default) are cut.
+LONG_SHORT, LONG_READS, LONG_MIN, LONG_MAX, LONG_SEED = (8192, 2048, 1_000,
+                                                         20_000, 16)
+MAX_LONG = 16384
 THRESHOLDS = (0.0, 0.05)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -123,6 +158,10 @@ KERNELS = {
                    "src/pangea_tpu/kernels/lookup.py:629"),
     "merge_multik": ("src/pangea_tpu_torch/csrc/merge_multik.cu",
                      "src/pangea_tpu/classify/merge.py:39"),
+    "score_ranked": ("src/pangea_tpu_torch/csrc/score_ranked.cu",
+                     "src/pangea_tpu/kernels/score.py:71"),
+    "extract_packed": ("src/pangea_tpu_torch/csrc/extract_probes.cu",
+                       "src/pangea_tpu/kernels/encode.py:129"),
 }
 # The int32 extreme cases of tests/test_hardening.py:28-38: (taxon, best,
 # nvalid) of the two calls, products beyond int32.
@@ -259,7 +298,8 @@ def make_world(torch, cuda, name: str, n_reads: int, **kw) -> dict:
     di = DeviceIndex.from_index(bw.index, cuda, 0.0)
     model = Classifier(di)
     world = {"name": name, "idx": bw.index, "idxs": [bw.index],
-             "reads": bw.reads, "di": di, "tax": di.tax, "model": model,
+             "reads": bw.reads, "genomes": bw.genomes, "di": di,
+             "tax": di.tax, "model": model,
              "plain": lambda b1, b2: classify_reads(
                  model.index.tables, b1, model.cfg, mate_bases=b2,
                  plain=True),
@@ -479,22 +519,26 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
     return out
 
 
-def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
-    """`python -m pangea_tpu_torch.cli classify` on the world's config file,
-    its indexes and 24,576 pairs; returns the kernel launches of that run
-    (the CLI's own counts, which start at 0 in its process)."""
+def run_cli(world, tag: str, reads: list, mates: list | None = None,
+            extra=()) -> tuple[dict, list]:
+    """`python -m pangea_tpu_torch.cli classify` on the world's config
+    file and indexes (written by the port's Index.save, once a world);
+    returns the run's result line and its assignment lines, split."""
     work = ROOT / "build" / "chip_smoke" / world["name"]
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    idx_dirs = [str(work / f"idx{i}") for i in range(len(world["idxs"]))]
-    for ix, d in zip(world["idxs"], idx_dirs):
-        ix.save(d)
-    out_dir = work / "out"
+    if "idx_dirs" not in world:
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        world["idx_dirs"] = [str(work / f"idx{i}")
+                             for i in range(len(world["idxs"]))]
+        for ix, d in zip(world["idxs"], world["idx_dirs"]):
+            ix.save(d)
+    out_dir = work / f"out{tag}"
     cmd = [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
            "--config", str(ROOT / "configs" / world["config"]),
-           "--index", *idx_dirs, "--reads", fastq[0],
-           "--mates", fastq[1], "--samples", "smoke", "--out", str(out_dir),
-           "--device", "cuda", f"input.batch_size={CLI_BATCH}"]
+           "--index", *world["idx_dirs"], "--reads", *reads,
+           *(["--mates", *mates] if mates else []), "--samples", "smoke",
+           "--out", str(out_dir), "--device", "cuda",
+           f"input.batch_size={CLI_BATCH}", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -505,14 +549,29 @@ def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"[{tag}] CLI process in {time.time() - t0:.1f} s: "
         f"{json.dumps(result)}")
-    launches = result["kernel_launches"]
-    host = result["host_sec"]
-    loop = sum(host.values())
-    log(f"[{tag}] CLI loop host time by phase: " + ", ".join(
-        f"{k} {v} s ({100 * v / loop} %)" for k, v in host.items()))
+    how = ("threads of the fast path, overlapping" if result["fast_path"]
+           else "the general path's one loop")
+    log(f"[{tag}] CLI host time by phase ({how}): " + ", ".join(
+        f"{k} {v} s ({100 * v / result['wall_sec']} % of the wall)"
+        for k, v in result["host_sec"].items()))
+    if not (out_dir / "smoke.summary.tsv").exists():
+        raise AssertionError("the CLI wrote no summary")
     # Each line: flag, read id, taxon, rank, name, best/nvalid, confidence.
     rows = [line.split("\t") for line in
             (out_dir / "smoke.assign.tsv").read_text().splitlines()]
+    return result, rows
+
+
+def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
+    """The CLI on the world's config file, its indexes and 24,576 pairs,
+    on the fast path; returns the kernel launches of that run (the CLI's
+    own counts, which start at 0 in its process)."""
+    result, rows = run_cli(world, tag, [fastq[0]], [fastq[1]])
+    launches = result["kernel_launches"]
+    if not result["fast_path"] or result["truncated_reads"] \
+            or launches["extract_packed"] < 1 or launches["extract_probes"]:
+        raise AssertionError("the CLI did not take the fast path with K1's "
+                             f"packed form: {json.dumps(result)}")
     reads = world["reads"]
     ids_bad = sum(r[1] != rid for r, rid in zip(rows, reads.ids))
     step_bad = sum(
@@ -523,8 +582,6 @@ def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
         f"{ids_bad}; first {BATCH} vs the step: mismatches {step_bad}")
     if len(rows) != CLI_PAIRS or ids_bad or step_bad:
         raise AssertionError("the CLI's assignments are wrong")
-    if not (out_dir / "smoke.summary.tsv").exists():
-        raise AssertionError("the CLI wrote no summary")
     return launches
 
 
@@ -887,6 +944,246 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
     res.assert_clean(("lookup_q12", "merge_multik"))
 
 
+def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
+                         res: Results) -> None:
+    """K1's packed form on the headline pairs as the native reader packs
+    them (both mates column slices of one batch on the card), against its
+    plain version and against K1 on the same reads' codes."""
+    from pangea_tpu_torch.io.native import NativeFastxReader
+    from pangea_tpu_torch.kernels import (extract_probes,
+                                          extract_probes_plain, wire_width)
+    from pangea_tpu_torch.kernels.minimize import probe_width
+    rows = []
+    for path in fastq:
+        reader = NativeFastxReader(path, BATCH, READ_LEN)
+        n, _, words, _ = reader.next_batch_packed()
+        reader.close()
+        if n != BATCH:
+            raise AssertionError(f"{path}: {n} records in the first batch")
+        rows.append(torch.from_numpy(words.view("int32")))
+    combo = torch.cat(rows, dim=1).to(cuda)
+    W = wire_width(READ_LEN)
+    mates = (combo[:, :W], combo[:, W:])
+    for k, w in ((HEADLINE["k"], HEADLINE["w"]), (WIDE["k"], WIDE["w"])):
+        nw = probe_width(READ_LEN, k, w)
+
+        def run(fn, k=k, w=w, nw=nw):
+            out = (torch.empty((BATCH, 2 * nw), dtype=torch.int32,
+                               device=cuda),
+                   torch.empty((BATCH, 2 * nw), dtype=torch.int32,
+                               device=cuda),
+                   torch.empty((BATCH, 2 * nw), dtype=torch.bool,
+                               device=cuda))
+            for m, part in enumerate(mates):
+                fn(part, k, w, out, m * nw, packed_len=READ_LEN)
+            return out
+
+        packed = run(extract_probes)
+        res.check("extract_packed", f"15 w={w} vs its plain version",
+                  run(extract_probes_plain), packed)
+        res.check("extract_packed", f"15 w={w} vs K1 on the codes",
+                  probes(torch, wide, k, w), packed)
+        if w == HEADLINE["w"]:
+            windows = BATCH * 2 * nw
+            res.time(torch, "extract_packed", "15 w=8",
+                     lambda: run(extract_probes),
+                     lambda: run(extract_probes_plain),
+                     nbytes=BATCH * 2 * W * 4 + windows * 9,
+                     ops=windows * ((w + k - 1) * 8 + w * 18))
+        else:
+            log(f"[15] extract_packed w={w}: kernel "
+                f"{time_ms(torch, lambda: run(extract_probes), PIPELINED)} "
+                f"ms a call for both mates of {BATCH} pairs")
+    res.assert_clean(("extract_packed",))
+
+
+def lineage_lanes(torch, tax: dict, B: int, R: int, g):
+    """[B, R] int32 hit taxa drawn from four taxa a read (half of them
+    misses), their Euler intervals and valid bools, on the taxonomy's
+    device; read 0 has no hit and read 1 no valid probe."""
+    dev = tax["tin"].device
+    T = tax["tin"].numel() - 1
+    lineage = torch.randint(1, T + 1, (B, 4), generator=g)
+    taxa = lineage.gather(1, torch.randint(0, 4, (B, R), generator=g))
+    taxon = torch.where(torch.rand((B, R), generator=g) < 0.5, taxa,
+                        0).to(torch.int32)
+    taxon[0] = 0
+    valid = (torch.rand((B, R), generator=g) < 0.8) | (taxon != 0)
+    valid[1] = False
+    taxon, valid = taxon.to(dev), valid.to(dev)
+    hit = taxon != 0
+    return (taxon, torch.where(hit, tax["tin"][taxon.long()], 0),
+            torch.where(hit, tax["tout"][taxon.long()], 0), valid)
+
+
+def phase_ranked_kernels(torch, wide, cuda, res: Results) -> None:
+    """K8 against its plain version at RANKED_SHAPES: both forms, the
+    direct LCA and K5's lifting, two thresholds; times of its winners
+    form on the taxon lanes of the 66,563-taxon tree."""
+    import math
+
+    from pangea_tpu_torch.kernels import (score_ranked, score_reads_plain,
+                                          score_winners,
+                                          score_winners_plain)
+    from pangea_tpu_torch.utils import datagen
+    bench_tax = datagen.make_taxonomy(2, 8, 3, seed=0).device_arrays()
+    trees = {"direct LCA, 67 taxa": {
+                 k: torch.from_numpy(v).to(cuda)
+                 for k, v in bench_tax.items()},
+             "lifted LCA, 66,563 taxa": wide["tax"]}
+    g = torch.Generator().manual_seed(15)
+    for R, B in RANKED_SHAPES:
+        for name, tax in trees.items():
+            taxon, t_in, t_out, valid = lineage_lanes(torch, tax, B, R, g)
+            for taxon_lanes in (True, False):
+                lanes = taxon if taxon_lanes else (taxon != 0).to(torch.int32)
+                args = (lanes, t_in, t_out, valid)
+                what = (f"15 R={R} x {B}, "
+                        f"{'taxon' if taxon_lanes else 'q8'} form")
+                res.check("score_ranked", f"{what}, winners",
+                          score_winners_plain(*args, taxon_lanes),
+                          score_winners(*args, taxon_lanes))
+                for thr in THRESHOLDS:
+                    res.check("score_ranked",
+                              f"{what}, {name}, threshold {thr}",
+                              score_reads_plain(*args, tax, thr,
+                                                taxon_lanes),
+                              score_ranked(*args, tax, thr, taxon_lanes))
+        # The last draw: taxon lanes on the big tree, as on the std path.
+        args = (taxon, t_in, t_out, valid)
+        hits = int((taxon != 0).sum())
+        lg = math.log2(R)
+        nbytes = B * R * 13 + B * 24
+        ops = 2 * B * R * lg + 2 * hits * lg
+        if R == RANKED_SHAPES[1][0]:
+            res.time(torch, "score_ranked", f"15 R={R} x {B}",
+                     lambda: score_winners(*args, True),
+                     lambda: score_winners_plain(*args, True),
+                     nbytes=nbytes, ops=ops, plain_calls=1,
+                     plain_reps=PLAIN_REPS)
+        else:
+            ms = time_ms(torch, lambda: score_winners(*args, True),
+                         PIPELINED)
+            plain_ms = time_ms(torch, lambda: score_winners_plain(*args,
+                                                                  True),
+                               1, PLAIN_REPS)
+            bound_ms, by = bound(nbytes, ops)
+            log(f"[15] score_ranked R={R} x {B}: kernel {ms} ms, plain "
+                f"{plain_ms} ms, bound {bound_ms} ms ({by})")
+    res.assert_clean(("score_ranked",))
+
+
+def phase_long_step(torch, wide, cuda, card: str, mix) -> dict:
+    """Each launch the CLI's general path makes of the long-read FASTQ
+    (its batches of CLI_BATCH reads, bucketed as run_classify_basic
+    does) through the std Classifier: launch counts, the plain path, the
+    planted lineage, and a step time for each bucket shape. Returns the
+    outputs in read order."""
+    from pangea_tpu_torch.kernels import kernel_launches, reset_kernel_launches
+    from pangea_tpu_torch.kernels.minimize import probe_width
+    from pangea_tpu_torch.kernels.score import MAX_PROBES
+    from pangea_tpu_torch.pipeline.run import bucket_batch
+    model = wide["model"]
+    none = dict.fromkeys(KERNELS, 0)
+    n = len(mix.ids)
+    outs = {key: torch.zeros(n, dtype=torch.int32)
+            for key in ("taxon", "best", "nvalid")}
+    shapes: dict = {}
+    for start in range(0, n, CLI_BATCH):
+        launches, _ = bucket_batch(mix.seqs[start:start + CLI_BATCH], None,
+                                   CLI_BATCH, READ_LEN, MAX_LONG)
+        for sub, bases, _ in launches:
+            b = torch.from_numpy(bases).to(cuda)
+            R = probe_width(b.shape[1], WIDE["k"], WIDE["w"])
+            reset_kernel_launches()
+            out = model(b)
+            torch.cuda.synchronize()
+            want = {**none, "extract_probes": 1, "lookup_std": 1,
+                    "lca_lift": 1,
+                    "score_ranked" if R > MAX_PROBES else "score_taxon": 1}
+            if kernel_launches() != want:
+                raise AssertionError(f"launches at {tuple(b.shape)}: "
+                                     f"{kernel_launches()}, want {want}")
+            mism, _ = compare([v for v in wide["plain"](b, None).values()],
+                              list(out.values()))
+            if mism:
+                raise AssertionError(f"{mism} mismatches against the plain "
+                                     f"path at {tuple(b.shape)}")
+            idx = torch.from_numpy(sub + start)
+            for key in outs:
+                outs[key][idx] = out[key].cpu()
+            entry = shapes.setdefault(b.shape[1], {"b": b, "reads": 0,
+                                                   "launches": 0, "R": R})
+            entry["reads"] += sub.size
+            entry["launches"] += 1
+    tin, tout = (wide["tax"][k].cpu().long() for k in ("tin", "tout"))
+    taxon = outs["taxon"].long()
+    truth = torch.from_numpy(mix.truth).long()
+    classified = taxon != 0
+    off = int((classified & ~((tin[taxon] <= tin[truth])
+                              & (tin[truth] < tout[taxon]))).sum())
+    log(f"[16] long-read step: {n} reads, 0 mismatches against the plain "
+        f"path; {int(classified.sum())} classified, {off} off their "
+        f"truth's lineage ({off / n} of the reads; limit "
+        f"{MAX_OFF_LINEAGE})")
+    if off > MAX_OFF_LINEAGE * n or not classified.any():
+        raise AssertionError("the long-read step disagrees with the truth")
+    for Lj, e in sorted(shapes.items()):
+        b = e["b"]
+        ms = time_ms(torch, lambda: model(b), PIPELINED)
+        log(f"[16] bucket {Lj} bases: {e['reads']} reads in {e['launches']} "
+            f"launch(es), R = {e['R']} probes a read, "
+            f"{'K8' if e['R'] > MAX_PROBES else 'K3'}; a step of "
+            f"{b.shape[0]} reads {ms} ms back to back "
+            f"({b.shape[0] / ms * 1e3} reads/s) on {card}")
+    return outs
+
+
+def phase_long_cli(wide, mix, outs: dict, long_fastq: str):
+    """The CLI's general path (input.long_reads=true) on the long-read
+    FASTQ: its lines against phase 16's outputs, truncated_reads against
+    the reads past MAX_LONG bases. Returns its launches and lines."""
+    result, rows = run_cli(wide, "17", [long_fastq],
+                           extra=["input.long_reads=true",
+                                  f"input.max_long_read_len={MAX_LONG}"])
+    launches = result["kernel_launches"]
+    cut = sum(len(s) > MAX_LONG for s in mix.seqs)
+    if result["fast_path"] or result["truncated_reads"] != cut \
+            or launches["score_ranked"] < 1 or launches["extract_packed"]:
+        raise AssertionError(f"the long-read CLI run is wrong (want "
+                             f"{cut} truncated): {json.dumps(result)}")
+    bad = sum(
+        (r[1], int(r[2]), r[5]) != (
+            rid, int(outs["taxon"][i]),
+            f"{int(outs['best'][i])}/{int(outs['nvalid'][i])}")
+        for i, (r, rid) in enumerate(zip(rows, mix.ids)))
+    log(f"[17] {len(rows)} lines, {result['truncated_reads']} reads cut at "
+        f"{MAX_LONG} bases; lines vs phase 16: mismatches {bad}; "
+        f"{result['reads_per_sec']} reads/s")
+    if len(rows) != len(mix.ids) or bad:
+        raise AssertionError("the long-read CLI's assignments are wrong")
+    return launches, rows
+
+
+def phase_fast_long_cli(wide, mix, rows17: list, long_fastq: str) -> dict:
+    """The same FASTQ on the fast path: every read past READ_LEN bases is
+    cut and counted, and the short reads' lines equal phase 17's."""
+    result, rows = run_cli(wide, "18", [long_fastq])
+    launches = result["kernel_launches"]
+    cut = sum(len(s) > READ_LEN for s in mix.seqs)
+    bad = sum(a != b for a, b in zip(rows[:LONG_SHORT], rows17))
+    log(f"[18] {len(rows)} lines, {result['truncated_reads']} reads cut at "
+        f"{READ_LEN} bases (want {cut}); the {LONG_SHORT} short reads' "
+        f"lines vs phase 17: mismatches {bad}; "
+        f"{result['reads_per_sec']} reads/s")
+    if not result["fast_path"] or result["truncated_reads"] != cut \
+            or launches["extract_packed"] < 1 or launches["extract_probes"] \
+            or len(rows) != len(mix.ids) or bad:
+        raise AssertionError(f"the fast path on long reads is wrong: "
+                             f"{json.dumps(result)}")
+    return launches
+
+
 def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
@@ -943,7 +1240,7 @@ def main() -> int:
         "lca_lift": 1}, plain_calls=1, plain_reps=PLAIN_REPS)
     std_cli = phase_cli(wide, out, "9", fastq)
     phase_profile(torch, wide, card, "10", PROFILE_STEPS["std"])
-    del worlds, wide
+    del worlds                      # the wide world serves phases 15-18
 
     # Phases 11-14: config 4's multi-k consensus.
     c4 = make_multik(torch, cuda, CLI_PAIRS)
@@ -955,20 +1252,39 @@ def main() -> int:
         plain_reps=PLAIN_REPS)
     c4_cli = phase_cli(c4, out, "13", c4_fastq)
     phase_profile(torch, c4, card, "14", PROFILE_STEPS["multik"])
+    del c4
+
+    # Phases 15-18: the CLI's two read paths on the std world.
+    from pangea_tpu_torch.bench import long_read_mix
+    from pangea_tpu_torch.utils import datagen
+    phase_packed_kernels(torch, wide, fastq, cuda, res)
+    phase_ranked_kernels(torch, wide, cuda, res)
+    mix = long_read_mix(wide["reads"], LONG_SHORT, wide["genomes"],
+                        LONG_READS, LONG_MIN, LONG_MAX, LONG_SEED)
+    long_fastq = str(ROOT / "build" / "chip_smoke" / "long.fastq")
+    datagen.write_fastq(long_fastq, mix, mate=1)
+    outs = phase_long_step(torch, wide, cuda, card, mix)
+    long_cli, rows17 = phase_long_cli(wide, mix, outs, long_fastq)
+    fast_long_cli = phase_fast_long_cli(wide, mix, rows17, long_fastq)
 
     # The main paths' launches: each CLI run's own counts.
-    clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli}
+    clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
+            "long": long_cli, "fast_long": fast_long_cli}
     for path, kernels in (
-            ("q8", ("extract_probes", "lookup_q8", "score_tin")),
-            ("std", ("extract_probes", "lookup_std", "score_taxon",
+            ("q8", ("extract_packed", "lookup_q8", "score_tin")),
+            ("std", ("extract_packed", "lookup_std", "score_taxon",
                      "lca_lift")),
-            ("multik", ("extract_probes", "lookup_q8", "lookup_q12",
-                        "score_tin", "merge_multik"))):
+            ("multik", ("extract_packed", "lookup_q8", "lookup_q12",
+                        "score_tin", "merge_multik")),
+            ("long", ("extract_probes", "lookup_std", "score_taxon",
+                      "score_ranked", "lca_lift")),
+            ("fast_long", ("extract_packed", "lookup_std", "score_taxon",
+                           "lca_lift"))):
         if min(clis[path][k] for k in kernels) < 1:
             raise AssertionError(f"the {path} CLI bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[15] kernel launches of the three CLI runs: {json.dumps(clis)}; "
+    log(f"[19] kernel launches of the five CLI runs: {json.dumps(clis)}; "
         f"whole run {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,

@@ -17,6 +17,9 @@ only the taxon ids and the tree around them change. ``tree=(512, 64)`` is a
 wide rows and binary-lifting LCA); ``tree=(64, 40)`` has 5,251 taxa (q8
 with lifting).
 
+``long_read_mix`` adds single-end genome slices of log-uniform length to
+a world's short reads, for the long-read path.
+
 ``make_multik_world`` is config 4's world: one genome set and one taxonomy
 (the bench's species and seeds, at 64 kb genomes) indexed at several (k, w),
 k=21, w=8 and k=31, w=1 by default. At that size the k=31, w=1 index has
@@ -26,6 +29,8 @@ fast regime holds, so ``pick_layout`` gives it q12; the k=21 index is q8.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 from .index import Index, build_index
 from .taxonomy import Taxonomy
@@ -37,6 +42,7 @@ class BenchWorld:
     taxonomy: Taxonomy
     index: Index
     reads: datagen.ReadSet        # paired: reads.mates holds mate 2
+    genomes: list                 # (codes uint8, species taxon) a genome
 
 
 @dataclass
@@ -81,7 +87,7 @@ def make_bench_world(n_reads: int = 100_000, read_len: int = 150,
     tax, genomes = _bench_genomes(n_species, genome_len, seed, tree)
     idx = build_index(genomes, tax, k=k, w=w, ways=0)
     return BenchWorld(tax, idx, _bench_reads(genomes, n_reads, read_len,
-                                             seed))
+                                             seed), genomes)
 
 
 def make_multik_world(n_reads: int = 100_000, read_len: int = 150,
@@ -94,6 +100,28 @@ def make_multik_world(n_reads: int = 100_000, read_len: int = 150,
     idxs = [build_index(genomes, tax, k=k, w=w, ways=0) for k, w in indexes]
     return MultiKWorld(tax, idxs, _bench_reads(genomes, n_reads, read_len,
                                                seed))
+
+
+def long_read_mix(reads: datagen.ReadSet, n_short: int, genomes,
+                  n_long: int, min_len: int, max_len: int,
+                  seed: int) -> datagen.ReadSet:
+    """Single-end reads for the long-read path: the first ``n_short``
+    first mates of ``reads``, then ``n_long`` slices of the genomes (a
+    genome and an offset uniform, the length log-uniform over [min_len,
+    max_len] bases, capped at the genome's) with their genome's taxon as
+    truth and ids long0, long1, ..."""
+    rng = np.random.default_rng(seed)
+    seqs, truth = list(reads.seqs[:n_short]), list(reads.truth[:n_short])
+    for _ in range(n_long):
+        codes, taxon = genomes[rng.integers(0, len(genomes))]
+        n = min(int(np.exp(rng.uniform(np.log(min_len), np.log(max_len)))),
+                len(codes))
+        s = int(rng.integers(0, len(codes) - n + 1))
+        seqs.append(np.asarray(codes[s:s + n], dtype=np.uint8))
+        truth.append(taxon)
+    return datagen.ReadSet(
+        ids=list(reads.ids[:n_short]) + [f"long{i}" for i in range(n_long)],
+        seqs=seqs, mates=None, truth=np.asarray(truth, np.int32))
 
 
 def write_fastq_pair(reads: datagen.ReadSet, path1: str, path2: str) -> None:

@@ -2,11 +2,13 @@
 
 Counterpart of ``pangea_tpu/classify/engine.py`` for one device, with the
 q8, q12 and std table layouts. A batch is an int8 [B, L] code tensor (pad =
-4); mates are concatenated at the probe level, mate 1 first (SEMANTICS.md
-§8), and ``nvalid`` counts the valid windows over both mates. On CUDA
-tensors the step is K1 once a mate, then K2 (q8), K2's q12 form (q12) or K4
-(std), then K3, plus K5 when the taxonomy has more than 4,096 entries; on
-CPU tensors it is their plain versions.
+4), or, with ``packed_len=L``, the native reader's packed wire rows int32
+[B, ceil(L/16) + ceil(L/32)] (the CLI's fast path); mates are concatenated
+at the probe level, mate 1 first (SEMANTICS.md §8), and ``nvalid`` counts
+the valid windows over both mates. On CUDA tensors the step is K1 (or its
+packed form) once a mate, then K2 (q8), K2's q12 form (q12) or K4 (std),
+then K3 (K8 past 2,048 probes a read), plus K5 when the taxonomy has more
+than 4,096 entries; on CPU tensors it is their plain versions.
 
 The multi-k step (the one-device counterpart of ``pangea_tpu/dist/mesh.py``
 ``make_multik_sharded_classify_fn``) classifies the same batch against
@@ -126,11 +128,14 @@ class DeviceIndex:
         return {"fused": self.fused, "stash": self.stash, "tax": self.tax}
 
 
-def _extract_probes(bases, mate_bases, cfg: ClassifyConfig, plain: bool):
-    """[B, L] codes (and mates) -> (hi int32, lo int32, valid bool) [B, R],
-    mate 1's probes in the first columns."""
+def _extract_probes(bases, mate_bases, cfg: ClassifyConfig, plain: bool,
+                    packed_len: int = 0):
+    """[B, L] codes, or packed wire rows of packed_len bases (and mates) ->
+    (hi int32, lo int32, valid bool) [B, R], mate 1's probes in the first
+    columns."""
     parts = [bases] if mate_bases is None else [bases, mate_bases]
-    widths = [probe_width(p.shape[1], cfg.k, cfg.w) for p in parts]
+    widths = [probe_width(packed_len or p.shape[1], cfg.k, cfg.w)
+              for p in parts]
     B = bases.shape[0]
     R = sum(widths)
     hi = torch.empty((B, R), dtype=torch.int32, device=bases.device)
@@ -139,18 +144,20 @@ def _extract_probes(bases, mate_bases, cfg: ClassifyConfig, plain: bool):
     fn = extract_probes_plain if plain else extract_probes
     col = 0
     for part, nw in zip(parts, widths):
-        fn(part, cfg.k, cfg.w, (hi, lo, valid), col)
+        fn(part, cfg.k, cfg.w, (hi, lo, valid), col, packed_len=packed_len)
         col += nw
     return hi, lo, valid
 
 
 def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
-                   mate_bases=None, plain: bool = False) -> dict:
-    """The read -> assignment step. tables: :attr:`DeviceIndex.tables`.
-    plain=True runs the plain PyTorch versions on any device (the
-    reference the kernels are held to). Returns dict(taxon, best, nvalid)
-    int32 [B]."""
-    hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain)
+                   mate_bases=None, packed_len: int = 0,
+                   plain: bool = False) -> dict:
+    """The read -> assignment step. tables: :attr:`DeviceIndex.tables`;
+    packed_len=L: the inputs are packed wire rows of L bases. plain=True
+    runs the plain PyTorch versions on any device (the reference the
+    kernels are held to). Returns dict(taxon, best, nvalid) int32 [B]."""
+    hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
+                                    packed_len)
     if cfg.layout == "q8":
         lookup = lookup_q8_plain if plain else lookup_q8
         score = score_reads_tin_plain if plain else score_reads_tin
@@ -191,19 +198,23 @@ class Classifier(nn.Module):
                                 for name in TAX_KEYS},
                            cfg=self.cfg)
 
-    def forward(self, bases, mate_bases=None) -> dict:
-        """bases (and mate_bases) int8 [B, L] codes on the index's device
-        -> {"taxon", "best", "nvalid"} int32 [B]."""
+    def forward(self, bases, mate_bases=None, packed_len: int = 0) -> dict:
+        """bases (and mate_bases) int8 [B, L] codes, or packed wire rows of
+        packed_len bases, on the index's device -> {"taxon", "best",
+        "nvalid"} int32 [B]."""
         return classify_reads(self.index.tables, bases, self.cfg,
-                              mate_bases=mate_bases)
+                              mate_bases=mate_bases, packed_len=packed_len)
 
 
-def make_classify_fn(cfg: ClassifyConfig, paired: bool = False):
+def make_classify_fn(cfg: ClassifyConfig, paired: bool = False,
+                     packed_len: int = 0):
     """fn(tables, bases[, mate_bases]) -> dict(taxon, best, nvalid), with
-    tables = :attr:`DeviceIndex.tables`."""
+    tables = :attr:`DeviceIndex.tables`; packed_len=L takes packed wire
+    rows of L bases."""
 
     def fn(tables, bases, mate_bases=None):
-        return classify_reads(tables, bases, cfg, mate_bases=mate_bases)
+        return classify_reads(tables, bases, cfg, mate_bases=mate_bases,
+                              packed_len=packed_len)
 
     if paired:
         return fn
@@ -211,7 +222,7 @@ def make_classify_fn(cfg: ClassifyConfig, paired: bool = False):
 
 
 def classify_multik(tables_tuple, bases, cfgs, *, mate_bases=None,
-                    plain: bool = False) -> dict:
+                    packed_len: int = 0, plain: bool = False) -> dict:
     """The multi-k step: :func:`classify_reads` of the same batch against
     each index in order (``tables_tuple`` holds each
     :attr:`DeviceIndex.tables`, ``cfgs`` each config), folded left to right
@@ -222,7 +233,7 @@ def classify_multik(tables_tuple, bases, cfgs, *, mate_bases=None,
     res = None
     for tables, cfg in zip(tables_tuple, cfgs, strict=True):
         out = classify_reads(tables, bases, cfg, mate_bases=mate_bases,
-                             plain=plain)
+                             packed_len=packed_len, plain=plain)
         res = out if res is None else merge(res, out,
                                             tables_tuple[0]["tax"])
     return res
@@ -241,24 +252,28 @@ class MultiKClassifier(nn.Module):
         self.classifiers = nn.ModuleList(
             Classifier(dataclasses.replace(di, tax=tax)) for di in indexes)
 
-    def forward(self, bases, mate_bases=None) -> dict:
-        """bases (and mate_bases) int8 [B, L] codes on the indexes' device
-        -> the merged {"taxon", "best", "nvalid"} int32 [B]."""
+    def forward(self, bases, mate_bases=None, packed_len: int = 0) -> dict:
+        """bases (and mate_bases) int8 [B, L] codes, or packed wire rows of
+        packed_len bases, on the indexes' device -> the merged {"taxon",
+        "best", "nvalid"} int32 [B]."""
         return classify_multik(
             tuple(c.index.tables for c in self.classifiers), bases,
-            tuple(c.cfg for c in self.classifiers), mate_bases=mate_bases)
+            tuple(c.cfg for c in self.classifiers), mate_bases=mate_bases,
+            packed_len=packed_len)
 
 
-def make_multik_classify_fn(cfgs, paired: bool = False):
+def make_multik_classify_fn(cfgs, paired: bool = False,
+                            packed_len: int = 0):
     """fn(tables_tuple, bases[, mate_bases]) -> dict(taxon, best, nvalid):
     the one-device counterpart of the reference's
     ``make_multik_sharded_classify_fn``; tables_tuple holds each
-    :attr:`DeviceIndex.tables` in index order."""
+    :attr:`DeviceIndex.tables` in index order; packed_len=L takes packed
+    wire rows of L bases."""
     cfgs = tuple(cfgs)
 
     def fn(tables_tuple, bases, mate_bases=None):
         return classify_multik(tables_tuple, bases, cfgs,
-                               mate_bases=mate_bases)
+                               mate_bases=mate_bases, packed_len=packed_len)
 
     if paired:
         return fn

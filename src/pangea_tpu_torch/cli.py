@@ -10,6 +10,13 @@ known ones is a dotted config override (``config.py``), e.g.
 classified together and merged per read (SEMANTICS.md §9), as config 4
 does with k=21 and k=31. ``--device`` names the torch device (default
 ``cuda``); there is no fallback to another device.
+
+As the reference's CLI, a run takes the fast path (the native reader's
+packed rows; reads past ``input.max_read_len`` are cut and counted) unless
+``input.long_reads=true`` or ``PANGEA_NO_NATIVE`` is set, which take the
+general path (the Python reader; long reads classified whole in length
+buckets). The run names its path on stderr, and its result line, printed
+last on stdout, carries ``fast_path`` and ``truncated_reads``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 // Shared device helpers of the pangea_tpu_torch kernels.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,4 +58,122 @@ __device__ __forceinline__ int lca_lift_pair(
 // Blocks needed to cover n items at `per` items a block.
 inline unsigned int blocks_for(long long n, long long per) {
   return static_cast<unsigned int>((n + per - 1) / per);
+}
+
+// The per-read state of a scoring block (K3, K8), in shared memory.
+struct ScoreState {
+  int best, nvalid, tin_u, tin_v, u, v;
+  unsigned long long lca;
+};
+
+// One probe position as the score's tail sees it: its lane (hit count or
+// hit taxon, 0 for a miss), its t_in and its pscore (0 for a miss).
+struct ScorePos {
+  int lane, tin, ps;
+};
+
+__device__ __forceinline__ void score_state_init(ScoreState* s) {
+  if (threadIdx.x == 0) {
+    s->best = 0;
+    s->nvalid = 0;
+    s->tin_u = INT_MAX;
+    s->tin_v = -2;
+    s->u = 0;
+    s->v = 0;
+    s->lca = 0ull;
+  }
+}
+
+// The score after the pscore (SEMANTICS.md §7; the rules are stated in
+// score_tin.cu), shared by K3 and K8: one block owns read b, whose R
+// positions at(i) returns, and s->best and s->nvalid are complete and
+// visible to every thread. Finds the tied winners' min and max t_in (and,
+// kTaxon, their taxa), then either the direct LCA scan over the T1 taxa
+// and the threshold (kDirect: o0..o2 = taxon, best, nvalid) or the winners
+// form (o0..o5 = u, v, tin_u, tin_v, best, nvalid) that K5 lifts.
+template <bool kTaxon, bool kDirect, class At>
+__device__ void score_finish(ScoreState* s, int b, int R, At at,
+                             const int32_t* __restrict__ tin,
+                             const int32_t* __restrict__ tout,
+                             const int32_t* __restrict__ depth, int T1,
+                             float thr, int32_t* __restrict__ o0,
+                             int32_t* __restrict__ o1,
+                             int32_t* __restrict__ o2,
+                             int32_t* __restrict__ o3,
+                             int32_t* __restrict__ o4,
+                             int32_t* __restrict__ o5) {
+  const int best = s->best;
+  if (best > 0) {
+    int u = INT_MAX, v = -2;
+    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+      const ScorePos p = at(i);
+      if (p.lane != 0 && p.ps == best) {
+        u = min(u, p.tin);
+        v = max(v, p.tin);
+      }
+    }
+    if (v != -2) {
+      atomicMin(&s->tin_u, u);
+      atomicMax(&s->tin_v, v);
+    }
+  }
+  __syncthreads();
+  const int tu = s->tin_u, tv = s->tin_v;
+  if (kTaxon && best > 0) {
+    // Node ids: the largest taxon lane among the winners at each end
+    // (every winner at one tin carries the same taxon in a sound table).
+    int mu = 0, mv = 0;
+    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+      const ScorePos p = at(i);
+      if (p.lane != 0 && p.ps == best) {
+        if (p.tin == tu) mu = max(mu, p.lane);
+        if (p.tin == tv) mv = max(mv, p.lane);
+      }
+    }
+    if (mu) atomicMax(&s->u, mu);
+    if (mv) atomicMax(&s->v, mv);
+  }
+  if (kDirect && best > 0) {
+    // Key orders by depth, then by the smaller taxon index: the maximum
+    // key is the first-index argmax of the masked depth.
+    unsigned long long key = 0ull;
+    for (int t = threadIdx.x; t < T1; t += blockDim.x) {
+      const bool ca = tin[t] <= tu && tu < tout[t] && tin[t] <= tv &&
+                      tv < tout[t];
+      const long long d = ca ? depth[t] : -1;
+      const unsigned long long kt =
+          (static_cast<unsigned long long>(d + 1) << 32) |
+          static_cast<unsigned int>(0xFFFFFFFFu - static_cast<unsigned>(t));
+      key = kt > key ? kt : key;
+    }
+    atomicMax(&s->lca, key);
+  }
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    const int nvalid = s->nvalid;
+    const int has = best > 0 ? 1 : 0;
+    const int u = kTaxon ? s->u : has;
+    const int v = kTaxon ? s->v : has;
+    if (kDirect) {
+      const int res = best > 0 ? static_cast<int>(
+          0xFFFFFFFFu - static_cast<unsigned>(s->lca & 0xFFFFFFFFull)) : 0;
+      const int assigned = (u == 0 && v == 0) ? 0
+                           : (u == 0)         ? v
+                           : (v == 0)         ? u
+                                              : res;
+      const bool below = static_cast<float>(best) <
+                         __fmul_rn(thr, static_cast<float>(nvalid));
+      o0[b] = (below || nvalid == 0) ? 0 : assigned;
+      o1[b] = best;
+      o2[b] = nvalid;
+    } else {
+      o0[b] = u;
+      o1[b] = v;
+      o2[b] = tu;
+      o3[b] = tv;
+      o4[b] = best;
+      o5[b] = nvalid;
+    }
+  }
 }

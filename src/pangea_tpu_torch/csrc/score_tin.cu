@@ -23,6 +23,9 @@
 // traffic is the [B, R] lanes once. At R = 260 (w = 1, paired 150 bp) the
 // R^2 compares are the work, so it is bound by integer issue.
 //
+// The part after the pscore, score_finish in common.cuh, is shared with K8
+// (score_ranked.cu), which computes the same pscore by ranks for R > 2048.
+//
 // Rules (SEMANTICS.md §7): hit_i = lane_i != 0; pscore_i = hit_i ? #{j :
 // hit_j && t_in_j <= t_in_i < t_out_j} : 0; best = max pscore; winners are
 // hits with pscore == best > 0; tin_u / tin_v = min / max winner t_in
@@ -32,8 +35,6 @@
 // depth[t] : -1, then 0 if u == v == 0, v if u == 0, u if v == 0; nvalid =
 // sum valid; taxon = 0 if (float)best < thr * (float)nvalid (one rounded
 // float32 multiply) or nvalid == 0.
-#include <climits>
-
 #include "common.cuh"
 
 namespace {
@@ -61,20 +62,11 @@ __global__ void score_kernel(const int32_t* __restrict__ lanes,
   int32_t* s_in = smem + R;
   int32_t* s_out = smem + 2 * R;
   int32_t* s_ps = smem + 3 * R;
-  __shared__ int s_best, s_nvalid, s_tin_u, s_tin_v, s_u, s_v;
-  __shared__ unsigned long long s_lca;
+  __shared__ ScoreState st;
 
   const int b = blockIdx.x;
   const size_t base = static_cast<size_t>(b) * R;
-  if (threadIdx.x == 0) {
-    s_best = 0;
-    s_nvalid = 0;
-    s_tin_u = INT_MAX;
-    s_tin_v = -2;
-    s_u = 0;
-    s_v = 0;
-    s_lca = 0ull;
-  }
+  score_state_init(&st);
   int nv = 0;
   for (int i = threadIdx.x; i < R; i += blockDim.x) {
     s_lane[i] = lanes[base + i];
@@ -83,7 +75,7 @@ __global__ void score_kernel(const int32_t* __restrict__ lanes,
     nv += valid[base + i] != 0;
   }
   __syncthreads();
-  if (nv) atomicAdd(&s_nvalid, nv);
+  if (nv) atomicAdd(&st.nvalid, nv);
 
   int my_best = 0;
   for (int i = threadIdx.x; i < R; i += blockDim.x) {
@@ -97,81 +89,13 @@ __global__ void score_kernel(const int32_t* __restrict__ lanes,
     s_ps[i] = ps;
     my_best = max(my_best, ps);
   }
-  if (my_best) atomicMax(&s_best, my_best);
+  if (my_best) atomicMax(&st.best, my_best);
   __syncthreads();
 
-  const int best = s_best;
-  if (best > 0) {
-    int u = INT_MAX, v = -2;
-    for (int i = threadIdx.x; i < R; i += blockDim.x) {
-      if (s_lane[i] != 0 && s_ps[i] == best) {
-        u = min(u, s_in[i]);
-        v = max(v, s_in[i]);
-      }
-    }
-    if (v != -2) {
-      atomicMin(&s_tin_u, u);
-      atomicMax(&s_tin_v, v);
-    }
-  }
-  __syncthreads();
-  const int tu = s_tin_u, tv = s_tin_v;
-  if (kTaxon && best > 0) {
-    // Node ids: the largest taxon lane among the winners at each end
-    // (every winner at one tin carries the same taxon in a sound table).
-    int mu = 0, mv = 0;
-    for (int i = threadIdx.x; i < R; i += blockDim.x) {
-      if (s_lane[i] != 0 && s_ps[i] == best) {
-        if (s_in[i] == tu) mu = max(mu, s_lane[i]);
-        if (s_in[i] == tv) mv = max(mv, s_lane[i]);
-      }
-    }
-    if (mu) atomicMax(&s_u, mu);
-    if (mv) atomicMax(&s_v, mv);
-  }
-  if (kDirect && best > 0) {
-    // Key orders by depth, then by the smaller taxon index: the maximum
-    // key is the first-index argmax of the masked depth.
-    unsigned long long key = 0ull;
-    for (int t = threadIdx.x; t < T1; t += blockDim.x) {
-      const bool ca = tin[t] <= tu && tu < tout[t] && tin[t] <= tv &&
-                      tv < tout[t];
-      const long long d = ca ? depth[t] : -1;
-      const unsigned long long kt =
-          (static_cast<unsigned long long>(d + 1) << 32) |
-          static_cast<unsigned int>(0xFFFFFFFFu - static_cast<unsigned>(t));
-      key = kt > key ? kt : key;
-    }
-    atomicMax(&s_lca, key);
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    const int nvalid = s_nvalid;
-    const int has = best > 0 ? 1 : 0;
-    const int u = kTaxon ? s_u : has;
-    const int v = kTaxon ? s_v : has;
-    if (kDirect) {
-      const int res = best > 0 ? static_cast<int>(
-          0xFFFFFFFFu - static_cast<unsigned>(s_lca & 0xFFFFFFFFull)) : 0;
-      const int assigned = (u == 0 && v == 0) ? 0
-                           : (u == 0)         ? v
-                           : (v == 0)         ? u
-                                              : res;
-      const bool below = static_cast<float>(best) <
-                         __fmul_rn(thr, static_cast<float>(nvalid));
-      o0[b] = (below || nvalid == 0) ? 0 : assigned;
-      o1[b] = best;
-      o2[b] = nvalid;
-    } else {
-      o0[b] = u;
-      o1[b] = v;
-      o2[b] = tu;
-      o3[b] = tv;
-      o4[b] = best;
-      o5[b] = nvalid;
-    }
-  }
+  score_finish<kTaxon, kDirect>(
+      &st, b, R,
+      [&](int i) { return ScorePos{s_lane[i], s_in[i], s_ps[i]}; }, tin,
+      tout, depth, T1, thr, o0, o1, o2, o3, o4, o5);
 }
 
 template <bool kTaxon, bool kDirect>

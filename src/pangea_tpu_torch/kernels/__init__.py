@@ -1,14 +1,16 @@
 """Device functions of the port: each has a plain PyTorch version and a
 wrapper that launches a hand-written CUDA kernel on CUDA tensors."""
-from .encode import extract_kmers
+from .encode import (extract_kmers, extract_kmers_packed, unpack_wire,
+                     wire_width)
 from .lookup import (fuse_stash, fuse_table, hash32, lookup_q8,
                      lookup_q8_plain, lookup_q12, lookup_q12_plain,
                      lookup_std, lookup_std_plain, mix32)
-from .minimize import extract_probes, extract_probes_plain, select_minimizers
+from .minimize import (extract_probes, extract_probes_packed,
+                       extract_probes_plain, select_minimizers)
 from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
-                    score_reads_plain, score_reads_taxon,
-                    score_reads_taxon_plain, score_reads_tin,
-                    score_reads_tin_plain, score_winners,
+                    pscore_ranked_plain, score_ranked, score_reads_plain,
+                    score_reads_taxon, score_reads_taxon_plain,
+                    score_reads_tin, score_reads_tin_plain, score_winners,
                     score_winners_plain)
 
 # After the kernel modules: the merge's module imports them.
@@ -18,7 +20,9 @@ from ..classify.merge import merge_multik  # noqa: E402
 KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "score_tin": score_reads_tin, "lookup_std": lookup_std,
            "score_taxon": score_reads_taxon, "lca_lift": lca_lift,
-           "lookup_q12": lookup_q12, "merge_multik": merge_multik}
+           "lookup_q12": lookup_q12, "merge_multik": merge_multik,
+           "score_ranked": score_ranked,
+           "extract_packed": extract_probes_packed}
 
 
 def kernel_launches() -> dict:
@@ -31,13 +35,14 @@ def reset_kernel_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "extract_kmers", "extract_probes",
+__all__ = ["KERNELS", "extract_kmers", "extract_kmers_packed",
+           "extract_probes", "extract_probes_packed",
            "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
            "kernel_launches", "lca_lift", "lca_lift_plain",
            "lca_pairs_plain", "lookup_q8", "lookup_q8_plain", "lookup_q12",
            "lookup_q12_plain", "lookup_std", "lookup_std_plain", "mix32",
-           "reset_kernel_launches",
+           "pscore_ranked_plain", "reset_kernel_launches", "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",
            "score_reads_tin_plain", "score_winners", "score_winners_plain",
-           "select_minimizers"]
+           "select_minimizers", "unpack_wire", "wire_width"]

@@ -33,8 +33,9 @@ _F = ctypes.c_float
 # C signature of every exported launcher: (argtypes), all return cudaError_t.
 # :func:`launch` passes the stream, the last argument, itself.
 SIGNATURES = {
-    # codes, B, L, k, w, hi, lo, valid, R, col0, stream
-    "pangea_extract_probes": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
+    # codes, B, L, k, w, hi, lo, valid, R, col0, packed, pitch, stream
+    "pangea_extract_probes": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                              _I64, _P),
     # hi, lo, valid, N, fused, NB, W, stash, S, k, hit, t_in, t_out, stream
     "pangea_lookup_q8": (_P, _P, _P, _I64, _P, _I64, _I, _P, _I, _I,
                          _P, _P, _P, _P),
@@ -50,6 +51,10 @@ SIGNATURES = {
     # thr, o0..o5, stream
     "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
                      _P, _P, _P, _P, _P, _P, _P),
+    # lanes, t_in, t_out, valid, B, R, Rpad, scratch, taxon_lanes, tin,
+    # tout, depth, T1, thr, o0..o5, stream
+    "pangea_score_ranked": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+                            _I, _F, _P, _P, _P, _P, _P, _P, _P),
     # u, v, tin_u, tin_v, best, nvalid, B, tin2node, M, parent, depth, up,
     # levels, T1, thr, taxon, stream
     "pangea_lca_lift": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
@@ -90,14 +95,16 @@ def _checkout_root() -> Path | None:
     return None
 
 
+def user_cache() -> Path:
+    """The package's directory in the user's cache."""
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "pangea_tpu_torch"
+
+
 def build_dir() -> Path:
     """Where the library of the current sources lives."""
     root = _checkout_root()
-    if root is not None:
-        base = root / "build" / "kernels"
-    else:
-        cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-        base = Path(cache) / "pangea_tpu_torch"
+    base = root / "build" / "kernels" if root is not None else user_cache()
     return base / _source_hash()
 
 

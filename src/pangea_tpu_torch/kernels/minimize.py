@@ -5,14 +5,16 @@ Counterpart of ``pangea_tpu/kernels/minimize.py`` ``select_minimizers_jnp``
 and of the extract/minimize part of ``classify/engine.py``
 ``_extract_probes``. :func:`extract_probes` runs kernel K1
 (``csrc/extract_probes.cu``) on CUDA tensors and the plain composition of
-:func:`extract_kmers` and :func:`select_minimizers` on CPU tensors.
+:func:`extract_kmers` and :func:`select_minimizers` on CPU tensors. With
+``packed_len=L`` the input is packed wire rows (B7) and the launch is K1's
+packed form, counted on :func:`extract_probes_packed`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .encode import extract_kmers
+from .encode import extract_kmers, wire_codes, wire_width
 from .lookup import _hash32, widen
 
 
@@ -46,10 +48,14 @@ def probe_width(L: int, k: int, w: int) -> int:
     return P // w
 
 
-def extract_probes_plain(codes, k: int, w: int, out, col0: int) -> None:
+def extract_probes_plain(codes, k: int, w: int, out, col0: int,
+                         packed_len: int = 0) -> None:
     """Plain PyTorch K1 (any device): write the probes of codes int8
-    [B, L] into columns [col0, col0 + NW) of out = (hi, lo, valid)
-    [B, R]."""
+    [B, L] (or, packed_len=L, of packed wire rows int32 [B, >=
+    wire_width(L)]) into columns [col0, col0 + NW) of out = (hi, lo,
+    valid) [B, R]."""
+    if packed_len:
+        codes = wire_codes(codes, packed_len)
     NW = probe_width(codes.shape[1], k, w)
     hi, lo, valid = extract_kmers(codes, k)
     if w > 1:
@@ -58,19 +64,13 @@ def extract_probes_plain(codes, k: int, w: int, out, col0: int) -> None:
         dst[:, col0:col0 + NW] = src
 
 
-def extract_probes(codes, k: int, w: int, out, col0: int) -> None:
-    """Probes of codes int8 [B, L] into columns [col0, col0 + NW) of
-    out = (hi int32, lo int32, valid bool) [B, R]: the plain version for
-    CPU tensors, kernel K1 for CUDA tensors."""
-    hi, lo, valid = out
-    dev = _build.dispatch_device(codes, hi, lo, valid)
-    if dev is None:
-        return extract_probes_plain(codes, k, w, out, col0)
-    B, L = codes.shape
+def _launch_k1(dev, codes, L: int, pitch: int, packed: bool, k: int,
+               w: int, out, col0: int) -> None:
+    B = codes.shape[0]
     NW = probe_width(L, k, w)
     if not 1 <= k <= 31 or w < 1:
         raise ValueError(f"k={k} outside 1..31 or w={w} < 1")
-    _build.check(codes, torch.int8, ndim=2, name="codes")
+    hi, lo, valid = out
     _build.check(hi, torch.int32, ndim=2, name="hi")
     R = hi.shape[1]
     _build.check(lo, torch.int32, shape=(B, R), name="lo")
@@ -79,8 +79,46 @@ def extract_probes(codes, k: int, w: int, out, col0: int) -> None:
         raise ValueError(f"columns [{col0}, {col0 + NW}) do not fit "
                          f"outputs of shape {tuple(hi.shape)} for {B} reads")
     _build.launch("pangea_extract_probes", dev, codes.data_ptr(), B, L, k,
-                  w, hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, col0)
+                  w, hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, col0,
+                  int(packed), pitch)
+
+
+def extract_probes(codes, k: int, w: int, out, col0: int,
+                   packed_len: int = 0) -> None:
+    """Probes of codes int8 [B, L] into columns [col0, col0 + NW) of
+    out = (hi int32, lo int32, valid bool) [B, R]: the plain version for
+    CPU tensors, kernel K1 for CUDA tensors. packed_len=L takes packed
+    wire rows instead (:func:`extract_probes_packed`)."""
+    if packed_len:
+        return extract_probes_packed(codes, packed_len, k, w, out, col0)
+    dev = _build.dispatch_device(codes, *out)
+    if dev is None:
+        return extract_probes_plain(codes, k, w, out, col0)
+    _build.check(codes, torch.int8, ndim=2, name="codes")
+    _launch_k1(dev, codes, codes.shape[1], codes.shape[1], False, k, w, out,
+               col0)
     extract_probes.launches += 1
 
 
+def extract_probes_packed(rows, L: int, k: int, w: int, out,
+                          col0: int) -> None:
+    """Probes of packed wire rows of L bases (int32 [B, >= wire_width(L)],
+    rows may be a column slice of a wider batch: only the last dimension
+    must be dense) into columns [col0, col0 + NW) of out: the plain version
+    for CPU tensors, K1's packed form for CUDA tensors."""
+    dev = _build.dispatch_device(rows, *out)
+    if dev is None:
+        return extract_probes_plain(rows, k, w, out, col0, packed_len=L)
+    if rows.dtype != torch.int32 or rows.dim() != 2:
+        raise TypeError(f"rows: {rows.dtype} {rows.dim()}-d, the packed "
+                        "form takes int32 [B, words]")
+    if rows.shape[1] < wire_width(L) or rows.stride(1) != 1:
+        raise ValueError(f"rows {tuple(rows.shape)} (strides "
+                         f"{rows.stride()}) do not hold dense wire rows of "
+                         f"{L} bases ({wire_width(L)} words)")
+    _launch_k1(dev, rows, L, rows.stride(0), True, k, w, out, col0)
+    extract_probes_packed.launches += 1
+
+
 extract_probes.launches = 0
+extract_probes_packed.launches = 0

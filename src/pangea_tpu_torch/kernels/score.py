@@ -1,7 +1,7 @@
 """Per-read consensus score and LCA (SEMANTICS.md §6-7).
 
-Counterpart of ``pangea_tpu/kernels/score.py`` ``_score_impl`` with the
-quadratic pscore, for both lookups:
+Counterpart of ``pangea_tpu/kernels/score.py`` ``_score_impl``, for both
+lookups:
 
 - the q8 form (``score_reads_tin_jnp``): the lanes are hit counts, and the
   winners' node ids are recovered from their Euler tins;
@@ -10,11 +10,16 @@ quadratic pscore, for both lookups:
 
 The LCA of the winners is the direct scan over the taxonomy
 (``_lca_by_tin_direct``) when it has at most :data:`DIRECT_LCA_MAX_TAXA`
-entries (T + 1), and binary lifting (``lca_pairs_jnp``) above that. On CUDA
-tensors :func:`score_reads_tin` and :func:`score_reads_taxon` run kernel
-K3 (``csrc/score_tin.cu``, one launch with the direct scan, or its winners
-form followed by K5, ``csrc/lca_lift.cu``, :func:`lca_lift`); on CPU
-tensors they run :func:`score_reads_plain`.
+entries (T + 1), and binary lifting (``lca_pairs_jnp``) above that. The
+pscore is the quadratic count (``_pscore_quadratic``) for reads of up to
+:data:`MAX_PROBES` probes and the sort-rank form (``_pscore_ranked``, the
+long-read buckets) above; the two agree wherever every hit's t_in < t_out,
+as in every sound table. On CUDA tensors :func:`score_reads_tin` and
+:func:`score_reads_taxon` run kernel K3 (``csrc/score_tin.cu``) up to
+MAX_PROBES probes and K8 (``csrc/score_ranked.cu``, counted on
+:func:`score_ranked`) above, one launch with the direct scan, or the
+winners form followed by K5 (``csrc/lca_lift.cu``, :func:`lca_lift`); on
+CPU tensors they run :func:`score_reads_plain`.
 """
 from __future__ import annotations
 
@@ -23,9 +28,13 @@ import torch
 from . import _build
 
 _I32_MAX = 2**31 - 1
-MAX_PROBES = 2048            # K3's shared-memory arrays hold R <= 2048
+MAX_PROBES = 2048            # K3 up to here (the reference's _RANKED_MIN_P)
 DIRECT_LCA_MAX_TAXA = 4096   # the reference's _DIRECT_LCA_MAX_TAXA
 _PLAIN_PSCORE_ELEMS = 1 << 26   # [B, R, R] elements a plain pscore step
+# K8 sorts a read's two [Rpad] arrays in shared memory up to this many
+# bytes (the H100's 227 KB opt-in less room for the block's own state),
+# beyond it in a device scratch.
+RANKED_SMEM_MAX = 232448 - 1024
 
 
 def _pscore_plain(t_in, t_out, hit):
@@ -42,6 +51,18 @@ def _pscore_plain(t_in, t_out, hit):
     return torch.cat(parts) if parts else torch.zeros_like(t_in)
 
 
+def pscore_ranked_plain(t_in, t_out, hit):
+    """[B, R] sort-rank pscore (the reference's ``_pscore_ranked``): misses
+    are masked to INT32_MAX, both arrays sorted, and each probe's pscore is
+    #{tin <= t_in} - #{tout <= t_in}. Meaningful at hit positions."""
+    big = torch.tensor(_I32_MAX, dtype=t_in.dtype, device=t_in.device)
+    tin_s = torch.where(hit, t_in, big).sort(dim=1).values
+    tout_s = torch.where(hit, t_out, big).sort(dim=1).values
+    rank_in = torch.searchsorted(tin_s, t_in, right=True)
+    rank_out = torch.searchsorted(tout_s, t_in, right=True)
+    return (rank_in - rank_out).to(torch.int32)
+
+
 def score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes: bool):
     """The part of :func:`score_reads_plain` before the LCA. lanes int32
     [B, R]: hit counts (q8) or hit taxa (taxon_lanes). Returns (u, v,
@@ -49,7 +70,9 @@ def score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes: bool):
     node ids (q8: 1 if the read has a winner, else 0) and tins (INT_MAX and
     -2 without a winner), the best pscore and the valid-probe count."""
     hit = lanes != 0
-    pscore = torch.where(hit, _pscore_plain(t_in, t_out, hit), 0)
+    pscore_fn = (pscore_ranked_plain if lanes.shape[1] > MAX_PROBES
+                 else _pscore_plain)
+    pscore = torch.where(hit, pscore_fn(t_in, t_out, hit), 0)
     best = pscore.max(dim=1).values
     winner = hit & (pscore == best[:, None]) & (best[:, None] > 0)
     tin_u = torch.where(winner, t_in, _I32_MAX).min(dim=1).values
@@ -190,45 +213,60 @@ def _check_lanes(lanes, t_in, t_out, valid):
     for t, name in ((t_in, "t_in"), (t_out, "t_out")):
         _build.check(t, torch.int32, shape=(B, R), name=name)
     _build.check(valid, torch.bool, shape=(B, R), name="valid")
-    if R > MAX_PROBES:
-        raise NotImplementedError(
-            f"{R} probes a read exceed kernel K3's {MAX_PROBES}: long reads "
-            "need the ranked pscore (ROADMAP B11)")
     if R == 0:
         raise ValueError("the scorer needs at least one probe a read")
     return B, R
 
 
-def _k3_wrapper(taxon_lanes: bool):
-    """The wrapper whose count a launch of K3's form raises."""
-    return score_reads_taxon if taxon_lanes else score_reads_tin
+def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
+                  tax: dict | None = None, thr: float = 0.0):
+    """One launch of K3 (R <= MAX_PROBES) or K8: with ``tax`` the direct
+    form (taxon, best, nvalid), without it the winners form (u, v, tin_u,
+    tin_v, best, nvalid). The launch counts on :func:`score_ranked` (K8),
+    else on :func:`score_reads_taxon` or :func:`score_reads_tin`."""
+    B, R = _check_lanes(lanes, t_in, t_out, valid)
+    if tax is None:
+        T1, tax_ptrs = 0, (0, 0, 0)
+    else:
+        T1 = _check_tax(tax, ("tin", "tout", "depth"))
+        tax_ptrs = tuple(tax[n].data_ptr() for n in ("tin", "tout", "depth"))
+    out = torch.empty((6 if tax is None else 3, B), dtype=torch.int32,
+                      device=dev)
+    ptrs = [o.data_ptr() for o in out] + [0] * (6 - out.shape[0])
+    head = (lanes.data_ptr(), t_in.data_ptr(), t_out.data_ptr(),
+            valid.data_ptr(), B, R)
+    tail = (int(taxon_lanes), *tax_ptrs, T1, float(thr), *ptrs)
+    if R <= MAX_PROBES:
+        _build.launch("pangea_score", dev, *head, *tail)
+        (score_reads_taxon if taxon_lanes else score_reads_tin).launches += 1
+    else:
+        rpad = 1 << (R - 1).bit_length()
+        scratch = (None if 2 * rpad * 4 <= RANKED_SMEM_MAX else
+                   torch.empty((B, 2, rpad), dtype=torch.int32, device=dev))
+        _build.launch("pangea_score_ranked", dev, *head, rpad,
+                      0 if scratch is None else scratch.data_ptr(), *tail)
+        score_ranked.launches += 1
+    return tuple(out)
 
 
 def score_winners(lanes, t_in, t_out, valid, taxon_lanes: bool):
-    """K3's winners form on CUDA tensors (the plain
-    :func:`score_winners_plain` on CPU tensors): the part of the score
-    before a lifted LCA. Same contract as :func:`score_winners_plain`; the
-    launch counts on :func:`score_reads_taxon` or :func:`score_reads_tin`,
-    the wrapper of its form."""
+    """K3's (or, past MAX_PROBES, K8's) winners form on CUDA tensors (the
+    plain :func:`score_winners_plain` on CPU tensors): the part of the
+    score before a lifted LCA. Same contract as
+    :func:`score_winners_plain`."""
     dev = _build.dispatch_device(lanes, t_in, t_out, valid)
     if dev is None:
         return score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes)
-    B, R = _check_lanes(lanes, t_in, t_out, valid)
-    out = torch.empty((6, B), dtype=torch.int32, device=dev)
-    _build.launch("pangea_score", dev, lanes.data_ptr(), t_in.data_ptr(),
-                  t_out.data_ptr(), valid.data_ptr(), B, R,
-                  int(taxon_lanes), 0, 0, 0, 0, 0.0,
-                  *(o.data_ptr() for o in out))
-    _k3_wrapper(taxon_lanes).launches += 1
-    return tuple(out)
+    return _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes)
 
 
 def _score(lanes, t_in, t_out, valid, tax: dict,
            confidence_threshold: float, taxon_lanes: bool):
-    """The body of :func:`score_reads_tin` and :func:`score_reads_taxon`:
-    the plain version on CPU tensors; on CUDA tensors K3's direct form in
-    one launch for up to DIRECT_LCA_MAX_TAXA taxa, else its winners form
-    and then K5. Only the taxonomy arrays the form reads are checked."""
+    """The body of :func:`score_reads_tin`, :func:`score_reads_taxon` and
+    :func:`score_ranked`: the plain version on CPU tensors; on CUDA tensors
+    K3 or K8 in one launch with the direct scan for up to
+    DIRECT_LCA_MAX_TAXA taxa, else their winners form and then K5. Only the
+    taxonomy arrays the form reads are checked."""
     direct = tax["tin"].shape[0] <= DIRECT_LCA_MAX_TAXA
     names = ("tin", "tout", "depth") if direct else \
         ("parent", "depth", "up", "tin2node")
@@ -237,30 +275,22 @@ def _score(lanes, t_in, t_out, valid, tax: dict,
     if dev is None:
         return score_reads_plain(lanes, t_in, t_out, valid, tax,
                                  confidence_threshold, taxon_lanes)
-    if not direct:
-        u, v, tin_u, tin_v, best, nvalid = score_winners(
-            lanes, t_in, t_out, valid, taxon_lanes)
-        taxon = lca_lift(u, v, tin_u, tin_v, best, nvalid, tax,
-                         confidence_threshold, taxon_lanes)
-        return taxon, best, nvalid
-    B, R = _check_lanes(lanes, t_in, t_out, valid)
-    T1 = _check_tax(tax, names)
-    out = torch.empty((3, B), dtype=torch.int32, device=dev)
-    _build.launch("pangea_score", dev, lanes.data_ptr(), t_in.data_ptr(),
-                  t_out.data_ptr(), valid.data_ptr(), B, R,
-                  int(taxon_lanes), tax["tin"].data_ptr(),
-                  tax["tout"].data_ptr(), tax["depth"].data_ptr(), T1,
-                  float(confidence_threshold),
-                  *(o.data_ptr() for o in out), 0, 0, 0)
-    _k3_wrapper(taxon_lanes).launches += 1
-    return tuple(out)
+    if direct:
+        return _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes,
+                             tax, confidence_threshold)
+    u, v, tin_u, tin_v, best, nvalid = _launch_score(
+        dev, lanes, t_in, t_out, valid, taxon_lanes)
+    taxon = lca_lift(u, v, tin_u, tin_v, best, nvalid, tax,
+                     confidence_threshold, taxon_lanes)
+    return taxon, best, nvalid
 
 
 def score_reads_tin(hit, t_in, t_out, valid, tax: dict,
                     confidence_threshold: float):
     """Score the q8 lookup's hits: the plain version for CPU tensors,
-    kernel K3's q8 form (plus K5 above DIRECT_LCA_MAX_TAXA taxa) for CUDA
-    tensors. Same contract as :func:`score_reads_tin_plain`."""
+    kernel K3's q8 form (K8's past MAX_PROBES probes, plus K5 above
+    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    :func:`score_reads_tin_plain`."""
     return _score(hit, t_in, t_out, valid, tax, confidence_threshold,
                   taxon_lanes=False)
 
@@ -268,10 +298,26 @@ def score_reads_tin(hit, t_in, t_out, valid, tax: dict,
 def score_reads_taxon(taxon, t_in, t_out, valid, tax: dict,
                       confidence_threshold: float):
     """Score the std lookup's hit taxa: the plain version for CPU tensors,
-    kernel K3's taxon form (plus K5 above DIRECT_LCA_MAX_TAXA taxa) for
-    CUDA tensors. Same contract as :func:`score_reads_taxon_plain`."""
+    kernel K3's taxon form (K8's past MAX_PROBES probes, plus K5 above
+    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    :func:`score_reads_taxon_plain`."""
     return _score(taxon, t_in, t_out, valid, tax, confidence_threshold,
                   taxon_lanes=True)
+
+
+def score_ranked(lanes, t_in, t_out, valid, tax: dict,
+                 confidence_threshold: float, taxon_lanes: bool):
+    """Score reads of more than MAX_PROBES probes (the long-read buckets):
+    the plain version for CPU tensors, kernel K8 (plus K5 above
+    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    :func:`score_reads_plain`. Every K8 launch counts here, also those of
+    :func:`score_reads_tin`, :func:`score_reads_taxon` and
+    :func:`score_winners` past MAX_PROBES."""
+    if lanes.dim() != 2 or lanes.shape[1] <= MAX_PROBES:
+        raise ValueError(f"lanes {tuple(lanes.shape)}: the ranked scorer "
+                         f"takes more than {MAX_PROBES} probes a read")
+    return _score(lanes, t_in, t_out, valid, tax, confidence_threshold,
+                  taxon_lanes)
 
 
 def lca_lift(u, v, tin_u, tin_v, best, nvalid, tax: dict,
@@ -305,4 +351,5 @@ def lca_lift(u, v, tin_u, tin_v, best, nvalid, tax: dict,
 
 score_reads_tin.launches = 0
 score_reads_taxon.launches = 0
+score_ranked.launches = 0
 lca_lift.launches = 0

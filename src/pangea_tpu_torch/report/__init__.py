@@ -1,6 +1,8 @@
 from . import stats
-from .writers import (AssignmentRecord, format_assignment, summarize,
-                      write_cohort_summary, write_summary)
+from .writers import (AssignmentRecord, format_assignment,
+                      summarize_counts, write_cohort_summary_counts,
+                      write_summary_counts)
 
-__all__ = ["AssignmentRecord", "format_assignment", "stats", "summarize",
-           "write_cohort_summary", "write_summary"]
+__all__ = ["AssignmentRecord", "format_assignment", "stats",
+           "summarize_counts", "write_cohort_summary_counts",
+           "write_summary_counts"]

@@ -1,7 +1,8 @@
 """Report writers, numpy only.
 
 The port's copy of the parts of ``pangea_tpu/report/writers.py`` a classify
-run writes: per-read assignment lines and the clade-rollup summaries,
+run writes: per-read assignment lines and the clade-rollup summaries
+(from per-taxon counts),
 exactly per SEMANTICS.md §10 — byte-stable output (fixed ordering, fixed
 float formatting), since the reports are what is compared with the
 reference.
@@ -56,22 +57,10 @@ def summarize_counts(direct: np.ndarray, taxonomy: Taxonomy):
     return direct, clade
 
 
-def summarize(taxa: np.ndarray, taxonomy: Taxonomy):
-    """Per-taxon direct and clade counts from assigned taxa (0 allowed)."""
-    direct = np.bincount(taxa, minlength=taxonomy.num_taxa + 1)
-    return summarize_counts(direct, taxonomy)
-
-
-def write_summary(path: str, taxa: np.ndarray, taxonomy: Taxonomy) -> None:
-    """SEMANTICS.md §10.2 clade-rollup summary for one sample."""
-    direct = np.bincount(np.asarray(taxa, dtype=np.int64),
-                         minlength=taxonomy.num_taxa + 1)
-    write_summary_counts(path, direct, taxonomy)
-
-
 def write_summary_counts(path: str, direct: np.ndarray,
                          taxonomy: Taxonomy) -> None:
-    """§10.2 summary from per-taxon direct counts."""
+    """SEMANTICS.md §10.2 clade-rollup summary of one sample from its
+    per-taxon direct counts (int64 [T+1], index 0 = unclassified)."""
     direct, clade = summarize_counts(direct, taxonomy)
     total = int(direct.sum())
     with open(path, "w") as fh:
@@ -98,22 +87,12 @@ def _dfs_order(taxonomy: Taxonomy) -> np.ndarray:
     return np.argsort(taxonomy.tin[1:], kind="stable") + 1
 
 
-def write_cohort_summary(path: str, sample_taxa: dict[str, np.ndarray],
-                         taxonomy: Taxonomy, sample_order=None) -> None:
-    """Cohort table (SEMANTICS.md §10.3) from per-sample assigned-taxa
-    arrays."""
-    counts = {n: np.bincount(np.asarray(t, dtype=np.int64),
-                             minlength=taxonomy.num_taxa + 1)
-              for n, t in sample_taxa.items()}
-    write_cohort_summary_counts(path, counts, taxonomy,
-                                sample_order=sample_order)
-
-
 def write_cohort_summary_counts(path: str, sample_direct: dict,
                                 taxonomy: Taxonomy,
                                 sample_order=None) -> None:
-    """Cohort table: one row per taxon (DFS order), clade counts per sample
-    column; samples in given order (default: insertion order)."""
+    """Cohort table (SEMANTICS.md §10.3) from per-sample direct counts: one
+    row per taxon (DFS order), clade counts per sample column; samples in
+    the given order (default: insertion order)."""
     names = list(sample_order) if sample_order else list(sample_direct)
     per = {n: summarize_counts(d, taxonomy)
            for n, d in sample_direct.items()}

@@ -134,9 +134,13 @@ def write_fasta(path: str, genomes, tax: Taxonomy) -> None:
                 fh.write(s[j:j + 80] + "\n")
 
 
+_BASES = np.frombuffer(b"ACGTN", np.uint8)
+
+
 def write_fastq(path: str, rs: ReadSet, mate: int = 1) -> None:
     seqs = rs.seqs if mate == 1 else rs.mates
-    with open(path, "w") as fh:
+    with open(path, "wb") as fh:
         for rid, codes in zip(rs.ids, seqs):
-            q = "".join(chr(33 + 35) for _ in range(len(codes)))
-            fh.write(f"@{rid}\n{codes_to_str(codes)}\n+\n{q}\n")
+            fh.write(b"@%s\n%s\n+\n%s\n" % (
+                rid.encode(), _BASES[codes].tobytes(),
+                bytes([33 + 35]) * len(codes)))

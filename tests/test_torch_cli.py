@@ -67,8 +67,8 @@ def test_cli_outputs_byte_identical_to_jax(testdata, tmp_path, monkeypatch,
     ["trim.min_qual=20"],
     ['demux.barcodes=[["x", "ACGTACGT"]]'],
     ["--resume"],
-    ["input.max_read_len=100"],
-], ids=["mesh", "trim", "demux", "resume", "long_reads"])
+    ["trim.max_len=100"],
+], ids=["mesh", "trim", "demux", "resume", "max_len"])
 def test_cli_unsupported_options_raise(testdata, tmp_path, extra):
     d = testdata
     extra = [str(d / a) if a == "idx" else a for a in extra]
@@ -90,16 +90,28 @@ def test_cli_refuses_indexes_of_different_taxonomies(testdata, tmp_path):
                   "input.batch_size=64", "input.max_read_len=120"])
 
 
-def test_cli_reports_host_time_by_phase(testdata, tmp_path, capsys):
+def test_cli_reports_host_time_by_phase(testdata, tmp_path, capsys,
+                                        monkeypatch):
+    """Each path reports its own phases: the general loop's parse, pad,
+    step and write sum to at most the wall; the fast path's threads
+    (parse, step, fetch, write) overlap, so each is at most the wall."""
     d = testdata
-    assert cli.main(["classify", "--index", str(d / "idx"),
-                     "--reads", str(d / "a_1.fastq"),
-                     "--mates", str(d / "a_2.fastq"),
-                     "--out", str(tmp_path / "out"), "--device", "cpu",
-                     "input.batch_size=64", "input.max_read_len=120"]) == 0
-    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert result["reads"] == 150 and result["batches"] == 3
-    host = result["host_sec"]
-    assert sorted(host) == ["pad", "parse", "step", "write"]
-    assert all(v > 0 for v in host.values())
-    assert sum(host.values()) <= result["wall_sec"] + 1e-3
+    for env, phases in ((None, ["fetch", "parse", "step", "write"]),
+                        ("1", ["pad", "parse", "step", "write"])):
+        if env:
+            monkeypatch.setenv("PANGEA_NO_NATIVE", env)
+        assert cli.main(["classify", "--index", str(d / "idx"),
+                         "--reads", str(d / "a_1.fastq"),
+                         "--mates", str(d / "a_2.fastq"),
+                         "--out", str(tmp_path / f"out{env}"),
+                         "--device", "cpu", "input.batch_size=64",
+                         "input.max_read_len=120"]) == 0
+        result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert result["fast_path"] is (env is None)
+        assert result["reads"] == 150 and result["batches"] == 3
+        assert result["truncated_reads"] == 0
+        host = result["host_sec"]
+        assert sorted(host) == phases
+        assert all(0 < v <= result["wall_sec"] + 1e-3 for v in host.values())
+        if env:
+            assert sum(host.values()) <= result["wall_sec"] + 1e-3

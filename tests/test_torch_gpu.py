@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from pangea_tpu.golden import (GoldenResult, classify_reads_golden,
-                               merge_multik_golden)
+from pangea_tpu.golden import (GoldenResult, classify_read_golden,
+                               classify_reads_golden, merge_multik_golden)
 from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
@@ -27,7 +27,9 @@ from pangea_tpu_torch.index import relayout_q8, relayout_q12
 from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.index.quot import Q12_WAYS
 from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
-                                      fuse_stash, fuse_table,
+                                      fuse_stash, fuse_table, score_ranked,
+                                      score_winners, score_winners_plain,
+                                      wire_width,
                                       kernel_launches, lca_lift,
                                       lca_lift_plain, lookup_q8,
                                       lookup_q8_plain, lookup_q12,
@@ -46,7 +48,7 @@ pytestmark = pytest.mark.gpu
 # Kernel launches of one paired step, by path.
 _NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
          "lookup_std": 0, "score_taxon": 0, "lca_lift": 0, "lookup_q12": 0,
-         "merge_multik": 0}
+         "merge_multik": 0, "score_ranked": 0, "extract_packed": 0}
 Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 
 
@@ -487,3 +489,148 @@ def test_multik_classifier_cuda_matches_plain_and_golden(cuda, world,
         classify_reads_golden(rs.seqs, idx31, thr, mates=rs.mates))]
     for key in ("taxon", "best", "nvalid"):
         assert got[key].tolist() == [getattr(g, key) for g in gold]
+
+
+def _lineage_lanes(tax, B, R, seed):
+    """[B, R] hit taxa from four taxa a read, half of them misses, and their
+    Euler intervals; read 0 has no hit and read 1 no valid probe."""
+    rng = np.random.default_rng(seed)
+    lineage = rng.integers(1, tax.num_taxa + 1, size=(B, 4))
+    taxa = lineage[np.arange(B)[:, None], rng.integers(0, 4, size=(B, R))]
+    taxon = np.where(rng.random((B, R)) < 0.5, taxa, 0).astype(np.int32)
+    taxon[0] = 0
+    t_in = np.where(taxon != 0, tax.tin[taxon], 0).astype(np.int32)
+    t_out = np.where(taxon != 0, tax.tout[taxon], 0).astype(np.int32)
+    valid = (rng.random((B, R)) < 0.8) | (taxon != 0)
+    valid[1] = False
+    return taxon, t_in, t_out, valid
+
+
+@pytest.mark.parametrize("B,R", [(40, 2049), (70, 16364), (6, 32728)],
+                         ids=["2049", "16364_shared", "32728_scratch"])
+@pytest.mark.parametrize("tree", [None, (64, 40)], ids=["direct",
+                                                        "lifting"])
+def test_score_ranked_kernel_matches_plain(cuda, tree, B, R):
+    """K8 in both forms, with the direct LCA and with K5's lifting, at two
+    thresholds, its sort in shared memory and in the device scratch."""
+    tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
+    taxon, t_in, t_out, valid = _lineage_lanes(tax, B, R, seed=R)
+    for lanes, taxon_lanes in ((taxon, True),
+                               ((taxon != 0).astype(np.int32), False)):
+        args = [torch.from_numpy(a) for a in (lanes, t_in, t_out, valid)]
+        cargs = [a.to(cuda) for a in args]
+        reset_kernel_launches()
+        got = score_winners(*cargs, taxon_lanes)
+        assert kernel_launches()["score_ranked"] == 1
+        for a, b in zip(score_winners_plain(*args, taxon_lanes), got):
+            assert torch.equal(a, b.cpu())
+        for thr in (0.0, 0.05):
+            want = score_ranked(*args, _tax(tax, "cpu"), thr, taxon_lanes)
+            got = score_ranked(*cargs, _tax(tax, cuda), thr, taxon_lanes)
+            for a, b in zip(want, got):
+                assert torch.equal(a, b.cpu())
+            assert (want[0] != 0).any()
+
+
+def test_long_reads_on_the_card_match_golden(cuda):
+    """Genome slices of 2.5 and 5 kb at k=21, w=1 (R = 2,380 and 4,780 in
+    their buckets): the Classifier on the card launches K8 and equals the
+    plain path and golden read by read."""
+    tax, genomes, idx, _ = small_world(k=21, seed=3, genome_len=6000,
+                                       n_reads=1, w=1)
+    rng = np.random.default_rng(5)
+    model = Classifier(DeviceIndex.from_index(idx, cuda, 0.0))
+    for n, Lj in ((2500, 4800), (2300, 2400)):
+        seqs = []
+        for _ in range(12):
+            codes, _ = genomes[rng.integers(0, len(genomes))]
+            s = rng.integers(0, len(codes) - n)
+            seqs.append(np.asarray(codes[s:s + n], dtype=np.uint8))
+        b = torch.from_numpy(pad_batch(seqs, len(seqs), Lj)).to(cuda)
+        reset_kernel_launches()
+        got = {k: v.cpu() for k, v in model(b).items()}
+        assert kernel_launches()["score_ranked"] == 1
+        plain = classify_reads(model.index.tables, b, model.cfg, plain=True)
+        gold = [classify_read_golden(sq, idx, 0.0) for sq in seqs]
+        for key in ("taxon", "best", "nvalid"):
+            assert torch.equal(got[key], plain[key].cpu())
+            assert got[key].tolist() == [getattr(g, key) for g in gold]
+
+
+@pytest.mark.parametrize("k,w,L", [(21, 8, 150), (21, 1, 150), (31, 16, 97)])
+def test_extract_packed_kernel_matches_code_form(cuda, k, w, L):
+    """K1's packed form on wire rows that are column slices of one batch
+    (both mates, as the fast path ships them) equals K1 on the codes and
+    the plain version on the rows."""
+    from pangea_tpu_torch.kernels.encode import wire_codes
+    rng = np.random.default_rng(k + w)
+    B, W = 257, wire_width(L)
+    words = rng.integers(0, 1 << 32, size=(B, 2 * W), dtype=np.uint64)
+    # Bad flags on about 3 % of the bases, all of them past the read.
+    bad = (rng.random((B, 2, (W - (L + 15) // 16) * 32)) < 0.03)
+    bad[:, :, L:] = True
+    bits = (bad.reshape(B, 2, -1, 32) << np.arange(32, dtype=np.uint64)) \
+        .sum(-1)
+    words = words.reshape(B, 2, W)
+    words[:, :, (L + 15) // 16:] = bits
+    rows = torch.from_numpy(words.reshape(B, 2 * W).astype(np.uint32)
+                            .view(np.int32))
+    NW = (L - k + 1) // w
+    outs = []
+    for fn, dev, packed in ((extract_probes_plain, "cpu", True),
+                            (extract_probes, cuda, True),
+                            (extract_probes, cuda, False)):
+        out = (torch.full((B, 2 * NW + 1), 7, dtype=torch.int32, device=dev),
+               torch.full((B, 2 * NW + 1), 7, dtype=torch.int32, device=dev),
+               torch.zeros((B, 2 * NW + 1), dtype=torch.bool, device=dev))
+        r = rows.to(dev)
+        reset_kernel_launches()
+        for m in range(2):
+            part = r[:, m * W:(m + 1) * W]
+            if packed:
+                fn(part, k, w, out, 1 + m * NW, packed_len=L)
+            else:
+                fn(wire_codes(part, L), k, w, out, 1 + m * NW)
+        if dev != "cpu":
+            assert kernel_launches()["extract_packed" if packed
+                                     else "extract_probes"] == 2
+        outs.append([t.cpu() for t in out])
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_fast_path_cli_on_the_card_equals_the_cpu(cuda, tmp_path, capsys):
+    """The CLI's fast path on the card (native reader, K1's packed form)
+    writes the same files as on the CPU, and its long-read path too."""
+    import json
+
+    from pangea_tpu.utils import datagen as rdg
+    from pangea_tpu_torch import cli
+    tax, genomes, idx, rs = small_world(k=21, seed=4, genome_len=3000,
+                                        n_reads=300, read_len=120,
+                                        paired=True, w=8)
+    idx.save(str(tmp_path / "idx"))
+    rdg.write_fastq(str(tmp_path / "a_1.fq"), rs, mate=1)
+    rdg.write_fastq(str(tmp_path / "a_2.fq"), rs, mate=2)
+    # Fast path: 3 batches x 2 mates. Long-read path: every 120 bp read is
+    # past L = 100, so each batch runs the 200-base bucket, 64 reads a
+    # launch: 5 launches x 2 mates.
+    for extra, kernel, n in (([], "extract_packed", 6),
+                             (["input.long_reads=true"], "extract_probes",
+                              10)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            outs[dev] = tmp_path / f"out_{dev}_{len(extra)}"
+            assert cli.main(["classify", "--index", str(tmp_path / "idx"),
+                             "--reads", str(tmp_path / "a_1.fq"),
+                             "--mates", str(tmp_path / "a_2.fq"),
+                             "--out", str(outs[dev]), "--device", dev,
+                             "input.batch_size=128",
+                             "input.max_read_len=100", *extra]) == 0
+            result = json.loads(capsys.readouterr().out.strip()
+                                .splitlines()[-1])
+            assert result["fast_path"] is (not extra)
+        assert result["kernel_launches"][kernel] == n
+        for f in ("a_1.assign.tsv", "a_1.summary.tsv", "stats.json"):
+            assert (outs["cpu"] / f).read_bytes() == \
+                (outs["cuda"] / f).read_bytes(), f

@@ -203,16 +203,22 @@ def test_writers_and_stats_equal(tmp_path):
                                          tax) == \
             ref_writers.format_assignment(
                 ref_writers.AssignmentRecord(*args), ref_tax)
-    writers.write_summary(str(tmp_path / "a.tsv"), taxa, tax)
+    # The port writes its summaries from per-taxon counts; the reference's
+    # general path from the taxa themselves.
+    direct = np.bincount(taxa, minlength=tax.num_taxa + 1)
+    writers.write_summary_counts(str(tmp_path / "a.tsv"), direct, tax)
     ref_writers.write_summary(str(tmp_path / "b.tsv"), taxa, ref_tax)
     samples = {"s2": taxa[:80], "s1": taxa[80:]}
-    writers.write_cohort_summary(str(tmp_path / "c.tsv"), samples, tax)
+    writers.write_cohort_summary_counts(
+        str(tmp_path / "c.tsv"),
+        {n: np.bincount(t, minlength=tax.num_taxa + 1)
+         for n, t in samples.items()}, tax)
     ref_writers.write_cohort_summary(str(tmp_path / "d.tsv"), samples,
                                      ref_tax)
     for a, b in (("a", "b"), ("c", "d")):
         assert (tmp_path / f"{a}.tsv").read_bytes() == \
             (tmp_path / f"{b}.tsv").read_bytes()
-    for g, w in zip(writers.summarize(taxa, tax),
+    for g, w in zip(writers.summarize_counts(direct, tax),
                     ref_writers.summarize(taxa, ref_tax)):
         _same(g, w)
     for counts in (np.bincount(taxa)[1:], np.array([1, 1, 2, 5, 0, 12, 1]),

@@ -5,7 +5,9 @@ of the reference's host code it needs. No source of ``pangea_tpu_torch``
 and not ``chip_smoke.py`` imports ``jax`` or any ``pangea_tpu`` module;
 with both blocked, every port module and ``chip_smoke.py`` load and a tiny
 world built by the port alone classifies on the CPU, against each index and
-through the multi-k step over both, equal to the reference's golden model.
+through the multi-k step over both, and through run_classify_basic's fast path
+(the port's native reader) and long-read path, equal to the reference's
+golden model.
 """
 import ast
 import json
@@ -14,7 +16,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-from pangea_tpu.golden import classify_reads_golden, merge_multik_golden
+from pangea_tpu.golden import (classify_read_golden, classify_reads_golden,
+                               merge_multik_golden)
 from pangea_tpu.index import build_index
 from pangea_tpu.utils import datagen
 
@@ -84,6 +87,33 @@ for k, w in json.loads(sys.argv[1]):
 res = MultiKClassifier(dis)(*batch)
 out.append({"layout": "multi-k",
             **{key: v.tolist() for key, v in res.items()}})
+# run_classify_basic: the pairs on the fast path against the q8 index,
+# and a 1 kb genome slice on the long-read path.
+import os
+import tempfile
+from pangea_tpu_torch.config import load_config
+from pangea_tpu_torch.pipeline import run_classify_basic
+d = tempfile.mkdtemp()
+build_index(genomes, tax, k=21, w=8).save(os.path.join(d, "idx"))
+datagen.write_fastq(os.path.join(d, "r_1.fq"), rs, mate=1)
+datagen.write_fastq(os.path.join(d, "r_2.fq"), rs, mate=2)
+long = datagen.ReadSet(ids=["long0"], seqs=[genomes[0][0][:1000]],
+                       mates=None, truth=rs.truth[:1])
+datagen.write_fastq(os.path.join(d, "long.fq"), long, mate=1)
+for name, reads, extra in (
+        ("fast", ["r_1.fq", "r_2.fq"], []),
+        ("long", ["long.fq"], ["input.long_reads=true"])):
+    cfg = load_config(None, ["input.batch_size=16", "input.max_read_len=100",
+                             *extra])
+    cfg.classify.index = [os.path.join(d, "idx")]
+    cfg.input.reads = [os.path.join(d, reads[0])]
+    cfg.input.mates = [os.path.join(d, r) for r in reads[1:]]
+    cfg.input.samples = ["s"]
+    cfg.classify.out_dir = os.path.join(d, name)
+    res = run_classify_basic(cfg, torch.device("cpu"))
+    lines = open(os.path.join(d, name, "s.assign.tsv")).read().splitlines()
+    out.append({"layout": name, "fast_path": res["fast_path"],
+                "taxon": [int(x.split("\t")[2]) for x in lines]})
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
 assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
 print("NOJAX " + json.dumps(out))
@@ -103,7 +133,9 @@ def test_port_imports_and_classifies_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [s for s in proc.stdout.splitlines() if s.startswith("NOJAX ")]
     got = json.loads(line[-1][len("NOJAX "):])
-    assert [g["layout"] for g in got] == ["q8", "std", "multi-k"]
+    assert [g["layout"] for g in got] == ["q8", "std", "multi-k", "fast",
+                                          "long"]
+    assert got[3]["fast_path"] is True and got[4]["fast_path"] is False
     tax = datagen.make_taxonomy(seed=1)
     genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
     rs = datagen.sample_reads(genomes, 40, read_len=100, paired=True, seed=3)
@@ -115,3 +147,7 @@ def test_port_imports_and_classifies_without_jax():
         for key in ("taxon", "best", "nvalid"):
             assert g[key] == [getattr(x, key) for x in gold], (name, key)
         assert any(g["taxon"])
+    assert got[3]["taxon"] == [x.taxon for x in golds[0]]
+    long = classify_read_golden(genomes[0][0][:1000], build_index(
+        genomes, tax, k=21, w=8), 0.0)
+    assert got[4]["taxon"] == [long.taxon] != [0]
