@@ -14,9 +14,13 @@ genomes (a k=21, w=8 q8 index of 32,768 rows and a k=31, w=1 q12 index of
 2.56M k-mers in 131,072 rows of 512 B, 67.1 MB, merged on the card);
 phases 15-18 drive the CLI's two read paths on the std world: long reads
 in length buckets with the ranked pscore (K8), and the fast path's packed
-rows (K1's packed form). The CLI runs of phases 5, 9, 13 and 18 take the
-fast path (the native reader, built with g++ from the checkout), phase
-17's the general path:
+rows (K1's packed form); phases 19-23 drive the deep-table path (B15) on the
+reference bench's deep world (24 genomes of 700 kb, k=21, w=1: 14.0M
+k-mers), built by the port's own `build` CLI, whose q8 table of 524,288
+rows (268 MB, five times the L2) takes the sorted lookup: K9 sorts the
+probes by bucket, then the sorted form of K2 (or K4) probes them. The CLI
+runs of phases 5, 9, 13, 18 and 22 take the fast path (the native reader,
+built with g++ from the checkout), phase 17's the general path:
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -73,7 +77,26 @@ fast path (the native reader, built with g++ from the checkout), phase
      its lines against phase 16's, truncated_reads (reads past 16,384
      bases), reads/s and host time by phase;
  18. the CLI on that FASTQ on the fast path: every read past 150 bases cut
-     and counted, the 8,192 short reads' lines against phase 17's.
+     and counted, the 8,192 short reads' lines against phase 17's;
+ 19. the deep world built with `python -m pangea_tpu_torch.cli build` from
+     its FASTA and taxonomy TSV (the process starts after phase 2 and runs
+     beside phases 3-18), loaded, and laid out as q8 (its own layout), q12
+     (1,048,576 rows of 512 B) and std (4,194,304 packed rows of 256 B);
+ 20. K9 and the sorted forms against their plain versions, bit for bit: K9
+     is a permutation whose keys ascend as the plain sort's; the sorted q8
+     and q12 forms on the deep tables with the 2,129,920 probes of 16,384
+     reads, the std form with the 8,519,680 probes of 65,536 reads (and the
+     unsorted K2, K2-q12 and K4 on the same probes, timed in the same
+     call), K4's sorted form on the wide std world's table; K2-q12's sorted
+     form also on config 4's k=31 table (phase 11);
+ 21. the deep steps through the Classifier: q8 and q12 on 16,384 reads, std
+     on 65,536 (where the std gate engages): launch counts (K1, K9 and the
+     sorted form; no unsorted lookup), the outputs against the plain path
+     and the planted lineage, step times; then each with PANGEA_DEEP_SORT=0
+     (the unsorted lookup) in the same call;
+ 22. the CLI on the deep index (the fast path, one batch of 16,384
+     single-end reads): its launches, its lines against phase 21's;
+ 23. torch.profiler over back-to-back q8 deep steps.
 
 The plain paths are held to the JAX reference and its golden model by the
 CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
@@ -92,7 +115,10 @@ K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
 entries of the lineages its pairs (K7: its conflicting pairs) reach, beside
 their [B] inputs and outputs. K8's operations are the least a sort
 needs: R log2 R compares for each of the read's two sorts, and log2 R steps
-for each of a hit's two ranks.
+for each of a hit's two ranks. K9's bytes are its probes' lanes read once
+and its 16-byte records and inverse permutation written once, its
+operations a key a probe; a sorted form reads the records and the inverse
+in place of the probes' lanes and writes the outputs.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -108,6 +134,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 BATCH, READ_LEN = 16384, 150
@@ -126,7 +153,7 @@ CLI_PAIRS, CLI_BATCH = 24576, 8192
 WARMUP, REPS = 3, 20
 PLAIN_REPS = 5           # samples of a plain version at the std shapes
 PIPELINED = 10           # back-to-back calls a timing sample
-PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20}
+PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20, "deep": 20}
 MAX_OFF_LINEAGE = 0.001  # share of reads assigned off their truth's lineage
 # K8's checks: (probes a read, reads): a read just past K3's 2,048, one
 # read and one pair of the 16,384-base bucket (75 reads a launch).
@@ -137,6 +164,11 @@ RANKED_SHAPES = ((2049, 512), (16364, 75), (32728, 75))
 LONG_SHORT, LONG_READS, LONG_MIN, LONG_MAX, LONG_SEED = (8192, 2048, 1_000,
                                                          20_000, 16)
 MAX_LONG = 16384
+# The deep world (bench.deep_genomes, bench.deep_reads): its q8 and q12
+# steps take DEEP_READS single-end reads, its std step DEEP_STD_READS, where
+# the std gate engages (a chunk of 32,768).
+DEEP_GENOME_LEN, DEEP_K = 700_000, 21
+DEEP_READS, DEEP_STD_READS = 16384, 65536
 THRESHOLDS = (0.0, 0.05)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -162,6 +194,14 @@ KERNELS = {
                      "src/pangea_tpu/kernels/score.py:71"),
     "extract_packed": ("src/pangea_tpu_torch/csrc/extract_probes.cu",
                        "src/pangea_tpu/kernels/encode.py:129"),
+    "bucket_sort": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
+                    "src/pangea_tpu/kernels/lookup.py:300"),
+    "lookup_q8_sorted": ("src/pangea_tpu_torch/csrc/lookup_q8.cu",
+                         "src/pangea_tpu/kernels/lookup.py:354"),
+    "lookup_q12_sorted": ("src/pangea_tpu_torch/csrc/lookup_q8.cu",
+                          "src/pangea_tpu/kernels/lookup.py:354"),
+    "lookup_std_sorted": ("src/pangea_tpu_torch/csrc/lookup_std.cu",
+                          "src/pangea_tpu/kernels/lookup.py:389"),
 }
 # The int32 extreme cases of tests/test_hardening.py:28-38: (taxon, best,
 # nvalid) of the two calls, products beyond int32.
@@ -344,18 +384,19 @@ def make_multik(torch, cuda, n_reads: int) -> dict:
 
 
 def probes(torch, world, k: int, w: int, fn=None):
-    """The probes (hi, lo, valid) [B, R] of a world's batch, both mates, by
-    K1 or by ``fn`` (its plain version)."""
+    """The probes (hi, lo, valid) [B, R] of a world's batch, both mates (or
+    b1 alone where b2 is None), by K1 or by ``fn`` (its plain version)."""
     from pangea_tpu_torch.kernels import extract_probes
     from pangea_tpu_torch.kernels.minimize import probe_width
     nw = probe_width(READ_LEN, k, w)
-    b1 = world["b1"]
-    shape = (b1.shape[0], 2 * nw)
-    out = (torch.empty(shape, dtype=torch.int32, device=b1.device),
-           torch.empty(shape, dtype=torch.int32, device=b1.device),
-           torch.empty(shape, dtype=torch.bool, device=b1.device))
-    (fn or extract_probes)(b1, k, w, out, 0)
-    (fn or extract_probes)(world["b2"], k, w, out, nw)
+    mates = [b for b in (world["b1"], world["b2"]) if b is not None]
+    shape = (mates[0].shape[0], len(mates) * nw)
+    dev = mates[0].device
+    out = (torch.empty(shape, dtype=torch.int32, device=dev),
+           torch.empty(shape, dtype=torch.int32, device=dev),
+           torch.empty(shape, dtype=torch.bool, device=dev))
+    for m, b in enumerate(mates):
+        (fn or extract_probes)(b, k, w, out, m * nw)
     return out
 
 
@@ -520,7 +561,7 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
 
 
 def run_cli(world, tag: str, reads: list, mates: list | None = None,
-            extra=()) -> tuple[dict, list]:
+            extra=(), batch: int = CLI_BATCH) -> tuple[dict, list]:
     """`python -m pangea_tpu_torch.cli classify` on the world's config
     file and indexes (written by the port's Index.save, once a world);
     returns the run's result line and its assignment lines, split."""
@@ -538,7 +579,7 @@ def run_cli(world, tag: str, reads: list, mates: list | None = None,
            "--index", *world["idx_dirs"], "--reads", *reads,
            *(["--mates", *mates] if mates else []), "--samples", "smoke",
            "--out", str(out_dir), "--device", "cuda",
-           f"input.batch_size={CLI_BATCH}", *extra]
+           f"input.batch_size={batch}", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -614,8 +655,9 @@ def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
             us = e.self_cuda_time_total
         kernels[e.key] = (us / 1e3 / steps, e.count, us / 1e3 / e.count)
     busy = sum(ms for ms, _, _ in kernels.values())
+    what = f"{b1.shape[0]} {'reads' if b2 is None else 'pairs'}"
     log(f"[{tag}] torch.profiler, {steps} back-to-back {world['name']} "
-        f"steps of {BATCH} pairs on {card}: wall {wall_ms / steps} ms a "
+        f"steps of {what} on {card}: wall {wall_ms / steps} ms a "
         f"step, device busy {busy} ms a step "
         f"({100 * busy * steps / wall_ms} %)")
     for name, (ms, n, per) in sorted(kernels.items(),
@@ -800,7 +842,7 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import extract_pairs, relayout_q12
     from pangea_tpu_torch.index.quot import Q12_WAYS, q12_layout
     from pangea_tpu_torch.kernels import (fuse_stash, lookup_q12,
-                                          lookup_q12_plain)
+                                          lookup_q12_plain, lookup_q12_sorted)
     from pangea_tpu_torch.kernels.lookup import (_q8_split, _q12_geometry,
                                                  narrow, widen)
     from pangea_tpu_torch.utils import datagen
@@ -874,6 +916,10 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
                         (*h21, f21, s21), k21, W)
     log(f"[11] lookup_q12 at k={k21}: {tuple(f21.shape)}, r={r21}, "
         f"{h21[0].numel()} probes, hits {int((want21[0] != 0).sum())}")
+    # K9 and K2-q12's sorted form on the same probes (r >= 32), called
+    # directly: the table has 131,072 rows, at the deep-table gate.
+    res.check("lookup_q12_sorted", "11 full width (r >= 32)", want,
+              lookup_q12_sorted(*flat, fused, stash, k31, W))
     log2nb = _q12_geometry(fused, k31, W)
     bucket, _ = _q8_split(widen(flat[0]), widen(flat[1]), k31, log2nb)
     need = touched_bytes(torch, bucket, flat[2], want[0] != 0, flat[0],
@@ -941,7 +987,7 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
              lambda: merge_multik_plain(*calls, di21.tax),
              nbytes=B * 36 + need,
              ops=B * 20 + int(conflict.sum()) * levels * 8)
-    res.assert_clean(("lookup_q12", "merge_multik"))
+    res.assert_clean(("lookup_q12", "lookup_q12_sorted", "merge_multik"))
 
 
 def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
@@ -1184,6 +1230,298 @@ def phase_fast_long_cli(wide, mix, rows17: list, long_fastq: str) -> dict:
     return launches
 
 
+def start_deep_build() -> dict:
+    """Phase 19's build, started before phase 3 so that it runs beside the
+    earlier phases on a spare host core: the deep world's genomes as FASTA
+    and its taxonomy as TSV, then `python -m pangea_tpu_torch.cli build` in
+    a subprocess (k=21, w=1, 16 ways: the reference bench's deep index)."""
+    from pangea_tpu_torch.bench import deep_genomes
+    from pangea_tpu_torch.utils import datagen
+    work = ROOT / "build" / "chip_smoke" / "deep"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.time()
+    tax, genomes = deep_genomes(DEEP_GENOME_LEN)
+    datagen.write_fasta(str(work / "refs.fasta"), genomes, tax)
+    datagen.write_taxonomy_tsv(str(work / "taxonomy.tsv"), tax)
+    cmd = [sys.executable, "-m", "pangea_tpu_torch.cli", "build",
+           "--refs", str(work / "refs.fasta"),
+           "--taxonomy", str(work / "taxonomy.tsv"), "--k", str(DEEP_K),
+           "--out", str(work / "idx")]
+    log(f"[19] deep world: {len(genomes)} genomes of {DEEP_GENOME_LEN} "
+        f"bases and {tax.num_taxa} taxa written in {time.time() - t0:.1f} "
+        f"s; started {' '.join(cmd[1:])}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    return {"name": "deep", "tax": tax, "genomes": genomes, "dir": work,
+            "proc": proc, "t0": time.time(),
+            "config": "config2_16s_paired.json"}
+
+
+def phase_deep_build(torch, cuda, deep: dict) -> None:
+    """Phase 19: wait for the build, load the index, lay it out as q8 (what
+    pick_layout gives it), q12 and std on the card, and make the reads."""
+    import resource
+
+    from pangea_tpu_torch.bench import deep_reads
+    from pangea_tpu_torch.classify import Classifier, DeviceIndex, pad_batch
+    from pangea_tpu_torch.index import load_index_any
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    _, err = deep["proc"].communicate(timeout=900)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    if deep["proc"].returncode != 0:
+        raise AssertionError(f"the build returned {deep['proc'].returncode}"
+                             f":\n{err[-4000:]}")
+    cpu = (cpu1.ru_utime - cpu0.ru_utime) + (cpu1.ru_stime - cpu0.ru_stime)
+    log(f"[19] the build process: {err.strip().splitlines()[-1]} (its own "
+        f"clock); {cpu:.1f} s of CPU; done {time.time() - deep['t0']:.1f} s "
+        "after it started, beside phases 3-18")
+    idx_dir = str(deep["dir"] / "idx")
+    idx = load_index_any(idx_dir)
+    deep.update(idx=idx, idx_dirs=[idx_dir], dis={}, models={},
+                launches={})
+    log(f"[19] loaded {idx!r}: {idx.meta.n_kmers} k-mers, "
+        f"{idx.meta.n_buckets} std rows of {idx.meta.ways} ways")
+    for layout in ("q8", "q12", "std"):
+        t0 = time.time()
+        di = DeviceIndex.from_index(idx, cuda, 0.0,
+                                    layout=None if layout == "q8" else layout)
+        if di.cfg.layout != layout:
+            raise AssertionError(f"layout {di.cfg.layout}, want {layout}")
+        deep["dis"][layout] = di
+        deep["models"][layout] = Classifier(di)
+        log(f"[19] deep {layout} table {tuple(di.fused.shape)} "
+            f"({di.fused.numel() * 4} B), stash {di.stash.shape[1]}, laid "
+            f"out and placed in {time.time() - t0:.1f} s")
+    deep["tax"] = deep["dis"]["q8"].tax
+    reads = deep_reads(deep["genomes"], DEEP_STD_READS, READ_LEN)
+    deep["reads"] = reads
+    deep["b64"] = torch.from_numpy(pad_batch(reads.seqs, DEEP_STD_READS,
+                                             READ_LEN)).to(cuda)
+    deep["b16"] = deep["b64"][:DEEP_READS]
+
+
+def check_sort(torch, res: Results, what: str, flat, nb: int, k):
+    """K9 against its plain version (a stable torch.sort of the keys): a
+    permutation whose probes' keys ascend as the plain order's, each record
+    with its probe's lanes, and its inverse. Returns (K9's output, the
+    plain one)."""
+    from pangea_tpu_torch.kernels import bucket_sort, bucket_sort_plain
+    from pangea_tpu_torch.kernels.lookup import bucket_keys
+    order = bucket_sort(*flat, nb, k)
+    want = bucket_sort_plain(*flat, nb, k)
+    records, inv = order
+    perm = records[:, 0].long()
+    n = flat[0].numel()
+    every = torch.arange(n, device=perm.device)
+    if not torch.equal(torch.sort(perm).values, every):
+        raise AssertionError(f"[{what}] K9's output is not a permutation")
+    keys = bucket_keys(*flat, nb, k)
+    res.check("bucket_sort", what,
+              [keys[want[0][:, 0].long()], *(x[perm] for x in flat), every],
+              [keys[perm], *records[:, 1:].unbind(1), inv[perm]])
+    return order, want
+
+
+def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
+    """Phase 20: K9 and the sorted forms against their plain versions at
+    the deep steps' shapes, and timed against the unsorted kernels on the
+    same probes."""
+    from pangea_tpu_torch.index.quot import Q12_WAYS
+    from pangea_tpu_torch.kernels import (bucket_sort, bucket_sort_plain,
+                                          hash32, lookup_q8, lookup_q8_plain,
+                                          lookup_q8_sorted,
+                                          lookup_q8_sorted_plain, lookup_q12,
+                                          lookup_q12_plain, lookup_q12_sorted,
+                                          lookup_q12_sorted_plain, lookup_std,
+                                          lookup_std_plain, lookup_std_sorted,
+                                          lookup_std_sorted_plain)
+    from pangea_tpu_torch.kernels.lookup import _q8_split, key_shift, widen
+    k = DEEP_K
+    flat16, flat64 = ([t.reshape(-1) for t in probes(
+        torch, {"b1": deep[b], "b2": None}, k, 1)] for b in ("b16", "b64"))
+    forms = {  # layout: (sorted, its plain, unsorted, plain, args, probes)
+        "q8": (lookup_q8_sorted, lookup_q8_sorted_plain, lookup_q8,
+               lookup_q8_plain, (k,), flat16),
+        "q12": (lookup_q12_sorted, lookup_q12_sorted_plain, lookup_q12,
+                lookup_q12_plain, (k, Q12_WAYS), flat16),
+        "std": (lookup_std_sorted, lookup_std_sorted_plain, lookup_std,
+                lookup_std_plain, (deep["dis"]["std"].cfg.ways,), flat64)}
+    for layout, (srt, srt_plain, unsorted, plain, args, flat) in \
+            forms.items():
+        di = deep["dis"][layout]
+        tab = (di.fused, di.stash, *args)
+        nb, lanes = di.fused.shape
+        N = flat[0].numel()
+        qk = None if layout == "std" else k
+        what = f"20 deep {layout}"
+        order, order_plain = check_sort(torch, res, what, flat, nb, qk)
+        want = plain(*flat, *tab)
+        name = f"lookup_{layout}_sorted"
+        res.check(name, what, want, srt(*flat, *tab))
+        res.check(f"lookup_{layout}", what, want, unsorted(*flat, *tab))
+        hit = want[0] != 0
+        if layout == "std":
+            W = args[0]
+            bucket = hash32(flat[0], flat[1]) & (nb - 1)
+            need = touched_bytes(torch, bucket, flat[2], hit, flat[0],
+                                 flat[1], 2 * W, 2, di.stash)
+            ops = N * (4 * W + 16)
+        else:
+            W = args[1] if layout == "q12" else lanes // 2
+            bucket, _ = _q8_split(widen(flat[0]), widen(flat[1]), k,
+                                  nb.bit_length() - 1)
+            need = touched_bytes(torch, bucket, flat[2], hit, flat[0],
+                                 flat[1], (2 if layout == "q12" else 1) * W,
+                                 1, di.stash)
+            ops = N * ((3 if layout == "q12" else 2) * W + 10)
+        rows = int(torch.unique(bucket[flat[2]]).numel())
+        log(f"[20] deep {layout}: {N} probes on {tuple(di.fused.shape)} "
+            f"({di.fused.numel() * 4} B), {int(hit.sum())} hits, {rows} rows "
+            f"reached; K9 key shift {key_shift(nb)}; touches {need} B")
+        res.time(torch, name, what,
+                 lambda: srt(*flat, *tab, order=order),
+                 lambda: srt_plain(*flat, *tab, order=order_plain),
+                 nbytes=N * 32 + need, ops=ops, plain_calls=1,
+                 plain_reps=PLAIN_REPS)
+        sort_args = (*flat, nb, qk)
+        if layout == "q8":
+            res.time(torch, "bucket_sort", what,
+                     lambda: bucket_sort(*sort_args),
+                     lambda: bucket_sort_plain(*sort_args),
+                     nbytes=N * 29 + 8 * (nb >> key_shift(nb)),
+                     ops=N * 16, plain_calls=1, plain_reps=PLAIN_REPS)
+            k9_ms = res.k["bucket_sort"]["ms"]
+        else:
+            k9_ms = time_ms(torch, lambda: bucket_sort(*sort_args),
+                            PIPELINED)
+        unsorted_ms = time_ms(torch, lambda: unsorted(*flat, *tab),
+                              PIPELINED)
+        both_ms = time_ms(torch, lambda: srt(*flat, *tab), PIPELINED)
+        log(f"[20] deep {layout}, {N} probes, on {card}: unsorted "
+            f"{unsorted_ms} ms; K9 {k9_ms} ms + sorted form "
+            f"{res.k[name]['ms']} ms; K9 and the sorted form in one call "
+            f"{both_ms} ms ({unsorted_ms / both_ms} x the unsorted speed)")
+
+    # K4's sorted form on the wide std world's table (wide rows): the
+    # phase-7 probes, 16384 pairs x 260.
+    wdi = wide["di"]
+    wflat = [t.reshape(-1) for t in probes(torch, wide, WIDE["k"],
+                                           WIDE["w"])]
+    wtab = (wdi.fused, wdi.stash, wdi.cfg.ways)
+    check_sort(torch, res, "20 wide std", wflat, wdi.fused.shape[0], None)
+    res.check("lookup_std_sorted", "20 wide std", lookup_std_plain(
+        *wflat, *wtab), lookup_std_sorted(*wflat, *wtab))
+    unsorted_ms, both_ms = (time_ms(torch, lambda fn=fn: fn(*wflat, *wtab),
+                                    PIPELINED)
+                            for fn in (lookup_std, lookup_std_sorted))
+    log(f"[20] wide std table {tuple(wdi.fused.shape)}, "
+        f"{wflat[0].numel()} probes, on {card}: unsorted K4 {unsorted_ms} "
+        f"ms, K9 and the sorted form {both_ms} ms")
+    res.assert_clean(("bucket_sort", "lookup_q8_sorted", "lookup_q12_sorted",
+                      "lookup_std_sorted", "lookup_q8", "lookup_q12",
+                      "lookup_std"))
+
+
+def phase_deep_steps(torch, deep, card: str) -> dict:
+    """Phase 21: the q8, q12 and std deep steps through the Classifier:
+    launches, the plain path, the planted lineage and step times; then the
+    same steps on the unsorted lookup. Returns the q8 step's outputs."""
+    from pangea_tpu_torch.classify import classify_reads
+    from pangea_tpu_torch.kernels import (kernel_launches,
+                                          reset_kernel_launches)
+    none = dict.fromkeys(KERNELS, 0)
+    tin, tout = (deep["tax"][n].cpu().long() for n in ("tin", "tout"))
+    truth_all = torch.from_numpy(deep["reads"].truth).long()
+    outs = {}
+    for layout, n in (("q8", DEEP_READS), ("q12", DEEP_READS),
+                      ("std", DEEP_STD_READS)):
+        model = deep["models"][layout]
+        b = deep["b64"][:n]
+        score = "score_taxon" if layout == "std" else "score_tin"
+        reset_kernel_launches()
+        out = model(b)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        want = {**none, "extract_probes": 1, "bucket_sort": 1,
+                f"lookup_{layout}_sorted": 1, score: 1}
+        log(f"[21] kernel launches in one deep {layout} step: {launches}")
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+        deep["launches"][layout] = launches
+        out = {key: v.cpu() for key, v in out.items()}
+        plain = classify_reads(model.index.tables, b, model.cfg, plain=True)
+        mism, _ = compare([plain[key].cpu() for key in out],
+                          list(out.values()))
+        taxon = out["taxon"].long()
+        truth = truth_all[:n]
+        classified = taxon != 0
+        off = int((classified & ~((tin[taxon] <= tin[truth])
+                                  & (tin[truth] < tout[taxon]))).sum())
+        log(f"[21] deep {layout} step on {n} reads: mismatches against the "
+            f"plain path {mism}; {int(classified.sum())} classified, {off} "
+            f"off their truth's lineage ({off / n} of the reads; limit "
+            f"{MAX_OFF_LINEAGE})")
+        if mism or off > MAX_OFF_LINEAGE * n or not classified.any():
+            raise AssertionError(f"the deep {layout} step disagrees with its "
+                                 "references")
+        for calls, what in ((1, "one step"), (PIPELINED,
+                                              "back-to-back steps")):
+            ms = time_ms(torch, lambda: model(b), calls)
+            log(f"[21] deep {layout}, {what}, {n} reads, on {card}: sorted "
+                f"lookup {ms} ms ({n / ms * 1e3} reads/s)")
+        with mock.patch.dict(os.environ, {"PANGEA_DEEP_SORT": "0"}):
+            reset_kernel_launches()
+            unsorted = model(b)
+            torch.cuda.synchronize()
+            if kernel_launches() != {**none, "extract_probes": 1,
+                                     f"lookup_{layout}": 1, score: 1}:
+                raise AssertionError(f"PANGEA_DEEP_SORT=0 launches "
+                                     f"{kernel_launches()}")
+            mism, _ = compare([unsorted[key].cpu() for key in out],
+                              list(out.values()))
+            ms = time_ms(torch, lambda: model(b), PIPELINED)
+        log(f"[21] deep {layout} with PANGEA_DEEP_SORT=0, back-to-back "
+            f"steps, {n} reads, on {card}: unsorted lookup {ms} ms "
+            f"({n / ms * 1e3} reads/s); mismatches against the sorted step "
+            f"{mism}")
+        if mism:
+            raise AssertionError("the unsorted deep step disagrees")
+        outs[layout] = out
+    return outs["q8"]
+
+
+def phase_deep_cli(deep, out: dict) -> dict:
+    """Phase 22: the CLI on the deep index (the port-built directory), one
+    batch of the 16,384 reads on the fast path: K9 and the sorted form, no
+    unsorted K2; its lines against phase 21's q8 step."""
+    from pangea_tpu_torch.utils import datagen
+    reads = deep["reads"]
+    fastq = str(deep["dir"] / "deep.fastq")
+    datagen.write_fastq(fastq, datagen.ReadSet(
+        ids=reads.ids[:DEEP_READS], seqs=reads.seqs[:DEEP_READS], mates=None,
+        truth=reads.truth[:DEEP_READS]), mate=1)
+    result, rows = run_cli(deep, "22", [fastq], batch=DEEP_READS)
+    launches = result["kernel_launches"]
+    if not result["fast_path"] or result["truncated_reads"] \
+            or launches["extract_packed"] < 1 or launches["bucket_sort"] < 1 \
+            or launches["lookup_q8_sorted"] < 1 or launches["lookup_q8"] \
+            or launches["extract_probes"]:
+        raise AssertionError("the deep CLI did not take the fast path and "
+                             f"the sorted lookup: {json.dumps(result)}")
+    bad = sum((r[1], int(r[2]), r[5]) != (
+        rid, int(out["taxon"][i]),
+        f"{int(out['best'][i])}/{int(out['nvalid'][i])}")
+        for i, (r, rid) in enumerate(zip(rows, reads.ids)))
+    log(f"[22] {len(rows)} lines; vs phase 21's q8 step: mismatches {bad}; "
+        f"{result['reads_per_sec']} reads/s")
+    if len(rows) != DEEP_READS or bad:
+        raise AssertionError("the deep CLI's assignments are wrong")
+    return launches
+
+
 def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
@@ -1211,6 +1549,16 @@ def main() -> int:
     t_start = time.time()
     card = phase_device(torch)
     phase_build()
+    deep = start_deep_build()
+    try:
+        return run_phases(torch, cuda, card, deep, t_start)
+    finally:
+        if deep["proc"].poll() is None:
+            deep["proc"].kill()
+            deep["proc"].wait()
+
+
+def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     res = Results()
     none = dict.fromkeys(KERNELS, 0)
 
@@ -1267,9 +1615,22 @@ def main() -> int:
     long_cli, rows17 = phase_long_cli(wide, mix, outs, long_fastq)
     fast_long_cli = phase_fast_long_cli(wide, mix, rows17, long_fastq)
 
-    # The main paths' launches: each CLI run's own counts.
+    # Phases 19-23: the deep-table path on the deep world.
+    phase_deep_build(torch, cuda, deep)
+    phase_deep_kernels(torch, deep, wide, res, card)
+    del wide
+    out = phase_deep_steps(torch, deep, card)
+    deep_cli = phase_deep_cli(deep, out)
+    phase_profile(torch, {"name": "deep q8", "model": deep["models"]["q8"],
+                          "b1": deep["b16"], "b2": None}, card, "23",
+                  PROFILE_STEPS["deep"])
+
+    # The main paths' launches: each CLI run's own counts, and the q12 and
+    # std deep steps' (phase 21).
     clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
-            "long": long_cli, "fast_long": fast_long_cli}
+            "long": long_cli, "fast_long": fast_long_cli, "deep": deep_cli,
+            "deep_q12_step": deep["launches"]["q12"],
+            "deep_std_step": deep["launches"]["std"]}
     for path, kernels in (
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
@@ -1279,13 +1640,19 @@ def main() -> int:
             ("long", ("extract_probes", "lookup_std", "score_taxon",
                       "score_ranked", "lca_lift")),
             ("fast_long", ("extract_packed", "lookup_std", "score_taxon",
-                           "lca_lift"))):
+                           "lca_lift")),
+            ("deep", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
+                      "score_tin")),
+            ("deep_q12_step", ("extract_probes", "bucket_sort",
+                               "lookup_q12_sorted", "score_tin")),
+            ("deep_std_step", ("extract_probes", "bucket_sort",
+                               "lookup_std_sorted", "score_taxon"))):
         if min(clis[path][k] for k in kernels) < 1:
-            raise AssertionError(f"the {path} CLI bypassed a kernel: "
+            raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[19] kernel launches of the five CLI runs: {json.dumps(clis)}; "
-        f"whole run {time.time() - t_start:.1f} s")
+    log(f"[24] kernel launches of the six CLI runs and the two deep steps: "
+        f"{json.dumps(clis)}; whole run {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],

@@ -25,6 +25,13 @@ a world's short reads, for the long-read path.
 k=21, w=8 and k=31, w=1 by default. At that size the k=31, w=1 index has
 2,559,507 k-mers, past the 2,097,152 that a std table in the reference's
 fast regime holds, so ``pick_layout`` gives it q12; the k=21 index is q8.
+
+``make_deep_world`` is the reference bench's deep cell
+(``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
+genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
+reads (seed 33) and a k=21, w=1 index at 16 ways: 13,999,769 k-mers, whose
+q8 table has 524,288 rows, past the deep-table gate. ``deep_genomes`` and
+``deep_reads`` give its genomes and reads without the index.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from .utils import datagen
 class BenchWorld:
     taxonomy: Taxonomy
     index: Index
-    reads: datagen.ReadSet        # paired: reads.mates holds mate 2
+    reads: datagen.ReadSet        # paired worlds: reads.mates holds mate 2
     genomes: list                 # (codes uint8, species taxon) a genome
 
 
@@ -128,3 +135,27 @@ def write_fastq_pair(reads: datagen.ReadSet, path1: str, path2: str) -> None:
     """Mate 1 and mate 2 of a paired read set as two FASTQ files."""
     datagen.write_fastq(path1, reads, mate=1)
     datagen.write_fastq(path2, reads, mate=2)
+
+
+def deep_genomes(genome_len: int = 700_000):
+    """The deep cell's taxonomy and its first 24 genomes."""
+    tax = datagen.make_taxonomy(n_phyla=2, genera_per_phylum=8,
+                                species_per_genus=3, seed=31)
+    return tax, datagen.make_genomes(tax, genome_len=genome_len, seed=32)[:24]
+
+
+def deep_reads(genomes, n_reads: int, read_len: int = 150):
+    """The deep cell's single-end reads."""
+    return datagen.sample_reads(genomes, n_reads, read_len=read_len,
+                                paired=False, n_prob=0.005, seed=33)
+
+
+def make_deep_world(n_reads: int = 16_384, read_len: int = 150,
+                    genome_len: int = 700_000) -> BenchWorld:
+    """The deep cell (single-end reads) with its k=21, w=1 index at the
+    default 16 ways, as the reference bench builds it (and as ``pangea-tpu
+    build --k 21`` does)."""
+    tax, genomes = deep_genomes(genome_len)
+    idx = build_index(genomes, tax, k=21, w=1)
+    return BenchWorld(tax, idx, deep_reads(genomes, n_reads, read_len),
+                      genomes)

@@ -8,7 +8,10 @@ at the probe level, mate 1 first (SEMANTICS.md §8), and ``nvalid`` counts
 the valid windows over both mates. On CUDA tensors the step is K1 (or its
 packed form) once a mate, then K2 (q8), K2's q12 form (q12) or K4 (std),
 then K3 (K8 past 2,048 probes a read), plus K5 when the taxonomy has more
-than 4,096 entries; on CPU tensors it is their plain versions.
+than 4,096 entries; on CPU tensors it is their plain versions. A table past
+the reference's deep-table gate (``kernels.lookup.takes_sorted``, with N =
+B * R probes of the step) takes the sorted lookup instead: K9 sorts the
+probes by bucket, then the sorted form of K2 or K4 probes them.
 
 The multi-k step (the one-device counterpart of ``pangea_tpu/dist/mesh.py``
 ``make_multik_sharded_classify_fn``) classifies the same batch against
@@ -28,8 +31,12 @@ from torch import nn
 from ..index import pick_layout, relayout_q8, relayout_q12, relayout_std
 from ..index.quot import Q8_WAYS, Q12_WAYS
 from ..kernels.lookup import (fuse_stash, fuse_table, lookup_q8,
-                              lookup_q8_plain, lookup_q12, lookup_q12_plain,
-                              lookup_std, lookup_std_plain)
+                              lookup_q8_plain, lookup_q8_sorted,
+                              lookup_q8_sorted_plain, lookup_q12,
+                              lookup_q12_plain, lookup_q12_sorted,
+                              lookup_q12_sorted_plain, lookup_std,
+                              lookup_std_plain, lookup_std_sorted,
+                              lookup_std_sorted_plain, takes_sorted)
 from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
@@ -38,6 +45,13 @@ from .merge import merge_multik, merge_multik_plain
 
 # The taxonomy arrays the scorer reads (Taxonomy.device_arrays).
 TAX_KEYS = ("tin", "tout", "depth", "parent", "up", "tin2node")
+# (layout, sorted) -> (kernel wrapper, plain version) of the table probe.
+LOOKUPS = {("q8", False): (lookup_q8, lookup_q8_plain),
+           ("q8", True): (lookup_q8_sorted, lookup_q8_sorted_plain),
+           ("q12", False): (lookup_q12, lookup_q12_plain),
+           ("q12", True): (lookup_q12_sorted, lookup_q12_sorted_plain),
+           ("std", False): (lookup_std, lookup_std_plain),
+           ("std", True): (lookup_std_sorted, lookup_std_sorted_plain)}
 
 
 @dataclass(frozen=True)
@@ -65,14 +79,16 @@ class DeviceIndex:
     cfg: ClassifyConfig
 
     @classmethod
-    def from_index(cls, index, device, confidence_threshold: float = 0.0
-                   ) -> "DeviceIndex":
+    def from_index(cls, index, device, confidence_threshold: float = 0.0,
+                   layout: str | None = None) -> "DeviceIndex":
         """Lay a host :class:`~pangea_tpu_torch.index.Index` out as the
         device table :func:`~pangea_tpu_torch.index.pick_layout` chooses
-        for it (q8, q12 or std) and place it on ``device``."""
+        for it (q8, q12 or std; ``layout`` requests one, as the reference's
+        ``layout=`` does) and place it on ``device``."""
         tax = index.taxonomy
         layout = pick_layout(index.meta.n_kmers, 1, index.meta.k,
-                             int(tax.tout.max(initial=0)))
+                             int(tax.tout.max(initial=0)),
+                             requested=layout or "auto")
         if layout in ("q8", "q12"):
             ways = Q8_WAYS if layout == "q8" else Q12_WAYS
             relayout = relayout_q8 if layout == "q8" else relayout_q12
@@ -158,21 +174,17 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
     kernels are held to). Returns dict(taxon, best, nvalid) int32 [B]."""
     hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
                                     packed_len)
-    if cfg.layout == "q8":
-        lookup = lookup_q8_plain if plain else lookup_q8
-        score = score_reads_tin_plain if plain else score_reads_tin
-        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
-                                    tables["stash"], cfg.k)
-    elif cfg.layout == "q12":
-        lookup = lookup_q12_plain if plain else lookup_q12
-        score = score_reads_tin_plain if plain else score_reads_tin
-        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
-                                    tables["stash"], cfg.k, cfg.ways)
-    else:
-        lookup = lookup_std_plain if plain else lookup_std
+    fused = tables["fused"]
+    kernel, plain_fn = LOOKUPS[cfg.layout, takes_sorted(cfg.layout,
+                                                         hi.numel(), fused)]
+    args = {"q8": (cfg.k,), "q12": (cfg.k, cfg.ways),
+            "std": (cfg.ways,)}[cfg.layout]
+    lanes, t_in, t_out = (plain_fn if plain else kernel)(
+        hi, lo, valid, fused, tables["stash"], *args)
+    if cfg.layout == "std":
         score = score_reads_taxon_plain if plain else score_reads_taxon
-        lanes, t_in, t_out = lookup(hi, lo, valid, tables["fused"],
-                                    tables["stash"], cfg.ways)
+    else:
+        score = score_reads_tin_plain if plain else score_reads_tin
     taxon, best, nvalid = score(lanes, t_in, t_out, valid, tables["tax"],
                                 cfg.confidence_threshold)
     return {"taxon": taxon, "best": best, "nvalid": nvalid}

@@ -55,6 +55,33 @@ __device__ __forceinline__ int lca_lift_pair(
   return (zu && zv) ? 0 : zu ? v : zv ? u : res;
 }
 
+// log2 of NB, or -1 when NB is not a power of two (NB up to 2^62).
+inline int log2_exact(long long NB) {
+  int log2nb = 0;
+  while (log2nb < 62 && (1ll << log2nb) < NB) ++log2nb;
+  return (1ll << log2nb) == NB ? log2nb : -1;
+}
+
+// The table probes (K2, K4): a group of kProbeLanes lanes owns one probe, so
+// a warp serves 32 / kProbeLanes probes at once, and the group's partial
+// sums reduce in log2(kProbeLanes) shuffles.
+constexpr int kProbeLanes = 8;
+constexpr int kProbesPerBlock = 32;   // 8 warps of 4 probes
+
+__device__ __forceinline__ uint32_t group_sum(uint32_t v) {
+  for (int off = kProbeLanes / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  }
+  return v;
+}
+
+// One probe as K9 (bucket_sort.cu) leaves it in sorted order: its index in
+// the unsorted arrays (where its outputs go), its lanes and its valid flag.
+struct __align__(16) SortedProbe {
+  int32_t index;
+  uint32_t hi, lo, valid;
+};
+
 // Blocks needed to cover n items at `per` items a block.
 inline unsigned int blocks_for(long long n, long long per) {
   return static_cast<unsigned int>((n + per - 1) / per);

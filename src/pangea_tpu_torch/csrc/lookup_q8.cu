@@ -6,18 +6,31 @@
 //   src/pangea_tpu/kernels/lookup.py:629  lookup_q12_jnp (B10)
 // (its three remainder branches :650-662 and the stash scan :683-690). The
 // reference gathers whole rows into device memory and compares them in a
-// second pass; here one warp owns one probe, reads its row once (each lane
-// reads the rem lanes j = lane, lane + 32, ... and, only on a match, the
-// payload lane) and reduces with shuffles, so no row copy reaches device
-// memory.
+// second pass; here a group of kProbeLanes (8) lanes owns one probe, reads
+// its row once (lane g reads the rem lanes j = g, g + 8, ... and, only on a
+// match, the payload lane) and reduces with shuffles, so no row copy
+// reaches device memory.
 //
-// What bounds it on an H100: one random 512 B row read a probe. The q8
-// bench table (8.4 MB) stays in the 50 MB L2, so q8 is bound by L2 row
-// fetches and warp issue; the config-4 q12 table (67.1 MB) does not, so
-// q12 pays an HBM sector read for its rem_lo lanes on most probes. The TPU
-// needed 32-bit limb arithmetic for the 62-bit mix; Hopper multiplies in 64
-// bits natively, so all three of the reference's q12 remainder branches are
-// the one split below.
+// The sorted form (kSorted; B15, the reference's _sorted_pk at
+// lookup.py:354 through _sorted_apply :300) takes K9's output
+// (bucket_sort.cu): the probes in bucket order. Group w probes the w-th
+// sorted probe and writes its outputs as the w-th 16-byte record of
+// sorted_out, which K9's restore puts back in the probes' order (the
+// reference's restoring sort, :349-350). The groups walk the table in
+// bucket order, so the probes of one row run close together in time and the
+// row comes from HBM about once; unsorted, a probe past the 50 MB L2 pays
+// one random HBM row read. A probe addresses the whole table, so no span
+// can overflow, and there is no fallback branch.
+//
+// What bounds it on an H100: one random 512 B row read a probe, and the
+// instructions around it. With one warp a probe it was bound by issue and
+// latency (about as slow on a table that stays in L2 as on one five times
+// the L2); a group of 8 lanes does the same work with a quarter of the
+// warps and 3-step reductions. The q8 bench table (8.4
+// MB) stays in the 50 MB L2; the config-4 q12 table (67.1 MB) and the deep
+// tables do not. The TPU needed 32-bit limb arithmetic for the 62-bit mix;
+// Hopper multiplies in 64 bits natively, so all three of the reference's
+// q12 remainder branches are the one split below.
 //
 // Rules: K = hi << 32 | lo, m = 2k, h = K * 0x9E3779B1 mod 2^m, r = m -
 // log2 NB (q8: [0, 31]; q12: [0, 62]), bucket = h >> r, rem = h & (2^r -
@@ -34,9 +47,7 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-
-template <bool kQ12>
+template <bool kQ12, bool kSorted>
 __global__ void lookup_quot_kernel(const uint32_t* __restrict__ hi,
                                    const uint32_t* __restrict__ lo,
                                    const uint8_t* __restrict__ valid,
@@ -44,17 +55,31 @@ __global__ void lookup_quot_kernel(const uint32_t* __restrict__ hi,
                                    const uint32_t* __restrict__ fused, int W,
                                    int row_lanes,
                                    const uint32_t* __restrict__ stash, int S,
-                                   int m, int r, int32_t* __restrict__ hit,
+                                   int m, int r,
+                                   const SortedProbe* __restrict__ order,
+                                   int4* __restrict__ sorted_out,
+                                   int32_t* __restrict__ hit,
                                    int32_t* __restrict__ t_in,
                                    int32_t* __restrict__ t_out) {
-  const int lane = threadIdx.x & 31;
-  long long q = blockIdx.x * static_cast<long long>(kWarpsPerBlock) +
-                (threadIdx.x >> 5);
-  if (q >= N) return;                 // whole warp leaves together
-  const bool ok = valid[q] != 0;
-  const uint32_t qhi = hi[q], qlo = lo[q];
-  uint32_t pk = 0, s_in = 0, s_out = 0;   // wrapping, as the reference
-  int s_hit = 0;
+  const int g = threadIdx.x % kProbeLanes;
+  const long long w = blockIdx.x * static_cast<long long>(kProbesPerBlock) +
+                      threadIdx.x / kProbeLanes;
+  const bool in = w < N;    // the warp stays whole for its shuffles
+  bool ok = false;
+  uint32_t qhi = 0, qlo = 0;
+  if (in) {
+    if (kSorted) {
+      const SortedProbe p = order[w];
+      ok = p.valid != 0;
+      qhi = p.hi;
+      qlo = p.lo;
+    } else {
+      ok = valid[w] != 0;
+      qhi = hi[w];
+      qlo = lo[w];
+    }
+  }
+  uint32_t pk = 0, s_in = 0, s_out = 0, s_hit = 0;   // wrapping sums
   if (ok) {
     const uint64_t K = (static_cast<uint64_t>(qhi) << 32) | qlo;
     const uint64_t h = (K * 0x9E3779B1ull) & ((1ull << m) - 1);
@@ -64,12 +89,12 @@ __global__ void lookup_quot_kernel(const uint32_t* __restrict__ hi,
     const uint32_t rem_hi = static_cast<uint32_t>(rem >> 32);
     const uint32_t* row = fused + bucket * static_cast<uint64_t>(row_lanes);
     const uint32_t* payload = row + (kQ12 ? 2 * W : W);
-    for (int j = lane; j < W; j += 32) {
+    for (int j = g; j < W; j += kProbeLanes) {
       if (row[j] == rem_lo && (!kQ12 || row[W + j] == rem_hi)) {
         pk += payload[j];
       }
     }
-    for (int s = lane; s < S; s += 32) {
+    for (int s = g; s < S; s += kProbeLanes) {
       if (stash[s] == qhi && stash[S + s] == qlo) {
         s_in += stash[3 * S + s];
         s_out += stash[4 * S + s];
@@ -77,59 +102,67 @@ __global__ void lookup_quot_kernel(const uint32_t* __restrict__ hi,
       }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    pk += __shfl_xor_sync(0xFFFFFFFFu, pk, off);
-    s_in += __shfl_xor_sync(0xFFFFFFFFu, s_in, off);
-    s_out += __shfl_xor_sync(0xFFFFFFFFu, s_out, off);
-    s_hit += __shfl_xor_sync(0xFFFFFFFFu, s_hit, off);
+  pk = group_sum(pk);
+  if (S > 0) {
+    s_in = group_sum(s_in);
+    s_out = group_sum(s_out);
+    s_hit = group_sum(s_hit);
   }
-  if (lane == 0) {
-    hit[q] = (pk != 0 ? 1 : 0) + s_hit;
-    t_in[q] = static_cast<int32_t>((pk >> 16) + s_in);
-    t_out[q] = static_cast<int32_t>((pk & 0xFFFFu) + s_out);
+  if (in && g == 0) {
+    const int32_t o0 = (pk != 0 ? 1 : 0) + static_cast<int32_t>(s_hit);
+    const auto o1 = static_cast<int32_t>((pk >> 16) + s_in);
+    const auto o2 = static_cast<int32_t>((pk & 0xFFFFu) + s_out);
+    if (kSorted) {
+      sorted_out[w] = make_int4(o0, o1, o2, 0);
+    } else {
+      hit[w] = o0;
+      t_in[w] = o1;
+      t_out[w] = o2;
+    }
   }
-}
-
-// log2 of NB, or -1 when NB is not a power of two.
-int log2_exact(long long NB) {
-  int log2nb = 0;
-  while ((1ll << log2nb) < NB) ++log2nb;
-  return (1ll << log2nb) == NB ? log2nb : -1;
 }
 
 template <bool kQ12>
 int launch(const void* hi, const void* lo, const void* valid, long long N,
            const void* fused, int W, int row_lanes, const void* stash, int S,
-           int m, int r, void* hit, void* t_in, void* t_out, void* stream) {
+           int m, int r, const void* order, void* sorted_out, void* hit,
+           void* t_in, void* t_out, void* stream) {
   if (N == 0) return 0;
-  lookup_quot_kernel<kQ12>
-      <<<blocks_for(N, kWarpsPerBlock), 32 * kWarpsPerBlock, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-          static_cast<const uint8_t*>(valid), N,
-          static_cast<const uint32_t*>(fused), W, row_lanes,
-          static_cast<const uint32_t*>(stash), S, m, r,
-          static_cast<int32_t*>(hit), static_cast<int32_t*>(t_in),
-          static_cast<int32_t*>(t_out));
+  const auto kernel = order != nullptr ? lookup_quot_kernel<kQ12, true>
+                                       : lookup_quot_kernel<kQ12, false>;
+  kernel<<<blocks_for(N, kProbesPerBlock), kProbesPerBlock * kProbeLanes, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+      static_cast<const uint8_t*>(valid), N,
+      static_cast<const uint32_t*>(fused), W, row_lanes,
+      static_cast<const uint32_t*>(stash), S, m, r,
+      static_cast<const SortedProbe*>(order), static_cast<int4*>(sorted_out),
+      static_cast<int32_t*>(hit), static_cast<int32_t*>(t_in),
+      static_cast<int32_t*>(t_out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // hi/lo int32 bit patterns and valid bytes [N]; fused [NB, 2W] and stash
-// [5, S] int32 bit patterns; hit/t_in/t_out int32 [N].
+// [5, S] int32 bit patterns; order: NULL, or K9's int32 [N, 4] sorted
+// probes (index, hi, lo, valid), which the sorted form takes in place of
+// hi/lo/valid, writing (hit, t_in, t_out, 0) a probe in sorted order to
+// sorted_out, int32 [N, 4], in place of hit/t_in/t_out, int32 [N].
 extern "C" int pangea_lookup_q8(const void* hi, const void* lo,
                                 const void* valid, long long N,
                                 const void* fused, long long NB, int W,
-                                const void* stash, int S, int k, void* hit,
-                                void* t_in, void* t_out, void* stream) {
+                                const void* stash, int S, int k,
+                                const void* order, void* sorted_out,
+                                void* hit, void* t_in, void* t_out,
+                                void* stream) {
   const int log2nb = log2_exact(NB);
   const int r = 2 * k - log2nb;
   if (log2nb < 0 || k < 1 || k > 31 || r < 0 || r > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<false>(hi, lo, valid, N, fused, W, 2 * W, stash, S, 2 * k, r,
-                       hit, t_in, t_out, stream);
+                       order, sorted_out, hit, t_in, t_out, stream);
 }
 
 // The q12 form: fused [NB, row_lanes] with row_lanes >= 3W.
@@ -137,7 +170,8 @@ extern "C" int pangea_lookup_q12(const void* hi, const void* lo,
                                  const void* valid, long long N,
                                  const void* fused, long long NB, int W,
                                  int row_lanes, const void* stash, int S,
-                                 int k, void* hit, void* t_in, void* t_out,
+                                 int k, const void* order, void* sorted_out,
+                                 void* hit, void* t_in, void* t_out,
                                  void* stream) {
   const int log2nb = log2_exact(NB);
   const int r = 2 * k - log2nb;
@@ -146,5 +180,5 @@ extern "C" int pangea_lookup_q12(const void* hi, const void* lo,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<true>(hi, lo, valid, N, fused, W, row_lanes, stash, S, 2 * k,
-                      r, hit, t_in, t_out, stream);
+                      r, order, sorted_out, hit, t_in, t_out, stream);
 }

@@ -2,9 +2,12 @@
 wrapper that launches a hand-written CUDA kernel on CUDA tensors."""
 from .encode import (extract_kmers, extract_kmers_packed, unpack_wire,
                      wire_width)
-from .lookup import (fuse_stash, fuse_table, hash32, lookup_q8,
-                     lookup_q8_plain, lookup_q12, lookup_q12_plain,
-                     lookup_std, lookup_std_plain, mix32)
+from .lookup import (bucket_sort, bucket_sort_plain, fuse_stash,
+                     fuse_table, hash32, lookup_q8, lookup_q8_plain,
+                     lookup_q8_sorted, lookup_q8_sorted_plain, lookup_q12,
+                     lookup_q12_plain, lookup_q12_sorted,
+                     lookup_q12_sorted_plain, lookup_std, lookup_std_plain,
+                     lookup_std_sorted, lookup_std_sorted_plain, mix32)
 from .minimize import (extract_probes, extract_probes_packed,
                        extract_probes_plain, select_minimizers)
 from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
@@ -22,7 +25,10 @@ KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "score_taxon": score_reads_taxon, "lca_lift": lca_lift,
            "lookup_q12": lookup_q12, "merge_multik": merge_multik,
            "score_ranked": score_ranked,
-           "extract_packed": extract_probes_packed}
+           "extract_packed": extract_probes_packed,
+           "bucket_sort": bucket_sort, "lookup_q8_sorted": lookup_q8_sorted,
+           "lookup_q12_sorted": lookup_q12_sorted,
+           "lookup_std_sorted": lookup_std_sorted}
 
 
 def kernel_launches() -> dict:
@@ -35,12 +41,15 @@ def reset_kernel_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "extract_kmers", "extract_kmers_packed",
-           "extract_probes", "extract_probes_packed",
+__all__ = ["KERNELS", "bucket_sort", "bucket_sort_plain", "extract_kmers",
+           "extract_kmers_packed", "extract_probes", "extract_probes_packed",
            "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
            "kernel_launches", "lca_lift", "lca_lift_plain",
-           "lca_pairs_plain", "lookup_q8", "lookup_q8_plain", "lookup_q12",
-           "lookup_q12_plain", "lookup_std", "lookup_std_plain", "mix32",
+           "lca_pairs_plain", "lookup_q8", "lookup_q8_plain",
+           "lookup_q8_sorted", "lookup_q8_sorted_plain", "lookup_q12",
+           "lookup_q12_plain", "lookup_q12_sorted", "lookup_q12_sorted_plain",
+           "lookup_std", "lookup_std_plain", "lookup_std_sorted",
+           "lookup_std_sorted_plain", "mix32",
            "pscore_ranked_plain", "reset_kernel_launches", "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",

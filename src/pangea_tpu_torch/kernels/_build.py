@@ -36,17 +36,25 @@ SIGNATURES = {
     # codes, B, L, k, w, hi, lo, valid, R, col0, packed, pitch, stream
     "pangea_extract_probes": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I64, _P),
-    # hi, lo, valid, N, fused, NB, W, stash, S, k, hit, t_in, t_out, stream
+    # hi, lo, valid, N, NB, k (0: the std bucket), key shift, counts, order,
+    # inv, stream
+    "pangea_bucket_sort": (_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P),
+    # inv, sorted_out, N, o0, o1, o2, stream
+    "pangea_bucket_restore": (_P, _P, _I64, _P, _P, _P, _P),
+    # The lookups take K9's order and a sorted_out (both NULL: unsorted)
+    # before their outputs.
+    # hi, lo, valid, N, fused, NB, W, stash, S, k, order, sorted_out, hit,
+    # t_in, t_out, stream
     "pangea_lookup_q8": (_P, _P, _P, _I64, _P, _I64, _I, _P, _I, _I,
-                         _P, _P, _P, _P),
-    # hi, lo, valid, N, fused, NB, W, row_lanes, stash, S, k, hit, t_in,
-    # t_out, stream
+                         _P, _P, _P, _P, _P, _P),
+    # hi, lo, valid, N, fused, NB, W, row_lanes, stash, S, k, order,
+    # sorted_out, hit, t_in, t_out, stream
     "pangea_lookup_q12": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
-                          _P, _P, _P, _P),
-    # hi, lo, valid, N, fused, NB, W, packed, stash, S, taxon, t_in, t_out,
-    # stream
+                          _P, _P, _P, _P, _P, _P),
+    # hi, lo, valid, N, fused, NB, W, packed, stash, S, order, sorted_out,
+    # taxon, t_in, t_out, stream
     "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I,
-                          _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _P),
     # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
     # thr, o0..o5, stream
     "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,

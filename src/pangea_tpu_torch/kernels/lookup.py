@@ -5,8 +5,16 @@ Counterpart of ``pangea_tpu/kernels/lookup.py``: ``mix32``/``hash32``
 ``lookup_q12`` (``lookup_q12_jnp``, K2's q12 form) and ``lookup_std``
 (``lookup_jnp`` for one shard, kernel K4), with the host builders of the
 std device rows, ``fuse_table`` and ``fuse_stash``. The port has no
-counterpart of the reference's chunked and sorted gathers (``_chunked_pk``,
-``_sorted_pk``): they leave the outputs unchanged.
+counterpart of the reference's chunked gather (``_chunked_pk``): it leaves
+the outputs unchanged.
+
+The deep-table path (the reference's ``_sorted_apply``, ``_sorted_pk`` and
+``_sorted_std`` behind ``_deep_chunk``): :func:`takes_sorted` is the
+reference's gate, :func:`bucket_sort` (kernel K9) groups the probes by
+bucket, and ``lookup_q8_sorted``, ``lookup_q12_sorted`` and
+``lookup_std_sorted`` probe them in that order and write each output at
+its probe's place. Their outputs equal the unsorted probes', as the
+reference's do.
 
 Lane rule: 32-bit unsigned lanes live in ``torch.int32`` tensors holding
 the uint32 bit pattern. The plain versions widen them to int64
@@ -14,6 +22,8 @@ the uint32 bit pattern. The plain versions widen them to int64
 halves (:func:`_mul32`) and narrow back at the end (:func:`narrow`).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -25,6 +35,41 @@ M32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9
 _Q8_A = 0x9E3779B1
 _PLAIN_CHUNK = 1 << 16               # probes a plain-lookup step
+# The reference's deep-table gate (lookup.py:271-297): tables past
+# _DEEP_ROWS rows take the sorted lookup when enough probes fall on each
+# row. The constants decide which path runs, as in the reference; the port
+# probes the whole table, so _DEEP_SLICE only enters the gate's arithmetic.
+_DEEP_ROWS = 1 << 17
+_DEEP_SLICE = 1 << 15
+# K9 groups probes by bucket >> key_shift(NB): at most 2^KEY_BITS keys.
+KEY_BITS = 10
+
+
+def _deep_chunk(n: int, nb: int, row_bytes: int = 512,
+                min_chunk: int = 8192) -> int | None:
+    """The reference's ``_deep_chunk``: probes a slice-chunk (expected
+    bucket span nb * chunk / n at most _DEEP_SLICE / 2), or None when the
+    sorted path does not pay: too few probes a row (under min_chunk), a
+    table past 2^31 bytes, or ``PANGEA_DEEP_SORT`` other than 1."""
+    if os.environ.get("PANGEA_DEEP_SORT", "1") != "1":
+        return None
+    c = n * (_DEEP_SLICE // 2) // max(nb, 1)
+    if c < min_chunk or nb * row_bytes > (1 << 31):
+        return None
+    return 1 << min(c.bit_length() - 1, 19)
+
+
+def takes_sorted(layout: str, n: int, fused: torch.Tensor) -> bool:
+    """Whether n probes of a ``layout`` table take the sorted lookup: the
+    reference's condition ``nb > _DEEP_ROWS and dchunk is not None and n >
+    dchunk``, with min_chunk 8192 for q8 and q12 and 32768 for std
+    (lookup.py:749-751, :665-667, :150-152)."""
+    nb, lanes = fused.shape
+    if nb <= _DEEP_ROWS:
+        return False
+    dchunk = _deep_chunk(n, nb, lanes * 4,
+                         min_chunk=32768 if layout == "std" else 8192)
+    return dchunk is not None and n > dchunk
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +151,117 @@ def _q12_geometry(fused: torch.Tensor, k: int, ways: int) -> int:
     return log2nb
 
 
+def key_shift(nb: int) -> int:
+    """K9 groups the probes of an NB-row table by bucket >> key_shift(NB):
+    at most 2^KEY_BITS groups of 2^key_shift adjacent rows."""
+    return max(nb.bit_length() - 1 - KEY_BITS, 0)
+
+
+def bucket_keys(hi, lo, valid, nb: int, k: int | None = None):
+    """int64 [N] sort key of each probe, flattened: its bucket >>
+    key_shift(nb), where the bucket is the q8/q12 quotient bucket at k
+    (h >> r), or, for k None, the std bucket hash32 & (nb - 1). Invalid
+    probe i, whose row is never read, gets key i mod (nb >> key_shift(nb)),
+    so that the invalid probes share no one key."""
+    hi, lo, valid = (x.reshape(-1) for x in (hi, lo, valid))
+    if k is None:
+        bucket = _hash32(widen(hi), widen(lo)) & (nb - 1)
+    else:
+        bucket, _ = _q8_split(widen(hi), widen(lo), k, nb.bit_length() - 1)
+    shift = key_shift(nb)
+    spread = torch.arange(hi.numel(), device=hi.device) & ((nb >> shift) - 1)
+    return torch.where(valid, bucket >> shift, spread)
+
+
+def bucket_sort_plain(hi, lo, valid, nb: int, k: int | None = None):
+    """Plain version of K9: (records, inv). records: the flattened probes
+    ordered by :func:`bucket_keys` (a stable sort), int32 [N, 4] (index,
+    hi, lo, valid): each probe's index in the input, then its lanes. inv:
+    int32 [N], each probe's place in records."""
+    perm = torch.sort(bucket_keys(hi, lo, valid, nb, k),
+                      stable=True).indices
+    records = torch.stack([perm.to(torch.int32), hi.reshape(-1)[perm],
+                           lo.reshape(-1)[perm],
+                           valid.reshape(-1)[perm].to(torch.int32)], dim=1)
+    inv = torch.empty(perm.numel(), dtype=torch.int32, device=perm.device)
+    inv[perm] = torch.arange(perm.numel(), dtype=torch.int32,
+                             device=perm.device)
+    return records, inv
+
+
+def bucket_sort(hi, lo, valid, nb: int, k: int | None = None):
+    """The probes sorted by bucket, (records, inv) as
+    :func:`bucket_sort_plain` returns them: the plain version for CPU
+    tensors, kernel K9 (``csrc/bucket_sort.cu``) for CUDA tensors. K9
+    groups the probes by :func:`bucket_keys` in ascending key order; within
+    a key the order is unspecified (each probe's outputs depend on it
+    alone)."""
+    dev = _build.dispatch_device(hi, lo, valid)
+    if dev is None:
+        return bucket_sort_plain(hi, lo, valid, nb, k)
+    _build.check(hi, torch.int32, name="hi")
+    _build.check(lo, torch.int32, shape=hi.shape, name="lo")
+    _build.check(valid, torch.bool, shape=hi.shape, name="valid")
+    log2nb = nb.bit_length() - 1
+    if nb != 1 << log2nb or (k is not None and not
+                             (1 <= k <= 31 and 0 <= 2 * k - log2nb <= 62)):
+        raise ValueError(f"bucket_sort: NB={nb}, k={k}")
+    shift = key_shift(nb)
+    counts = torch.empty(nb >> shift, dtype=torch.int32, device=dev)
+    records = torch.empty((hi.numel(), 4), dtype=torch.int32, device=dev)
+    inv = torch.empty(hi.numel(), dtype=torch.int32, device=dev)
+    _build.launch("pangea_bucket_sort", dev, hi.data_ptr(), lo.data_ptr(),
+                  valid.data_ptr(), hi.numel(), nb, k or 0, shift,
+                  counts.data_ptr(), records.data_ptr(), inv.data_ptr())
+    bucket_sort.launches += 1
+    return records, inv
+
+
+bucket_sort.launches = 0
+
+
+def _sorted_plain(lookup_plain, order, shape, *args):
+    """lookup_plain on the sorted probes of ``order`` (bucket_sort's
+    output), its outputs gathered back into the probes' order, in
+    ``shape``."""
+    records, inv = order
+    outs = lookup_plain(records[:, 1], records[:, 2], records[:, 3] != 0,
+                        *args)
+    return tuple(o[inv.long()].reshape(shape) for o in outs)
+
+
+def _check_order(order, hi) -> None:
+    """Raise unless order is bucket_sort's output for probes like hi."""
+    records, inv = order
+    _build.check(records, torch.int32, shape=(hi.numel(), 4), name="records")
+    _build.check(inv, torch.int32, shape=(hi.numel(),), name="inv")
+    for t in order:
+        if t.device != hi.device:
+            raise ValueError(f"K9's order on {t.device}, probes on "
+                             f"{hi.device}")
+
+
+def _launch_lookup(name: str, dev, hi, order, *args):
+    """Launch the lookup ``name`` with ``args`` (its arguments before
+    K9's order) and return its outputs, int32 like hi. Sorted (``order``
+    given), it writes one record a probe in sorted order, and K9's restore
+    gathers them back into the probes' order."""
+    outs = [torch.empty(hi.shape, dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    if order is None:
+        _build.launch(name, dev, *args, None, None,
+                      *(o.data_ptr() for o in outs))
+        return tuple(outs)
+    records, inv = order
+    sorted_out = torch.empty_like(records)
+    _build.launch(name, dev, *args, records.data_ptr(),
+                  sorted_out.data_ptr(), None, None, None)
+    _build.launch("pangea_bucket_restore", dev, inv.data_ptr(),
+                  sorted_out.data_ptr(), hi.numel(),
+                  *(o.data_ptr() for o in outs))
+    return tuple(outs)
+
+
 def _lookup_quot_plain(hi, lo, valid, fused, stash, k: int, log2nb: int,
                        W: int, q12: bool):
     """The q8 and q12 probes: the rem lanes of the bucket's row (q12: rem_lo
@@ -159,6 +315,18 @@ def _check_quot(hi, lo, valid, fused, stash, k: int) -> None:
         raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
 
 
+def _q8_kernel(dev, hi, lo, valid, fused, stash, k: int, order):
+    """K2 on CUDA tensors; K9's order selects its sorted form."""
+    _check_quot(hi, lo, valid, fused, stash, k)
+    _, W = _q8_geometry(fused, k)
+    if fused.shape[1] != 2 * W:
+        raise ValueError(f"fused {tuple(fused.shape)} is not a q8 table")
+    return _launch_lookup(
+        "pangea_lookup_q8", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
+        valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], W,
+        stash.data_ptr(), stash.shape[1], k)
+
+
 def lookup_q8(hi, lo, valid, fused, stash, k: int):
     """q8 probe: the plain version for CPU tensors, kernel K2
     (``csrc/lookup_q8.cu``) for CUDA tensors. Same contract as
@@ -166,22 +334,42 @@ def lookup_q8(hi, lo, valid, fused, stash, k: int):
     dev = _build.dispatch_device(hi, lo, valid, fused, stash)
     if dev is None:
         return lookup_q8_plain(hi, lo, valid, fused, stash, k)
-    _check_quot(hi, lo, valid, fused, stash, k)
-    _, W = _q8_geometry(fused, k)
-    if fused.shape[1] != 2 * W:
-        raise ValueError(f"fused {tuple(fused.shape)} is not a q8 table")
-    hit = torch.empty(hi.shape, dtype=torch.int32, device=dev)
-    t_in = torch.empty_like(hit)
-    t_out = torch.empty_like(hit)
-    _build.launch("pangea_lookup_q8", dev, hi.data_ptr(), lo.data_ptr(),
-                  valid.data_ptr(), hi.numel(), fused.data_ptr(),
-                  fused.shape[0], W, stash.data_ptr(), stash.shape[1], k,
-                  hit.data_ptr(), t_in.data_ptr(), t_out.data_ptr())
+    out = _q8_kernel(dev, hi, lo, valid, fused, stash, k, None)
     lookup_q8.launches += 1
-    return hit, t_in, t_out
+    return out
 
 
 lookup_q8.launches = 0
+
+
+def lookup_q8_sorted_plain(hi, lo, valid, fused, stash, k: int,
+                           order=None):
+    """Plain sorted q8 probe: the probes sorted by bucket (``order``, by
+    default :func:`bucket_sort_plain`'s), probed by
+    :func:`lookup_q8_plain`, each output put back at its probe's place.
+    Equal to :func:`lookup_q8_plain`."""
+    if order is None:
+        order = bucket_sort_plain(hi, lo, valid, fused.shape[0], k)
+    return _sorted_plain(lookup_q8_plain, order, hi.shape, fused, stash, k)
+
+
+def lookup_q8_sorted(hi, lo, valid, fused, stash, k: int, order=None):
+    """Sorted q8 probe: the plain version for CPU tensors; for CUDA tensors
+    K9 (unless its output ``order`` is given), then K2's sorted form, which
+    probes the sorted probes in turn, and K9's restore. Same contract as
+    :func:`lookup_q8_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_q8_sorted_plain(hi, lo, valid, fused, stash, k, order)
+    if order is None:
+        order = bucket_sort(hi, lo, valid, fused.shape[0], k)
+    _check_order(order, hi)
+    out = _q8_kernel(dev, hi, lo, valid, fused, stash, k, order)
+    lookup_q8_sorted.launches += 1
+    return out
+
+
+lookup_q8_sorted.launches = 0
 
 
 def lookup_q12_plain(hi, lo, valid, fused, stash, k: int,
@@ -195,6 +383,17 @@ def lookup_q12_plain(hi, lo, valid, fused, stash, k: int,
                               q12=True)
 
 
+def _q12_kernel(dev, hi, lo, valid, fused, stash, k: int, ways: int,
+                order):
+    """K2's q12 form on CUDA tensors; K9's order selects its sorted form."""
+    _check_quot(hi, lo, valid, fused, stash, k)
+    _q12_geometry(fused, k, ways)
+    return _launch_lookup(
+        "pangea_lookup_q12", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
+        valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], ways,
+        fused.shape[1], stash.data_ptr(), stash.shape[1], k)
+
+
 def lookup_q12(hi, lo, valid, fused, stash, k: int, ways: int = Q12_WAYS):
     """q12 probe: the plain version for CPU tensors, kernel K2's q12 form
     (``csrc/lookup_q8.cu``) for CUDA tensors. Same contract as
@@ -202,21 +401,42 @@ def lookup_q12(hi, lo, valid, fused, stash, k: int, ways: int = Q12_WAYS):
     dev = _build.dispatch_device(hi, lo, valid, fused, stash)
     if dev is None:
         return lookup_q12_plain(hi, lo, valid, fused, stash, k, ways)
-    _check_quot(hi, lo, valid, fused, stash, k)
-    _q12_geometry(fused, k, ways)
-    hit = torch.empty(hi.shape, dtype=torch.int32, device=dev)
-    t_in = torch.empty_like(hit)
-    t_out = torch.empty_like(hit)
-    _build.launch("pangea_lookup_q12", dev, hi.data_ptr(), lo.data_ptr(),
-                  valid.data_ptr(), hi.numel(), fused.data_ptr(),
-                  fused.shape[0], ways, fused.shape[1], stash.data_ptr(),
-                  stash.shape[1], k, hit.data_ptr(), t_in.data_ptr(),
-                  t_out.data_ptr())
+    out = _q12_kernel(dev, hi, lo, valid, fused, stash, k, ways, None)
     lookup_q12.launches += 1
-    return hit, t_in, t_out
+    return out
 
 
 lookup_q12.launches = 0
+
+
+def lookup_q12_sorted_plain(hi, lo, valid, fused, stash, k: int,
+                            ways: int = Q12_WAYS, order=None):
+    """Plain sorted q12 probe, as :func:`lookup_q8_sorted_plain`. Equal to
+    :func:`lookup_q12_plain`."""
+    if order is None:
+        order = bucket_sort_plain(hi, lo, valid, fused.shape[0], k)
+    return _sorted_plain(lookup_q12_plain, order, hi.shape, fused, stash, k,
+                         ways)
+
+
+def lookup_q12_sorted(hi, lo, valid, fused, stash, k: int,
+                      ways: int = Q12_WAYS, order=None):
+    """Sorted q12 probe: the plain version for CPU tensors; for CUDA tensors
+    K9 (unless ``order`` is given), then the sorted form of K2's q12 form.
+    Same contract as :func:`lookup_q12_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_q12_sorted_plain(hi, lo, valid, fused, stash, k, ways,
+                                       order)
+    if order is None:
+        order = bucket_sort(hi, lo, valid, fused.shape[0], k)
+    _check_order(order, hi)
+    out = _q12_kernel(dev, hi, lo, valid, fused, stash, k, ways, order)
+    lookup_q12_sorted.launches += 1
+    return out
+
+
+lookup_q12_sorted.launches = 0
 
 
 def fuse_table(key_hi, key_lo, val, tin, tout) -> np.ndarray:
@@ -315,6 +535,45 @@ def lookup_std(hi, lo, valid, fused, stash, ways: int):
     dev = _build.dispatch_device(hi, lo, valid, fused, stash)
     if dev is None:
         return lookup_std_plain(hi, lo, valid, fused, stash, ways)
+    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, None)
+    lookup_std.launches += 1
+    return out
+
+
+lookup_std.launches = 0
+
+
+def lookup_std_sorted_plain(hi, lo, valid, fused, stash, ways: int,
+                            order=None):
+    """Plain sorted std probe, as :func:`lookup_q8_sorted_plain` with the
+    std bucket. Equal to :func:`lookup_std_plain`."""
+    if order is None:
+        order = bucket_sort_plain(hi, lo, valid, fused.shape[0])
+    return _sorted_plain(lookup_std_plain, order, hi.shape, fused, stash,
+                         ways)
+
+
+def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None):
+    """Sorted std probe: the plain version for CPU tensors; for CUDA tensors
+    K9 (unless ``order`` is given), then K4's sorted form. Same contract as
+    :func:`lookup_std_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_std_sorted_plain(hi, lo, valid, fused, stash, ways,
+                                       order)
+    if order is None:
+        order = bucket_sort(hi, lo, valid, fused.shape[0])
+    _check_order(order, hi)
+    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, order)
+    lookup_std_sorted.launches += 1
+    return out
+
+
+lookup_std_sorted.launches = 0
+
+
+def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order):
+    """K4 on CUDA tensors; K9's order selects its sorted form."""
     _build.check(hi, torch.int32, name="hi")
     _build.check(lo, torch.int32, shape=hi.shape, name="lo")
     _build.check(valid, torch.bool, shape=hi.shape, name="valid")
@@ -323,16 +582,7 @@ def lookup_std(hi, lo, valid, fused, stash, ways: int):
     packed = _std_geometry(fused, ways)
     if stash.shape[0] != 5:
         raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
-    taxon = torch.empty(hi.shape, dtype=torch.int32, device=dev)
-    t_in = torch.empty_like(taxon)
-    t_out = torch.empty_like(taxon)
-    _build.launch("pangea_lookup_std", dev, hi.data_ptr(), lo.data_ptr(),
-                  valid.data_ptr(), hi.numel(), fused.data_ptr(),
-                  fused.shape[0], ways, int(packed), stash.data_ptr(),
-                  stash.shape[1], taxon.data_ptr(), t_in.data_ptr(),
-                  t_out.data_ptr())
-    lookup_std.launches += 1
-    return taxon, t_in, t_out
-
-
-lookup_std.launches = 0
+    return _launch_lookup(
+        "pangea_lookup_std", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
+        valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], ways,
+        int(packed), stash.data_ptr(), stash.shape[1])

@@ -1,3 +1,5 @@
-from .run import default_sample_names, run_classify_basic
+from .run import (default_sample_names, load_taxonomy_any, run_build,
+                  run_classify_basic)
 
-__all__ = ["default_sample_names", "run_classify_basic"]
+__all__ = ["default_sample_names", "load_taxonomy_any", "run_build",
+           "run_classify_basic"]

@@ -1,8 +1,15 @@
-"""Streaming classify run on one device.
+"""The offline index build and the streaming classify run on one device.
 
-Counterpart of ``pangea_tpu/pipeline/run.py`` ``run_classify`` on one
-device, for one or more indexes (q8, q12 or std layout each) built on one
-taxonomy: each batch runs one :class:`MultiKClassifier` step (several
+``run_build`` is the reference's: the genomes of reference FASTAs (the
+taxon from a ``taxid=N`` header key or a seqid-to-taxid map) -> canonical
+k-mers -> LCA merge -> table -> the index directory, byte-equal to the
+reference's on the same inputs. Its out-of-core form (``ooc_shards`` > 0)
+writes a sharded container, which the port does not run yet (ROADMAP A5).
+
+The classify run is the counterpart of ``pangea_tpu/pipeline/run.py``
+``run_classify`` on one device, for one or more indexes (q8, q12 or std
+layout each) built on one taxonomy: each batch runs one
+:class:`MultiKClassifier` step (several
 indexes merge on the device, SEMANTICS.md §9), and the run writes
 ``{sample}.assign.tsv``, ``{sample}.summary.tsv`` (plus
 ``cohort.summary.tsv`` for several samples) and ``stats.json`` exactly as
@@ -51,9 +58,9 @@ import torch
 
 from ..classify.engine import DeviceIndex, MultiKClassifier, pad_batch
 from ..config import RunConfig, dump_config
-from ..index import load_index_any
+from ..index import build_index, load_index_any
 from ..io import native
-from ..io.fastx import read_batches
+from ..io.fastx import FastxReader, read_batches
 from ..io.native import (NativeFastxReader, TaxBlobs,
                          write_assignments_native)
 from ..kernels import kernel_launches
@@ -62,6 +69,7 @@ from ..report import stats as report_stats
 from ..report.writers import (AssignmentRecord, format_assignment,
                               write_cohort_summary_counts,
                               write_summary_counts)
+from ..taxonomy import Taxonomy
 
 LONG_BUCKET_ROWS = 64        # the least reads a long-read launch holds
 DRAIN_DEPTH = 4              # launched batches that may await the drain
@@ -80,6 +88,66 @@ def default_sample_names(files) -> list:
         seen[base] = k
         out.append(base if k == 1 else f"{base}_{k}")
     return out
+
+
+def load_taxonomy_any(path: str, names_dmp: str | None = None) -> Taxonomy:
+    """A taxonomy from NCBI's nodes.dmp (with names_dmp), an .npz or a
+    TSV."""
+    if names_dmp:
+        return Taxonomy.load_ncbi(path, names_dmp)
+    if path.endswith(".npz"):
+        return Taxonomy.load(path)
+    return Taxonomy.load_tsv(path)
+
+
+def _genomes_from_fasta(paths, taxonomy: Taxonomy, taxid_map: dict | None):
+    """Yield (codes, dense taxon) from reference FASTAs. The taxon comes
+    from the seqid-to-taxid map or a ``taxid=N`` key in the header; raw
+    NCBI ids are translated when the taxonomy carries ``raw_to_dense``."""
+    raw_to_dense = getattr(taxonomy, "raw_to_dense", None)
+    for path in paths:
+        for rid, codes, _ in FastxReader(path):
+            taxid = None
+            if taxid_map and rid in taxid_map:
+                taxid = int(taxid_map[rid])
+            elif "taxid=" in rid:
+                taxid = int(rid.split("taxid=")[1].split("|")[0].split()[0])
+            if taxid is None:
+                raise ValueError(f"{path}: no taxid for sequence {rid!r} "
+                                 "(use header 'taxid=N' or --taxid-map)")
+            if raw_to_dense is not None:
+                taxid = raw_to_dense[taxid]
+            yield codes, taxid
+
+
+def run_build(refs: list[str], taxonomy_path: str, k: int, out: str,
+              w: int = 1, names_dmp: str | None = None,
+              taxid_map_path: str | None = None,
+              load_factor: float = 0.5, ways: int = 16,
+              ooc_shards: int = 0):
+    """Build an index from reference FASTAs into the directory ``out``, as
+    the reference's ``run_build`` does in memory; returns the Index."""
+    if ooc_shards:
+        raise NotImplementedError(
+            "build --ooc-shards writes a sharded container, which the port "
+            "does not run yet (ROADMAP A5, A6)")
+    tax = load_taxonomy_any(taxonomy_path, names_dmp)
+    taxid_map = None
+    if taxid_map_path:
+        taxid_map = {}
+        with open(taxid_map_path) as fh:
+            for line in fh:
+                a, b = line.split()[:2]
+                taxid_map[a] = int(b)
+    t0 = time.time()
+    idx = build_index(_genomes_from_fasta(refs, tax, taxid_map), tax, k=k,
+                      w=w, load_factor=load_factor, ways=ways,
+                      progress=lambda n: print(f"[build] {n} genomes scanned",
+                                               file=sys.stderr))
+    idx.save(out)
+    print(f"[build] {idx} in {time.time() - t0:.1f}s -> {out}",
+          file=sys.stderr)
+    return idx
 
 
 def _check_supported(c: RunConfig) -> None:

@@ -4,8 +4,9 @@ The port's copy of the parts of ``pangea_tpu/utils/datagen.py`` that the
 bench world and the tests use: a rank-structured taxonomy, genomes with
 genus-level shared "core" segments (forcing k-mer → LCA merges), reads
 sampled from known genomes (forward/revcomp, optional N corruption,
-paired-end) with a planted truth, and FASTA/FASTQ writers. The same seeds
-give the reference's outputs exactly (``tests/test_torch_host.py``).
+paired-end) with a planted truth, the vectorized bulk FASTQ generator, and
+FASTA/FASTQ/taxonomy-TSV writers. The same seeds give the reference's
+outputs exactly (``tests/test_torch_host.py``, ``tests/test_torch_build.py``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..taxonomy import RANK_CODES, Taxonomy
+from ..taxonomy import RANK_CODES, RANK_NAMES, Taxonomy
 
 
 def make_taxonomy(n_phyla=2, genera_per_phylum=2, species_per_genus=3,
@@ -144,3 +145,100 @@ def write_fastq(path: str, rs: ReadSet, mate: int = 1) -> None:
             fh.write(b"@%s\n%s\n+\n%s\n" % (
                 rid.encode(), _BASES[codes].tobytes(),
                 bytes([33 + 35]) * len(codes)))
+
+
+def write_taxonomy_tsv(path: str, tax: Taxonomy) -> None:
+    """The taxonomy as ``Taxonomy.load_tsv`` reads it: taxid, parent, rank
+    name and name a line."""
+    with open(path, "w") as fh:
+        fh.write("#taxid\tparent\trank\tname\n")
+        for t in range(1, tax.num_taxa + 1):
+            fh.write(f"{t}\t{int(tax.parent[t])}\t"
+                     f"{RANK_NAMES[int(tax.rank[t])]}\t{tax.names[t]}\n")
+
+
+def generate_reads_fastq_bulk(path: str, genomes, n_reads: int,
+                              read_len: int = 150, paired: bool = False,
+                              mate_path: str | None = None,
+                              n_prob: float = 0.01, insert: int = 300,
+                              revcomp_frac: float = 0.5, seed: int = 2,
+                              sample_name: str = "S0", barcodes=None,
+                              chunk: int = 1 << 20) -> np.ndarray:
+    """Vectorized FASTQ generator for many reads: fixed-width records
+    assembled as one uint8 matrix a chunk of reads. ``barcodes`` (equal
+    length strings): each read gets a random one before mate 1 (a pooled
+    cohort), drawn from the same generator. Writes ``<path>.truth.npy``
+    (and, with barcodes, ``<path>.samples.npy``) and returns truth: int32
+    [n_reads] source taxa."""
+    rng = np.random.default_rng(seed)
+    cat = np.concatenate([g[0] for g in genomes])
+    lens = np.array([len(g[0]) for g in genomes], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    gtax = np.array([g[1] for g in genomes], dtype=np.int32)
+    span = insert if paired else read_len
+    L = read_len
+    bc_codes = None
+    if barcodes is not None:
+        if len({len(b) for b in barcodes}) != 1:
+            raise ValueError("bulk generator needs equal-length barcodes")
+        enc = {c: i for i, c in enumerate("ACGT")}
+        bc_codes = np.array([[enc[c] for c in b] for b in barcodes],
+                            dtype=np.uint8)
+    digits = len(str(max(n_reads - 1, 1)))
+    prefix = f"@{sample_name}.read".encode()
+
+    def rec_matrix(ids_num, seq_codes):
+        B, Ls = seq_codes.shape
+        W = len(prefix) + digits
+        rec = np.empty((B, W + 1 + Ls + 3 + Ls + 1), dtype=np.uint8)
+        rec[:, :len(prefix)] = np.frombuffer(prefix, np.uint8)
+        p10 = 10 ** np.arange(digits - 1, -1, -1, dtype=np.int64)
+        rec[:, len(prefix):W] = \
+            (ids_num[:, None] // p10 % 10 + ord("0")).astype(np.uint8)
+        rec[:, W] = ord("\n")
+        rec[:, W + 1:W + 1 + Ls] = _BASES[seq_codes]
+        rec[:, W + 1 + Ls] = ord("\n")
+        rec[:, W + 2 + Ls] = ord("+")
+        rec[:, W + 3 + Ls] = ord("\n")
+        rec[:, W + 4 + Ls:W + 4 + 2 * Ls] = 33 + 35
+        rec[:, -1] = ord("\n")
+        return rec
+
+    truth = np.empty(n_reads, dtype=np.int32)
+    samp = np.empty(n_reads, dtype=np.int32) if bc_codes is not None \
+        else None
+    f1 = open(path, "wb")
+    f2 = open(mate_path, "wb") if paired else None
+    try:
+        for lo in range(0, n_reads, chunk):
+            B = min(chunk, n_reads - lo)
+            gi = rng.integers(0, len(genomes), size=B)
+            hi = np.maximum(lens[gi] - span, 1)
+            start = (rng.random(B) * hi).astype(np.int64)
+            frag = cat[(offs[gi] + start)[:, None]
+                       + np.arange(span, dtype=np.int64)[None, :]]
+            r1 = frag[:, :L].copy()
+            rc = rng.random(B) < revcomp_frac
+            r1[rc] = 3 - r1[rc][:, ::-1]
+            if n_prob > 0:
+                r1[rng.random((B, L)) < n_prob] = 4
+            ids_num = np.arange(lo, lo + B, dtype=np.int64)
+            if bc_codes is not None:
+                si = rng.integers(0, bc_codes.shape[0], size=B)
+                samp[lo:lo + B] = si
+                r1 = np.concatenate([bc_codes[si], r1], axis=1)
+            f1.write(rec_matrix(ids_num, r1).tobytes())
+            if paired:
+                r2 = (3 - frag[:, -L:])[:, ::-1].copy()
+                if n_prob > 0:
+                    r2[rng.random((B, L)) < n_prob] = 4
+                f2.write(rec_matrix(ids_num, r2).tobytes())
+            truth[lo:lo + B] = gtax[gi]
+    finally:
+        f1.close()
+        if f2 is not None:
+            f2.close()
+    np.save(path + ".truth.npy", truth)
+    if samp is not None:
+        np.save(path + ".samples.npy", samp)
+    return truth

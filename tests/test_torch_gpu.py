@@ -48,7 +48,9 @@ pytestmark = pytest.mark.gpu
 # Kernel launches of one paired step, by path.
 _NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
          "lookup_std": 0, "score_taxon": 0, "lca_lift": 0, "lookup_q12": 0,
-         "merge_multik": 0, "score_ranked": 0, "extract_packed": 0}
+         "merge_multik": 0, "score_ranked": 0, "extract_packed": 0,
+         "bucket_sort": 0, "lookup_q8_sorted": 0, "lookup_q12_sorted": 0,
+         "lookup_std_sorted": 0}
 Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 
 
@@ -634,3 +636,122 @@ def test_fast_path_cli_on_the_card_equals_the_cpu(cuda, tmp_path, capsys):
         for f in ("a_1.assign.tsv", "a_1.summary.tsv", "stats.json"):
             assert (outs["cpu"] / f).read_bytes() == \
                 (outs["cuda"] / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("nb,k", [(1 << 10, 21), (1 << 19, 21), (1 << 20, 31),
+                                  (1 << 22, None)],
+                         ids=["q8_1024", "q8_deep", "q12_k31", "std_deep"])
+def test_bucket_sort_kernel_groups_its_keys(cuda, nb, k):
+    """K9's output is a permutation whose probes' keys ascend, key for key
+    those of the plain version's (a stable torch.sort), each record with
+    its probe's lanes, and inv the inverse permutation."""
+    from pangea_tpu_torch.kernels import bucket_sort, bucket_sort_plain
+    from pangea_tpu_torch.kernels.lookup import bucket_keys, key_shift
+    rng = np.random.default_rng(nb)
+    n = 200_003
+    hi = torch.from_numpy(rng.integers(0, 1 << (2 * (k or 21) - 32), size=n,
+                                       dtype=np.int64).astype(np.int32))
+    lo = torch.from_numpy(rng.integers(0, 1 << 32, size=n,
+                                       dtype=np.int64).astype(np.uint32)
+                          .view(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    reset_kernel_launches()
+    records, inv = (t.cpu() for t in bucket_sort(
+        hi.to(cuda), lo.to(cuda), valid.to(cuda), nb, k))
+    assert kernel_launches()["bucket_sort"] == 1
+    perm = records[:, 0].long()
+    assert torch.equal(torch.sort(perm).values, torch.arange(n))
+    assert torch.equal(inv[perm], torch.arange(n, dtype=torch.int32))
+    for j, lanes in enumerate((hi, lo, valid.to(torch.int32)), 1):
+        assert torch.equal(records[:, j], lanes[perm])
+    keys = bucket_keys(hi, lo, valid, nb, k)
+    want = keys[bucket_sort_plain(hi, lo, valid, nb, k)[0][:, 0].long()]
+    assert torch.equal(keys[perm], want)
+    assert int(want[-1]) == (nb >> key_shift(nb)) - 1
+
+
+def _deep_tables(world, world31):
+    """(name, wrapper, plain, args) of each sorted form on a small table:
+    q8 and q12 (r < 32) of the k=21 world, q12 (r >= 32) of the k=31 world,
+    std packed rows and std wide rows (the stamps scaled past 16 bits)."""
+    from pangea_tpu_torch.kernels import (lookup_q8_sorted, lookup_q12_sorted,
+                                          lookup_std_sorted)
+    out = []
+    for name, w, layout in (("q8", world, "q8"), ("q12_k21", world, "q12"),
+                            ("q12_k31", world31, "q12")):
+        idx = w[2]
+        fused, stash3, _ = (relayout_q8 if layout == "q8"
+                            else relayout_q12)(idx)
+        tax = idx.taxonomy
+        f = torch.from_numpy(fused[0].view(np.int32))
+        s = torch.from_numpy(fuse_stash(stash3[0], tax.tin, tax.tout)
+                             .view(np.int32))
+        if layout == "q8":
+            out.append((name, w, lookup_q8_sorted, lookup_q8_plain,
+                        (f, s, idx.meta.k)))
+        else:
+            out.append((name, w, lookup_q12_sorted, lookup_q12_plain,
+                        (f, s, idx.meta.k, Q12_WAYS)))
+    idx = world[2]
+    tax = idx.taxonomy
+    for name, scale in (("std_packed", 1), ("std_wide", 4096)):
+        f = torch.from_numpy(fuse_table(idx.key_hi, idx.key_lo, idx.val,
+                                        tax.tin * scale, tax.tout * scale)
+                             .view(np.int32))
+        s = torch.from_numpy(fuse_stash(idx.stash, tax.tin * scale,
+                                        tax.tout * scale).view(np.int32))
+        out.append((name, world, lookup_std_sorted, lookup_std_plain,
+                    (f, s, idx.meta.ways)))
+    return out
+
+
+def test_sorted_lookup_kernels_match_plain(cuda, world, world31):
+    """K9 then the sorted forms of K2, K2-q12 and K4 equal the unsorted
+    plain versions on every stored key, 500 absent ones and invalid
+    probes; one launch of K9 and one of the sorted form a call."""
+    for name, w, wrapper, plain, args in _deep_tables(world, world31):
+        hi, lo, valid = _probes(w)
+        want = plain(hi, lo, valid, *args)
+        reset_kernel_launches()
+        got = wrapper(hi.to(cuda), lo.to(cuda), valid.to(cuda),
+                      *(a.to(cuda) if torch.is_tensor(a) else a
+                        for a in args))
+        launches = kernel_launches()
+        assert launches["bucket_sort"] == 1 and launches[
+            wrapper.__name__] == 1, (name, launches)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b.cpu()), name
+        assert (want[0] != 0).sum() > 0.85 * hi.numel() // 2, name
+
+
+@pytest.mark.parametrize("layout", ["q8", "q12", "std"])
+def test_sorted_classifier_cuda_matches_plain_and_golden(cuda, world,
+                                                         monkeypatch, layout):
+    """The deep-table gate lowered (2,048 probes a chunk past 64 rows): the
+    step on the card launches K9 and the sorted form, no unsorted lookup,
+    and equals the plain path and golden."""
+    from pangea_tpu_torch.kernels import lookup as LK
+    monkeypatch.setattr(LK, "_DEEP_ROWS", 1 << 6)
+    monkeypatch.setattr(LK, "_deep_chunk",
+                        lambda n, nb, rb=512, min_chunk=8192:
+                        2048 if n > 2048 else None)
+    tax, _, idx, rs = world
+    di = (_q12_index(idx, cuda, 0.0) if layout == "q12" else
+          DeviceIndex.from_index(idx, cuda, 0.0, layout=layout))
+    assert di.cfg.layout == layout and di.fused.shape[0] > LK._DEEP_ROWS
+    model = Classifier(di)
+    n = len(rs.seqs)
+    b = torch.from_numpy(pad_batch(rs.seqs, n, 120)).to(cuda)
+    m = torch.from_numpy(pad_batch(rs.mates, n, 120)).to(cuda)
+    reset_kernel_launches()
+    got = {key: v.cpu() for key, v in model(b, m).items()}
+    lookup = f"lookup_{layout}_sorted"
+    score = "score_taxon" if layout == "std" else "score_tin"
+    assert kernel_launches() == {**_NONE, "extract_probes": 2,
+                                 "bucket_sort": 1, lookup: 1, score: 1}
+    plain = classify_reads(model.index.tables, b, model.cfg, mate_bases=m,
+                           plain=True)
+    gold = classify_reads_golden(rs.seqs, idx, 0.0, mates=rs.mates)
+    for key in ("taxon", "best", "nvalid"):
+        assert torch.equal(got[key], plain[key].cpu())
+        assert got[key].tolist() == [getattr(g, key) for g in gold]

@@ -7,7 +7,9 @@ with both blocked, every port module and ``chip_smoke.py`` load and a tiny
 world built by the port alone classifies on the CPU, against each index and
 through the multi-k step over both, and through run_classify_basic's fast path
 (the port's native reader) and long-read path, equal to the reference's
-golden model.
+golden model; the port's own ``gen-testdata`` and ``build`` then make an
+index that classifies through the sorted deep-table lookup (its gate
+lowered) as golden does.
 """
 import ast
 import json
@@ -114,6 +116,29 @@ for name, reads, extra in (
     lines = open(os.path.join(d, name, "s.assign.tsv")).read().splitlines()
     out.append({"layout": name, "fast_path": res["fast_path"],
                 "taxon": [int(x.split("\t")[2]) for x in lines]})
+# gen-testdata -> build -> the sorted lookup, the deep-table gate lowered.
+from pangea_tpu_torch import cli
+from pangea_tpu_torch.index import load_index_any
+from pangea_tpu_torch.kernels import lookup as LK
+g = os.path.join(d, "gen")
+assert cli.main(["gen-testdata", "--out", g, "--reads", "40", "--read-len",
+                 "100", "--genome-len", "2000", "--seed", "1"]) == 0
+assert cli.main(["build", "--refs", os.path.join(g, "refs.fasta"),
+                 "--taxonomy", os.path.join(g, "taxonomy.tsv"), "--k", "21",
+                 "--out", os.path.join(g, "idx")]) == 0
+LK._DEEP_ROWS = 1 << 9
+LK._deep_chunk = lambda n, nb, rb=512, min_chunk=8192: (
+    2048 if n > 2048 else None)
+sorts = []
+plain_sort = LK.bucket_sort_plain
+LK.bucket_sort_plain = lambda *a: sorts.append(1) or plain_sort(*a)
+di = DeviceIndex.from_index(load_index_any(os.path.join(g, "idx")),
+                            torch.device("cpu"), 0.0)
+single = datagen.sample_reads(genomes, 40, read_len=100, n_prob=0.005, seed=3)
+res = Classifier(di)(torch.from_numpy(pad_batch(single.seqs, 40, 100)))
+assert sorts == [1], sorts
+out.append({"layout": "sorted " + di.cfg.layout,
+            **{key: v.tolist() for key, v in res.items()}})
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
 assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
 print("NOJAX " + json.dumps(out))
@@ -134,7 +159,7 @@ def test_port_imports_and_classifies_without_jax():
     line = [s for s in proc.stdout.splitlines() if s.startswith("NOJAX ")]
     got = json.loads(line[-1][len("NOJAX "):])
     assert [g["layout"] for g in got] == ["q8", "std", "multi-k", "fast",
-                                          "long"]
+                                          "long", "sorted q8"]
     assert got[3]["fast_path"] is True and got[4]["fast_path"] is False
     tax = datagen.make_taxonomy(seed=1)
     genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
@@ -151,3 +176,10 @@ def test_port_imports_and_classifies_without_jax():
     long = classify_read_golden(genomes[0][0][:1000], build_index(
         genomes, tax, k=21, w=8), 0.0)
     assert got[4]["taxon"] == [long.taxon] != [0]
+    single = datagen.sample_reads(genomes, 40, read_len=100, n_prob=0.005,
+                                  seed=3)
+    gold = classify_reads_golden(single.seqs, build_index(genomes, tax, k=21),
+                                 0.0)
+    for key in ("taxon", "best", "nvalid"):
+        assert got[5][key] == [getattr(x, key) for x in gold], key
+    assert any(got[5]["taxon"])
