@@ -96,11 +96,35 @@ built with g++ from the checkout), phase 17's the general path:
      (the unsorted lookup) in the same call;
  22. the CLI on the deep index (the fast path, one batch of 16,384
      single-end reads): its launches, its lines against phase 21's;
- 23. torch.profiler over back-to-back q8 deep steps.
+ 23. torch.profiler over back-to-back q8 deep steps;
+ 24. config 3's index: the deep FASTA built out of core in 4 shards by
+     `cli build --ooc-shards 4` (started beside phases 3-18, with config
+     3's reads), its pairs, one-shard table and q8 relayout held to phase
+     19's index;
+ 25. K10 (the routing bin) on the deep probes at 2, 4 and 8 owners and with
+     a forced overflow (cap_frac 0.01), K9's restore on its records, and
+     K4's owner mask on the wide std table at 4 shards, every shard: each
+     against its plain version, timed beside its bound;
+ 26. the multi-rank steps: four rank processes (this script with `--rank
+     R SPEC`) on the one card, joined over gloo with their tensors on the
+     card, at meshes (1, 4) and (2, 2): the deep 4-shard index (streamed a
+     file shard a rank at (1, 4), merged at (2, 2)) on 65,536 reads,
+     broadcast, routed and routed with a forced overflow; the wide std
+     world, one shard a rank, on 16,384 pairs, broadcast and routed. Each
+     rank's gathered outputs against the one-rank step's; step times;
+     torch.profiler on rank 0 over routed deep steps;
+ 27. a one-rank NCCL world: the (1, 1) sharded step, whose merge is NCCL's
+     all-reduce on the card, against phase 21's q8 step;
+ 28. config 3's CLI: `--config configs/config3_shotgun_sharded.json` on the
+     4-shard index (one card: mesh (1, 1), one q8 table) with 1,048,576
+     single-end reads in four batches of 262,144, its first 16,384 lines
+     against the one-rank step at config 3's threshold, reads/s;
+ 29. the launch summary.
 
 The plain paths are held to the JAX reference and its golden model by the
 CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
-tests/test_torch_q12.py, tests/test_torch_merge.py), and the kernels to the
+tests/test_torch_q12.py, tests/test_torch_merge.py, and for the sharded
+steps tests/test_torch_dist.py), and the kernels to the
 golden model on the card by tests/test_torch_gpu.py. This
 script imports nothing but the standard library, torch and
 pangea_tpu_torch.
@@ -118,7 +142,11 @@ needs: R log2 R compares for each of the read's two sorts, and log2 R steps
 for each of a hit's two ranks. K9's bytes are its probes' lanes read once
 and its 16-byte records and inverse permutation written once, its
 operations a key a probe; a sorted form reads the records and the inverse
-in place of the probes' lanes and writes the outputs.
+in place of the probes' lanes and writes the outputs. K10 reads a
+probe's 9 bytes and writes its slot (4 bytes) and the [S, C] grid of
+16-byte records once; its restore reads a slot and a 16-byte answer and
+writes 12 bytes a probe; K4's masked form reads every probe's lanes and
+writes its outputs, and touches the table only for the probes it owns.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -153,7 +181,7 @@ CLI_PAIRS, CLI_BATCH = 24576, 8192
 WARMUP, REPS = 3, 20
 PLAIN_REPS = 5           # samples of a plain version at the std shapes
 PIPELINED = 10           # back-to-back calls a timing sample
-PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20, "deep": 20}
+PROFILE_STEPS = {"q8": 100, "std": 20, "multik": 20, "deep": 20, "mesh": 5}
 MAX_OFF_LINEAGE = 0.001  # share of reads assigned off their truth's lineage
 # K8's checks: (probes a read, reads): a read just past K3's 2,048, one
 # read and one pair of the 16,384-base bucket (75 reads a launch).
@@ -169,6 +197,16 @@ MAX_LONG = 16384
 # the std gate engages (a chunk of 32,768).
 DEEP_GENOME_LEN, DEEP_K = 700_000, 21
 DEEP_READS, DEEP_STD_READS = 16384, 65536
+# Config 3 (phases 24-29): the deep index built out of core in OOC_SHARDS
+# shards; K10 at ROUTE_SHARDS owners; MESH_RANKS rank processes on the one
+# card over gloo, at each of MESH_SHAPES; config 3's CLI on C3_READS reads
+# (its file's batches of 262,144), the deep reads' seed.
+OOC_SHARDS = 4
+ROUTE_SHARDS = (2, 4, 8)
+MESH_RANKS = 4
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_REPS = 5            # timed steps of each multi-rank case
+C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -202,6 +240,12 @@ KERNELS = {
                           "src/pangea_tpu/kernels/lookup.py:354"),
     "lookup_std_sorted": ("src/pangea_tpu_torch/csrc/lookup_std.cu",
                           "src/pangea_tpu/kernels/lookup.py:389"),
+    "lookup_std_owned": ("src/pangea_tpu_torch/csrc/lookup_std.cu",
+                         "src/pangea_tpu/kernels/lookup.py:117"),
+    "route_bin": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
+                  "src/pangea_tpu/dist/mesh.py:371"),
+    "route_restore": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
+                      "src/pangea_tpu/dist/mesh.py:450"),
 }
 # The int32 extreme cases of tests/test_hardening.py:28-38: (taxon, best,
 # nvalid) of the two calls, products beyond int32.
@@ -1230,6 +1274,13 @@ def phase_fast_long_cli(wide, mix, rows17: list, long_fastq: str) -> dict:
     return launches
 
 
+def start_process(argv: list) -> subprocess.Popen:
+    """A host process of the port, its output piped."""
+    return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
 def start_deep_build() -> dict:
     """Phase 19's build, started before phase 3 so that it runs beside the
     earlier phases on a spare host core: the deep world's genomes as FASTA
@@ -1251,13 +1302,29 @@ def start_deep_build() -> dict:
     log(f"[19] deep world: {len(genomes)} genomes of {DEEP_GENOME_LEN} "
         f"bases and {tax.num_taxa} taxa written in {time.time() - t0:.1f} "
         f"s; started {' '.join(cmd[1:])}")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env,
-                            cwd=ROOT)
     return {"name": "deep", "tax": tax, "genomes": genomes, "dir": work,
-            "proc": proc, "t0": time.time(),
-            "config": "config2_16s_paired.json"}
+            "cmd": cmd, "proc": start_process(cmd), "t0": time.time(),
+            "config": "config2_16s_paired.json", "ooc": None, "gen": None,
+            "c3_fastq": work / "config3.fastq"}
+
+
+def start_sharded_build(deep: dict) -> None:
+    """Phase 24's out-of-core build of the deep genomes and config 3's
+    FASTQ, two processes started when phase 19's build has ended, so that
+    they run beside phases 19-23 and not beside the earlier phases' host
+    work."""
+    cmd = deep["cmd"]
+    ooc = cmd[:-1] + [str(deep["dir"] / "sidx"), "--ooc-shards",
+                      str(OOC_SHARDS)]
+    gen = [sys.executable, "-c",
+           "from pangea_tpu_torch.bench import deep_genomes, deep_reads\n"
+           "from pangea_tpu_torch.utils import datagen\n"
+           f"_, g = deep_genomes({DEEP_GENOME_LEN})\n"
+           f"datagen.write_fastq({str(deep['c3_fastq'])!r}, "
+           f"deep_reads(g, {C3_READS}, {READ_LEN}), mate=1)\n"]
+    log(f"[24] started {' '.join(ooc[1:])}, and config 3's {C3_READS} reads")
+    deep.update(ooc=start_process(ooc), gen=start_process(gen),
+                t0_ooc=time.time())
 
 
 def phase_deep_build(torch, cuda, deep: dict) -> None:
@@ -1278,6 +1345,7 @@ def phase_deep_build(torch, cuda, deep: dict) -> None:
     log(f"[19] the build process: {err.strip().splitlines()[-1]} (its own "
         f"clock); {cpu:.1f} s of CPU; done {time.time() - deep['t0']:.1f} s "
         "after it started, beside phases 3-18")
+    start_sharded_build(deep)
     idx_dir = str(deep["dir"] / "idx")
     idx = load_index_any(idx_dir)
     deep.update(idx=idx, idx_dirs=[idx_dir], dis={}, models={},
@@ -1522,6 +1590,419 @@ def phase_deep_cli(deep, out: dict) -> dict:
     return launches
 
 
+def phase_sharded_build(torch, deep) -> None:
+    """Phase 24: wait for the out-of-core build, load its container and
+    hold it to phase 19's monolithic index: the same k-mer/taxon pairs, the
+    same table at one shard (ShardedIndex.shard_tables(1) against the
+    index's own arrays) and the same q8 relayout on the card, byte for
+    byte."""
+    import resource
+
+    from pangea_tpu_torch.classify import DeviceIndex
+    from pangea_tpu_torch.index import (ShardedIndex, extract_pairs,
+                                        load_index_any, shard_tables)
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    _, err = deep["ooc"].communicate(timeout=900)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    if deep["ooc"].returncode != 0:
+        raise AssertionError(f"the sharded build returned "
+                             f"{deep['ooc'].returncode}:\n{err[-4000:]}")
+    cpu = (cpu1.ru_utime - cpu0.ru_utime) + (cpu1.ru_stime - cpu0.ru_stime)
+    log(f"[24] the sharded build process: {err.strip().splitlines()[-1]} "
+        f"(its own clock); {cpu:.1f} s of CPU; done "
+        f"{time.time() - deep['t0_ooc']:.1f} s after it started, beside "
+        "phases 19-23")
+    t0 = time.time()
+    sidx = load_index_any(str(deep["dir"] / "sidx"))
+    idx = deep["idx"]
+    if not isinstance(sidx, ShardedIndex) or \
+            sidx.meta.n_shards != OOC_SHARDS:
+        raise AssertionError(f"{sidx!r} is not a {OOC_SHARDS}-shard index")
+    bad = 0
+    for a, b in zip(extract_pairs(sidx), extract_pairs(idx)):
+        bad += int(a.shape != b.shape) or int((a != b).sum())
+    one = shard_tables(sidx, 1)
+    for a, b in zip(one, (idx.key_hi, idx.key_lo, idx.val)):
+        bad += int(a[0].shape != b.shape or a[0].tobytes() != b.tobytes())
+    st = one[3][0, :, :idx.stash.shape[1]]
+    bad += int(st.shape != idx.stash.shape
+               or st.tobytes() != idx.stash.tobytes())
+    di = DeviceIndex.from_index(sidx, deep["dis"]["q8"].fused.device, 0.0)
+    want = deep["dis"]["q8"]
+    bad += int(di.cfg != want.cfg or not torch.equal(di.fused, want.fused)
+               or not torch.equal(di.stash, want.stash))
+    deep["sidx"] = sidx
+    log(f"[24] {sidx!r}: shard buckets {sidx.meta.shard_buckets}, stashes "
+        f"{sidx.meta.shard_stash}; pairs, one-shard table and q8 relayout "
+        f"against phase 19's index: mismatches {bad} "
+        f"({time.time() - t0:.1f} s)")
+    if bad or sidx.meta.n_kmers != idx.meta.n_kmers:
+        raise AssertionError("the sharded index differs from phase 19's")
+
+
+def check_route(torch, res: Results, what: str, flat, n_shards: int,
+                cap: int):
+    """K10 against its plain version: every valid probe in its owner's
+    bin once with its own record, the plain version's per-owner counts and
+    count of overflowing probes, zeros in the unused slots; then K9's
+    restore on the records against the plain restore. Returns K10's
+    output."""
+    from pangea_tpu_torch.kernels import (route_bin, route_bin_plain,
+                                          route_restore, route_restore_plain)
+    from pangea_tpu_torch.kernels.route import owner_of
+    hi, lo, valid = flat
+    records, inv, counts = route_bin(hi, lo, valid, n_shards, cap)
+    _, pinv, pcounts = route_bin_plain(hi, lo, valid, n_shards, cap)
+    fits = inv >= 0
+    n = hi.numel()
+    slots = inv[fits].long()
+    rec = records[slots]
+    used = torch.zeros(records.shape[0], dtype=torch.bool,
+                       device=records.device)
+    used[slots] = True
+    every = torch.arange(n, dtype=torch.int32, device=hi.device)
+    res.check("route_bin", what,
+              [pcounts, (pinv >= 0).sum().reshape(1),
+               owner_of(hi, lo, n_shards)[fits], every[fits], hi[fits],
+               lo[fits], torch.ones_like(rec[:, 3]),
+               torch.zeros(1, dtype=torch.int64, device=hi.device),
+               torch.zeros(1, dtype=torch.int64, device=hi.device)],
+              [counts, fits.sum().reshape(1), slots // cap, rec[:, 0],
+               rec[:, 1], rec[:, 2], rec[:, 3],
+               (fits & ~valid).sum().reshape(1),
+               records[~used].abs().sum().reshape(1)])
+    answers = records[:, [1, 2, 0, 3]].contiguous()
+    res.check("route_restore", what, route_restore_plain(inv, answers),
+              route_restore(inv, answers))
+    return records, inv, counts
+
+
+def phase_route_kernels(torch, deep, wide, res: Results, card: str) -> None:
+    """Phase 25: K10 on the deep probes at 2, 4 and 8 owners and with a
+    forced overflow, K9's restore on its records, and K4's owner mask on
+    the wide std table at 4 shards, every shard; each against its plain
+    version, and timed beside its bound."""
+    from pangea_tpu_torch.kernels import (hash32, lookup_std_owned,
+                                          lookup_std_plain, route_bin,
+                                          route_bin_plain, route_restore,
+                                          route_restore_plain)
+    from pangea_tpu_torch.kernels.route import owner_of, route_capacity
+    flat = [t.reshape(-1) for t in probes(
+        torch, {"b1": deep["b16"], "b2": None}, DEEP_K, 1)]
+    N = flat[0].numel()
+    for S in ROUTE_SHARDS:
+        cap = route_capacity(N, S)
+        records, inv, counts = check_route(torch, res, f"25 K10 S={S}", flat,
+                                           S, cap)
+        home = int((~flat[2]).sum())
+        log(f"[25] K10 on {N} deep probes, {S} owners of {cap} slots: "
+            f"counts {counts.tolist()}, past their bins "
+            f"{int((inv < 0).sum()) - home}, invalid (at home) {home}")
+        if S == 4:
+            nbytes = N * 9 + S * cap * 16 + N * 4 + S * 4
+            res.time(torch, "route_bin", "25 K10 S=4",
+                     lambda: route_bin(*flat, S, cap),
+                     lambda: route_bin_plain(*flat, S, cap), nbytes=nbytes,
+                     ops=N * 16, plain_calls=1, plain_reps=PLAIN_REPS)
+            answers = records[:, [1, 2, 0, 3]].contiguous()
+            res.time(torch, "route_restore", "25 restore S=4",
+                     lambda: route_restore(inv, answers),
+                     lambda: route_restore_plain(inv, answers),
+                     nbytes=N * (4 + 16 + 12), ops=N, plain_calls=1,
+                     plain_reps=PLAIN_REPS)
+    cap = route_capacity(N, 4, 0.01)
+    _, inv, counts = check_route(torch, res, "25 K10 overflow", flat, 4, cap)
+    log(f"[25] K10 forced overflow (cap_frac 0.01: {cap} slots an owner): "
+        f"{int((inv < 0).sum() - (~flat[2]).sum())} of {N} probes past "
+        "their bins")
+    if int(counts.max()) <= cap:
+        raise AssertionError("the forced overflow did not overflow")
+
+    wdi = wide["di"]
+    wflat = [t.reshape(-1) for t in probes(torch, wide, WIDE["k"],
+                                           WIDE["w"])]
+    wtab = (wdi.fused, wdi.stash, wdi.cfg.ways)
+    W = wdi.cfg.ways
+    owner = owner_of(wflat[0], wflat[1], 4)
+    hit = None
+    for s in range(4):
+        want = lookup_std_plain(*wflat, *wtab, (4, s))
+        res.check("lookup_std_owned", f"25 K4 mask 4 shards, shard {s}",
+                  want, lookup_std_owned(*wflat, *wtab, (4, s)))
+        hit = want[0] != 0 if hit is None else hit
+    mine = wflat[2] & (owner == 0)
+    bucket = hash32(wflat[0], wflat[1]) & (wdi.fused.shape[0] - 1)
+    need = touched_bytes(torch, bucket, mine, hit, wflat[0], wflat[1], 2 * W,
+                         2, wdi.stash)
+    n = wflat[0].numel()
+    res.time(torch, "lookup_std_owned", "25 K4 mask shard 0",
+             lambda: lookup_std_owned(*wflat, *wtab, (4, 0)),
+             lambda: lookup_std_plain(*wflat, *wtab, (4, 0)),
+             nbytes=n * 21 + need,
+             ops=n * 12 + int(mine.sum()) * (4 * W + 16), plain_calls=1,
+             plain_reps=PLAIN_REPS)
+    log(f"[25] K4's mask on the wide table {tuple(wdi.fused.shape)}, {n} "
+        f"probes, {int(mine.sum())} owned by shard 0 of 4, on {card}")
+    res.assert_clean(("route_bin", "route_restore", "lookup_std_owned"))
+
+
+def save_mesh_inputs(torch, deep, wide, card: str) -> dict:
+    """The multi-rank phase's inputs on disk for its rank processes: the
+    wide std index, the deep reads and the wide pairs, and the one-rank
+    steps' outputs they are held to (phase 8's on the pairs, the deep q8
+    step's on the 65,536 reads)."""
+    work = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    wide["idx"].save(str(work / "wide_idx"))
+    deep_out = deep["models"]["q8"](deep["b64"])
+    arrays = {"deep_reads": deep["b64"], "wide_b1": wide["b1"],
+              "wide_b2": wide["b2"],
+              **{f"deep_{k}": v for k, v in deep_out.items()},
+              **{f"wide_{k}": v for k, v in wide["out8"].items()}}
+    torch.save({k: t.cpu() for k, t in arrays.items()}, work / "inputs.pt")
+    return {"work": str(work), "store": str(work / "store"), "card": card,
+            "device": str(deep["b64"].device),
+            "world": MESH_RANKS, "shapes": [list(s) for s in MESH_SHAPES],
+            "deep_sidx": str(deep["dir"] / "sidx"),
+            "wide_idx": str(work / "wide_idx")}
+
+
+def phase_mesh(spec: dict, card: str) -> dict:
+    """Phase 26: MESH_RANKS rank processes (this script with --rank) on the
+    one card, joined over gloo, at meshes (1, 4) and (2, 2): the deep q8
+    index (its 4 file shards streamed at (1, 4), merged two to a shard at
+    (2, 2)) on 65,536 reads, broadcast, routed and routed with a forced
+    overflow; the wide std world (66,563 taxa, placed with one shard a
+    rank of the row) on 16,384 pairs, broadcast and routed. Every rank's
+    gathered outputs are held to the one-rank step's. Returns the kernel
+    launches summed over the ranks and the cases."""
+    Path(spec["work"], "spec.json").write_text(json.dumps(spec))
+    t0 = time.time()
+    procs = [start_process([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--rank", str(r),
+                            str(Path(spec["work"], "spec.json"))])
+             for r in range(spec["world"])]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} returned {p.returncode}:\n"
+                                 f"{err[-4000:]}")
+    for line in outs[0][0].splitlines():
+        log(line)
+    results = [json.loads(Path(spec["work"], f"rank{r}.json").read_text())
+               for r in range(spec["world"])]
+    launches = dict.fromkeys(KERNELS, 0)
+    bad = 0
+    for res in results:
+        for case in res["cases"]:
+            bad += case["mismatches"]
+            for k, v in case["launches"].items():
+                launches[k] += v
+    for i, case in enumerate(results[0]["cases"]):
+        ms = max(r["cases"][i]["ms"] for r in results)
+        mism = sum(r["cases"][i]["mismatches"] for r in results)
+        log(f"[26] mesh {case['name']}: {case['reads']} {case['unit']}, "
+            f"{'routed' if case['routed'] else 'broadcast'} branch, step "
+            f"{ms} ms (slowest rank; median of {MESH_REPS}, host clock to a "
+            f"synchronize), {case['reads'] / ms * 1e3} reads/s; transport "
+            f"gloo, tensors on {card}, {spec['world']} ranks on the one "
+            f"card; mismatches over the ranks {mism}")
+    log(f"[26] {spec['world']} ranks in {time.time() - t0:.1f} s; kernel "
+        f"launches summed over the ranks and cases: {json.dumps(launches)}")
+    if bad:
+        raise AssertionError(f"the multi-rank steps disagree: {bad}")
+    return launches
+
+
+def rank_main(rank: int, spec_path: str) -> int:
+    """One rank of phase 26 (``chip_smoke.py --rank R SPEC``)."""
+    import datetime
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from pangea_tpu_torch.dist import mesh as M
+    from pangea_tpu_torch.index import load_index_any
+    from pangea_tpu_torch.kernels import (kernel_launches,
+                                          reset_kernel_launches)
+    spec = json.loads(Path(spec_path).read_text())
+    work = Path(spec["work"])
+    cuda = torch.device(spec["device"])
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=spec["world"],
+                            timeout=datetime.timedelta(seconds=300))
+
+    arrays = torch.load(work / "inputs.pt")
+
+    def load(name):
+        return arrays[name].to(cuda)
+
+    sidx = load_index_any(spec["deep_sidx"])
+    wide = load_index_any(spec["wide_idx"])
+    deep_b, wide_b1, wide_b2 = (load(n) for n in ("deep_reads", "wide_b1",
+                                                  "wide_b2"))
+    want = {w: [load(f"{w}_{k}") for k in ("taxon", "best", "nvalid")]
+            for w in ("deep", "wide")}
+    routed = M._local_classify_routed
+    cases = []
+    for shape in spec["shapes"]:
+        mesh = M.Mesh(M.MeshConfig(*shape), cuda)
+        t0 = time.time()
+        dis = {"deep": M.place_index(sidx, mesh, 0.0),
+               "wide": M.place_index(wide, mesh, 0.0)}
+        log(f"[26] {mesh!r}: placed the deep shard "
+            f"{tuple(dis['deep'].fused.shape)} ({dis['deep'].cfg.layout}) "
+            f"and the wide shard {tuple(dis['wide'].fused.shape)} "
+            f"({dis['wide'].cfg.layout}) in {time.time() - t0:.1f} s")
+        for name, world, routing, cap_frac in (
+                ("deep q8", "deep", "broadcast", 1.25),
+                ("deep q8 routed", "deep", "alltoall", 1.25),
+                ("deep q8 routed, forced overflow", "deep", "alltoall", 0.01),
+                ("wide std", "wide", "broadcast", 1.25),
+                ("wide std routed", "wide", "alltoall", 1.25)):
+            di = dis[world]
+            M._local_classify_routed = functools.partial(routed,
+                                                         cap_frac=cap_frac)
+            fn = M.make_sharded_classify_fn(di.cfg, mesh, paired=True,
+                                            replicate_out=True,
+                                            routing=routing)
+            b1, b2 = (deep_b, None) if world == "deep" else (wide_b1,
+                                                             wide_b2)
+            b = b1.shape[0] // mesh.cfg.n_data
+            rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+
+            def step():
+                return fn(di.tables, b1[rows], None if b2 is None
+                          else b2[rows])
+
+            dist.barrier()
+            reset_kernel_launches()
+            out = step()
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            mism = sum(int((out[k] != w).sum()) for k, w in zip(
+                ("taxon", "best", "nvalid"), want[world]))
+            times = []
+            for _ in range(MESH_REPS):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            tag = f"{name} {shape[0]}x{shape[1]}"
+            cases.append({"name": tag, "mismatches": mism,
+                          "launches": launches,
+                          "routed": launches["route_restore"] > 0,
+                          "ms": statistics.median(times),
+                          "reads": b1.shape[0],
+                          "unit": "reads" if b2 is None else "pairs"})
+            if cuda.type == "cuda" and (
+                    (routing == "alltoall") != (launches["route_bin"] > 0)
+                    or (cap_frac < 1) == (launches["route_restore"] > 0)
+                    and routing == "alltoall"):
+                raise AssertionError(f"{tag}: launches {launches}")
+            if name == "deep q8 routed" and tuple(shape) == (1, 4):
+                # The profiler phase (f) on rank 0; every rank runs the
+                # same steps.
+                if rank == 0:
+                    phase_profile(torch, {"name": tag + " (rank 0)",
+                                          "model": lambda *_: step(),
+                                          "b1": b1[rows], "b2": None},
+                                  spec["card"] + ", gloo", "26",
+                                  PROFILE_STEPS["mesh"])
+                else:
+                    for _ in range(WARMUP + PROFILE_STEPS["mesh"]):
+                        step()
+                    torch.cuda.synchronize()
+    M._local_classify_routed = routed
+    (work / f"rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "cases": cases}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_nccl_one_rank(torch, deep, q8_out: dict, card: str) -> None:
+    """Phase 27: a one-rank NCCL world on the card, and the (1, 1) sharded
+    step through make_sharded_classify_fn, whose merge is NCCL's
+    all-reduce on the hits: its outputs against phase 21's q8 step."""
+    import torch.distributed as dist
+
+    from pangea_tpu_torch.dist import mesh as M
+    store = ROOT / "build" / "chip_smoke" / "nccl_store"
+    store.unlink(missing_ok=True)
+    di = deep["dis"]["q8"]
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = M.Mesh(M.MeshConfig(1, 1), di.fused.device)
+        fn = M.make_sharded_classify_fn(di.cfg, mesh)
+        out = fn(di.tables, deep["b16"])
+        torch.cuda.synchronize()
+        mism, _ = compare([q8_out[k] for k in ("taxon", "best", "nvalid")],
+                          [out[k].cpu() for k in ("taxon", "best",
+                                                  "nvalid")])
+        ms = time_ms(torch, lambda: fn(di.tables, deep["b16"]), PIPELINED)
+        log(f"[27] one-rank NCCL world ({dist.get_backend()}, "
+            f"{mesh!r}): the (1, 1) step with NCCL's all-reduce of the hits "
+            f"on {card}: {ms} ms back to back for {DEEP_READS} reads; "
+            f"mismatches against phase 21's q8 step {mism}")
+    finally:
+        dist.destroy_process_group()
+    if mism:
+        raise AssertionError("the NCCL step disagrees")
+
+
+def phase_config3_cli(torch, deep) -> dict:
+    """Phase 28: config 3's CLI (its file, the deep 4-shard index, C3_READS
+    single-end reads of the deep reads' seed, batches of 262,144): the mesh
+    of one card is (1, 1), so the four file shards lay out as one q8
+    table; the first 16,384 lines against the one-rank step at config 3's
+    threshold."""
+    import dataclasses
+
+    from pangea_tpu_torch.classify import classify_reads
+    _, err = deep["gen"].communicate(timeout=900)
+    if deep["gen"].returncode != 0:
+        raise AssertionError(f"config 3's reads: {err[-4000:]}")
+    with open(ROOT / "configs" / "config3_shotgun_sharded.json") as fh:
+        thr = json.load(fh)["classify"]["confidence_threshold"]
+    world = {"name": "config3", "idx_dirs": [str(deep["dir"] / "sidx")],
+             "config": "config3_shotgun_sharded.json"}
+    result, rows = run_cli(world, "28", [str(deep["c3_fastq"])],
+                           batch=262_144)
+    launches = result["kernel_launches"]
+    di = deep["dis"]["q8"]
+    cfg = dataclasses.replace(di.cfg, confidence_threshold=thr)
+    out = classify_reads(di.tables, deep["b16"], cfg)
+    ids = deep["reads"].ids
+    bad = sum((r[1], int(r[2]), r[5]) != (
+        ids[i], int(out["taxon"][i]),
+        f"{int(out['best'][i])}/{int(out['nvalid'][i])}")
+        for i, r in enumerate(rows[:DEEP_READS]))
+    log(f"[28] config 3: {len(rows)} lines, mesh {result['mesh']}, "
+        f"{result['batches']} batches, {result['reads_per_sec']} reads/s; "
+        f"first {DEEP_READS} lines vs the one-rank step at threshold {thr}: "
+        f"mismatches {bad}")
+    if len(rows) != C3_READS or bad or result["mesh"] != {"data": 1,
+                                                          "shard": 1} \
+            or not result["fast_path"] or launches["lookup_q8_sorted"] < 1:
+        raise AssertionError(f"config 3's CLI is wrong: {json.dumps(result)}")
+    return launches
+
+
 def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
@@ -1540,6 +2021,8 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no src/pangea_tpu_torch",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"]:             # a rank of phase 26
+        return rank_main(int(sys.argv[2]), sys.argv[3])
     sys.path.insert(0, str(ROOT / "src"))
     from pangea_tpu_torch.kernels import KERNELS as WRAPPERS
     if set(WRAPPERS) != set(KERNELS):
@@ -1553,9 +2036,10 @@ def main() -> int:
     try:
         return run_phases(torch, cuda, card, deep, t_start)
     finally:
-        if deep["proc"].poll() is None:
-            deep["proc"].kill()
-            deep["proc"].wait()
+        for name in ("proc", "ooc", "gen"):
+            if deep[name] is not None and deep[name].poll() is None:
+                deep[name].kill()
+                deep[name].wait()
 
 
 def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
@@ -1583,7 +2067,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
                                                   worlds["wide"]["b2"])
     phase_std_kernels(torch, worlds, cuda, res)
     wide = worlds["wide"]
-    out = phase_step(torch, wide, card, "8", {
+    out = wide["out8"] = phase_step(torch, wide, card, "8", {
         **none, "extract_probes": 2, "lookup_std": 1, "score_taxon": 1,
         "lca_lift": 1}, plain_calls=1, plain_reps=PLAIN_REPS)
     std_cli = phase_cli(wide, out, "9", fastq)
@@ -1618,19 +2102,28 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     # Phases 19-23: the deep-table path on the deep world.
     phase_deep_build(torch, cuda, deep)
     phase_deep_kernels(torch, deep, wide, res, card)
-    del wide
-    out = phase_deep_steps(torch, deep, card)
-    deep_cli = phase_deep_cli(deep, out)
+    q8_out = phase_deep_steps(torch, deep, card)
+    deep_cli = phase_deep_cli(deep, q8_out)
     phase_profile(torch, {"name": "deep q8", "model": deep["models"]["q8"],
                           "b1": deep["b16"], "b2": None}, card, "23",
                   PROFILE_STEPS["deep"])
 
-    # The main paths' launches: each CLI run's own counts, and the q12 and
-    # std deep steps' (phase 21).
+    # Phases 24-28: config 3's sharded index.
+    phase_sharded_build(torch, deep)
+    phase_route_kernels(torch, deep, wide, res, card)
+    spec = save_mesh_inputs(torch, deep, wide, card)
+    del wide
+    mesh = phase_mesh(spec, card)
+    phase_nccl_one_rank(torch, deep, q8_out, card)
+    c3_cli = phase_config3_cli(torch, deep)
+
+    # The main paths' launches: each CLI run's own counts, the q12 and std
+    # deep steps' (phase 21) and the multi-rank steps' (phase 26).
     clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
             "long": long_cli, "fast_long": fast_long_cli, "deep": deep_cli,
             "deep_q12_step": deep["launches"]["q12"],
-            "deep_std_step": deep["launches"]["std"]}
+            "deep_std_step": deep["launches"]["std"], "mesh": mesh,
+            "config3": c3_cli}
     for path, kernels in (
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
@@ -1646,13 +2139,18 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             ("deep_q12_step", ("extract_probes", "bucket_sort",
                                "lookup_q12_sorted", "score_tin")),
             ("deep_std_step", ("extract_probes", "bucket_sort",
-                               "lookup_std_sorted", "score_taxon"))):
+                               "lookup_std_sorted", "score_taxon")),
+            ("mesh", ("extract_probes", "route_bin", "route_restore",
+                      "lookup_std_owned", "score_tin", "score_taxon")),
+            ("config3", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
+                         "score_tin"))):
         if min(clis[path][k] for k in kernels) < 1:
             raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[24] kernel launches of the six CLI runs and the two deep steps: "
-        f"{json.dumps(clis)}; whole run {time.time() - t_start:.1f} s")
+    log(f"[29] kernel launches of the seven CLI runs, the two deep steps "
+        f"and the multi-rank steps: {json.dumps(clis)}; whole run "
+        f"{time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],

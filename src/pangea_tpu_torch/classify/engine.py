@@ -1,7 +1,9 @@
 """The classify step: reads -> probes -> table lookup -> per-read score.
 
-Counterpart of ``pangea_tpu/classify/engine.py`` for one device, with the
-q8, q12 and std table layouts. A batch is an int8 [B, L] code tensor (pad =
+Counterpart of ``pangea_tpu/classify/engine.py`` on one device, with the
+q8, q12 and std table layouts, on a whole table or on one shard of a
+sharded one (the sharded steps of ``dist/mesh.py`` run it on each
+rank). A batch is an int8 [B, L] code tensor (pad =
 4), or, with ``packed_len=L``, the native reader's packed wire rows int32
 [B, ceil(L/16) + ceil(L/32)] (the CLI's fast path); mates are concatenated
 at the probe level, mate 1 first (SEMANTICS.md §8), and ``nvalid`` counts
@@ -28,15 +30,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..index import pick_layout, relayout_q8, relayout_q12, relayout_std
+from ..index import (ShardedIndex, pick_layout, shard_tables,
+                     shard_tables_quot)
+from ..index.container import EMPTY_HI
 from ..index.quot import Q8_WAYS, Q12_WAYS
+from ..index.shard import (QUOT_LAYOUTS, STASH_PAD, extract_pairs_tables,
+                           pad_stash)
 from ..kernels.lookup import (fuse_stash, fuse_table, lookup_q8,
                               lookup_q8_plain, lookup_q8_sorted,
                               lookup_q8_sorted_plain, lookup_q12,
                               lookup_q12_plain, lookup_q12_sorted,
                               lookup_q12_sorted_plain, lookup_std,
-                              lookup_std_plain, lookup_std_sorted,
-                              lookup_std_sorted_plain, takes_sorted)
+                              lookup_std_owned, lookup_std_plain,
+                              lookup_std_sorted, lookup_std_sorted_plain,
+                              takes_sorted)
 from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
@@ -80,56 +87,84 @@ class DeviceIndex:
 
     @classmethod
     def from_index(cls, index, device, confidence_threshold: float = 0.0,
-                   layout: str | None = None) -> "DeviceIndex":
-        """Lay a host :class:`~pangea_tpu_torch.index.Index` out as the
-        device table :func:`~pangea_tpu_torch.index.pick_layout` chooses
-        for it (q8, q12 or std; ``layout`` requests one, as the reference's
-        ``layout=`` does) and place it on ``device``."""
+                   layout: str | None = None, n_shards: int = 1,
+                   shard_id: int = 0, agree=None) -> "DeviceIndex":
+        """Lay shard ``shard_id`` of an index split ``n_shards`` ways out as
+        the device table :func:`~pangea_tpu_torch.index.pick_layout`
+        chooses for it (q8, q12 or std; ``layout`` requests one, as the
+        reference's ``layout=`` does) and place it on ``device``: the
+        slice of the reference's [S, ...] tables that a rank of a mesh
+        with S shards holds (``place_index``, ``dist/mesh.py:79``).
+
+        ``index`` is an :class:`~pangea_tpu_torch.index.Index` or a
+        :class:`~pangea_tpu_torch.index.ShardedIndex`. A sharded index of
+        n_shards file shards is placed as the reference's streaming
+        placements do (``mesh.py:124``, ``:228``): only shard
+        ``shard_id``'s files are laid out, and a quotient layout's common
+        bucket count, with any stash-overflow restart, is agreed by
+        ``agree``, a function that returns the largest of the values all
+        ranks pass (the mesh's all-reduce MAX; None when this one process
+        places every shard, which then reads every shard's count). Any
+        other index is laid out whole and sliced."""
         tax = index.taxonomy
-        layout = pick_layout(index.meta.n_kmers, 1, index.meta.k,
+        layout = pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
                              int(tax.tout.max(initial=0)),
                              requested=layout or "auto")
+        streaming = (isinstance(index, ShardedIndex)
+                     and index.meta.n_shards == n_shards)
         if layout in ("q8", "q12"):
             ways = Q8_WAYS if layout == "q8" else Q12_WAYS
-            relayout = relayout_q8 if layout == "q8" else relayout_q12
-            out = relayout(index, ways)
-            if out is None:
-                raise NotImplementedError(
-                    f"the {layout} relayout is ineligible for this index")
-            fused, stash3, _nb = out
+            if streaming:
+                fused, stash3 = _stream_quot(index, shard_id, layout, ways,
+                                             agree)
+            else:
+                out = shard_tables_quot(index, n_shards, ways, layout=layout)
+                if out is None:
+                    raise NotImplementedError(
+                        f"the {layout} relayout is ineligible for this index")
+                fused, stash3 = out[0][shard_id], out[1][shard_id]
+        elif streaming:
+            fused, stash3 = _stream_std(index, shard_id)
+            ways = index.meta.ways
         else:
-            key_hi, key_lo, val, stash3 = relayout_std(index)
+            key_hi, key_lo, val, stash3 = (
+                a[shard_id] for a in shard_tables(index, n_shards))
             fused = fuse_table(key_hi, key_lo, val, tax.tin, tax.tout)
             ways = key_hi.shape[-1]
-        stash = fuse_stash(stash3[0], tax.tin, tax.tout)[None]
-        cfg = ClassifyConfig(k=index.meta.k,
+        cfg = ClassifyConfig(k=index.meta.k, n_shards=n_shards,
                              confidence_threshold=confidence_threshold,
                              w=index.meta.w, ways=ways, layout=layout)
-        tables = {"fused": fused, "stash": stash,
+        tables = {"fused": fused,
+                  "stash": fuse_stash(stash3, tax.tin, tax.tout),
                   "tax": tax.device_arrays()}
         return cls.from_numpy_tables(tables, cfg, device)
 
     @classmethod
-    def from_numpy_tables(cls, tables: dict, cfg, device) -> "DeviceIndex":
+    def from_numpy_tables(cls, tables: dict, cfg, device,
+                          shard_id: int = 0) -> "DeviceIndex":
         """Carry the reference's host tables over: ``tables`` is
-        ``pangea_tpu`` ``DeviceIndex.from_index(idx, layout=...,
-        device_put=False).tables`` for layout "q8", "q12" or "std" (numpy:
-        fused uint32 [1, NB, lanes], stash uint32 [1, 5, S], the tax dict)
-        and ``cfg`` its ``cfg``."""
+        ``pangea_tpu`` ``DeviceIndex.from_index(idx, n_shards=S,
+        layout=..., device_put=False).tables`` (or ``place_index``'s) for
+        layout "q8", "q12" or "std" (numpy: fused uint32 [S, NB, lanes],
+        stash uint32 [S, 5, S_max], the tax dict) and ``cfg`` its ``cfg``;
+        the rank of shard ``shard_id`` takes that shard's slice. 2-D
+        arrays are one shard's already."""
         cfg = ClassifyConfig(**dataclasses.asdict(cfg))
-        if cfg.layout not in ("q8", "q12", "std") or cfg.n_shards != 1 \
-                or cfg.n_sub != 1:
+        if cfg.layout not in ("q8", "q12", "std") or cfg.n_sub != 1:
             raise NotImplementedError(
-                f"layout {cfg.layout!r} on {cfg.n_shards} shards x "
-                f"{cfg.n_sub} sub-tables: the port runs one q8, q12 or std "
-                "table (ROADMAP A6)")
+                f"layout {cfg.layout!r} with {cfg.n_sub} sub-tables: the "
+                "port runs one q8, q12 or std table a shard (n_sub > 1 is "
+                "not ported, ROADMAP A7)")
+        if not 0 <= shard_id < cfg.n_shards:
+            raise ValueError(f"shard {shard_id} of {cfg.n_shards}")
 
         def lanes(a, ndim):
             a = np.asarray(a)
             if a.ndim == ndim + 1:
-                if a.shape[0] != 1:
-                    raise NotImplementedError("sharded tables (ROADMAP A6)")
-                a = a[0]
+                if a.shape[0] != cfg.n_shards:
+                    raise ValueError(f"tables of {a.shape[0]} shards, cfg "
+                                     f"says {cfg.n_shards}")
+                a = a[shard_id]
             return torch.from_numpy(
                 np.ascontiguousarray(a).view(np.int32)).to(device)
 
@@ -142,6 +177,59 @@ class DeviceIndex:
     @property
     def tables(self) -> dict:
         return {"fused": self.fused, "stash": self.stash, "tax": self.tax}
+
+
+def _stream_std(sidx, shard_id: int):
+    """The reference's ``_place_sharded_streaming`` for one rank: file
+    shard shard_id fused (a smaller shard repeated to the largest's bucket
+    count) and its stash padded to the widest, from the metadata alone.
+    Returns (fused uint32 [NB_max, 4W | 6W], stash uint32 [3, S_max])."""
+    meta, tax = sidx.meta, sidx.taxonomy
+    khi, klo, val, st = sidx.open_shard(shard_id)
+    fused = fuse_table(khi, klo, val, tax.tin, tax.tout)
+    reps = max(meta.shard_buckets) // fused.shape[0]
+    if reps > 1:
+        fused = np.tile(fused, (reps, 1))
+    return fused, pad_stash(np.asarray(st), max(max(meta.shard_stash), 1))
+
+
+def _stream_quot(sidx, shard_id: int, layout: str, ways: int, agree):
+    """The reference's ``_place_sharded_streaming_quot`` for one rank: the
+    largest shard's key count sets one bucket count for all shards, file
+    shard shard_id is laid out at it, and a shard whose stash overflows
+    makes every shard restart at its bigger count. With ``agree`` (the
+    all-reduce MAX over every rank) a rank reads only its own shard;
+    without it this process reads them all. Returns (fused uint32 [NB, RL],
+    stash uint32 [3, STASH_PAD])."""
+    layout_fn, nb_fn = QUOT_LAYOUTS[layout]
+    meta, tax = sidx.meta, sidx.taxonomy
+    mine = [shard_id] if agree else range(meta.n_shards)
+    agree = agree or (lambda v: v)
+
+    def n_keys(s):
+        khi, _, _, st = sidx.open_shard(s)
+        n = int((khi != EMPTY_HI).sum())
+        return n + int((st[0] != EMPTY_HI).sum()) if st.shape[1] else n
+
+    nb = nb_fn(agree(max(n_keys(s) for s in mine)), meta.k, ways)
+    if nb is None:
+        raise NotImplementedError(f"the {layout} relayout is ineligible "
+                                  "for this index")
+    while True:                                   # restart at a bigger nb
+        grew, keep = nb, None
+        for s in mine:
+            canon, taxa = extract_pairs_tables(*sidx.open_shard(s))
+            fused, st3, nb_s = layout_fn(canon, taxa, tax.tin, tax.tout,
+                                         meta.k, ways=ways, min_nb=nb)
+            if nb_s > nb:
+                grew = nb_s
+                break
+            if s == shard_id:
+                keep = (fused, pad_stash(st3, STASH_PAD))
+        grew = agree(grew)
+        if grew == nb:
+            return keep
+        nb = grew
 
 
 def _extract_probes(bases, mate_bases, cfg: ClassifyConfig, plain: bool,
@@ -165,29 +253,56 @@ def _extract_probes(bases, mate_bases, cfg: ClassifyConfig, plain: bool,
     return hi, lo, valid
 
 
-def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
-                   mate_bases=None, packed_len: int = 0,
-                   plain: bool = False) -> dict:
-    """The read -> assignment step. tables: :attr:`DeviceIndex.tables`;
-    packed_len=L: the inputs are packed wire rows of L bases. plain=True
-    runs the plain PyTorch versions on any device (the reference the
-    kernels are held to). Returns dict(taxon, best, nvalid) int32 [B]."""
-    hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
-                                    packed_len)
+def probe_tables(tables: dict, hi, lo, valid, cfg: ClassifyConfig,
+                 shard_id: int = 0, plain: bool = False):
+    """The probes (hi, lo, valid), any shape, on one shard's table: (hit or
+    taxon, t_in, t_out) int32 like hi, by the layout's lookup, unsorted or
+    past the deep-table gate sorted (the reference's ``_probe_tables``).
+    A std table of cfg.n_shards > 1 shards masks the probes shard_id does
+    not own; the quotient layouts need no mask."""
     fused = tables["fused"]
-    kernel, plain_fn = LOOKUPS[cfg.layout, takes_sorted(cfg.layout,
-                                                         hi.numel(), fused)]
+    srt = takes_sorted(cfg.layout, hi.numel(), fused)
+    kernel, plain_fn = LOOKUPS[cfg.layout, srt]
+    fn = plain_fn if plain else kernel
     args = {"q8": (cfg.k,), "q12": (cfg.k, cfg.ways),
             "std": (cfg.ways,)}[cfg.layout]
-    lanes, t_in, t_out = (plain_fn if plain else kernel)(
-        hi, lo, valid, fused, tables["stash"], *args)
+    kw = {}
+    if cfg.layout == "std" and cfg.n_shards > 1:
+        kw = {"owner": (cfg.n_shards, shard_id)}
+        if not srt and not plain:
+            fn = lookup_std_owned
+    return fn(hi, lo, valid, fused, tables["stash"], *args, **kw)
+
+
+def score_hits(hits, valid, tax: dict, cfg: ClassifyConfig,
+               plain: bool = False) -> dict:
+    """The per-read score of the hits (hits, valid [B, R]): dict(taxon,
+    best, nvalid) int32 [B]."""
     if cfg.layout == "std":
         score = score_reads_taxon_plain if plain else score_reads_taxon
     else:
         score = score_reads_tin_plain if plain else score_reads_tin
-    taxon, best, nvalid = score(lanes, t_in, t_out, valid, tables["tax"],
-                                cfg.confidence_threshold)
+    taxon, best, nvalid = score(*hits, valid, tax, cfg.confidence_threshold)
     return {"taxon": taxon, "best": best, "nvalid": nvalid}
+
+
+def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
+                   mate_bases=None, packed_len: int = 0,
+                   plain: bool = False, shard_id: int = 0,
+                   merge_hits=None) -> dict:
+    """The read -> assignment step. tables: :attr:`DeviceIndex.tables`;
+    packed_len=L: the inputs are packed wire rows of L bases. plain=True
+    runs the plain PyTorch versions on any device (the reference the
+    kernels are held to). On one shard of a sharded table, shard_id names
+    it and merge_hits, applied to the hits triple before scoring, merges
+    the shards' hits (the sharded steps' all-reduce). Returns dict(taxon,
+    best, nvalid) int32 [B]."""
+    hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
+                                    packed_len)
+    hits = probe_tables(tables, hi, lo, valid, cfg, shard_id, plain)
+    if merge_hits is not None:
+        hits = merge_hits(hits)
+    return score_hits(hits, valid, tables["tax"], cfg, plain)
 
 
 class Classifier(nn.Module):

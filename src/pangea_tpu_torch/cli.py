@@ -8,8 +8,9 @@
         [--config run.json] [--device cuda] [key.dotted=value ...]
 
 The subcommands and flags are those of ``pangea-tpu``; ``gen-testdata`` and
-``build`` write the same files as the reference's (host code only; ``build
---ooc-shards`` raises, ROADMAP A5). For ``classify``, every argument after
+``build`` (in memory, or out of core into a sharded container with
+``--ooc-shards N``) write the same files as the reference's (host code
+only). For ``classify``, every argument after
 the known ones is a dotted config override (``config.py``), e.g.
 ``input.batch_size=8192``. Several indexes (built on one taxonomy) are
 classified together and merged per read (SEMANTICS.md §9), as config 4
@@ -50,7 +51,12 @@ def main(argv=None) -> int:
     b.add_argument("--load-factor", type=float, default=0.5)
     b.add_argument("--ways", type=int, default=16, help="bucket width")
     b.add_argument("--ooc-shards", type=int, default=0,
-                   help="out-of-core build into N shards (not ported)")
+                   help="out-of-core build into N hash-range shards "
+                        "(bounded RAM; RefSeq scale). 0 = in-memory")
+    b.add_argument("--parts-per-shard", type=int, default=8)
+    b.add_argument("--spill-dir", default=None,
+                   help="spill directory for --ooc-shards (default: temp "
+                        "dir next to --out)")
     b.add_argument("--out", required=True)
 
     g = sub.add_parser("gen-testdata",
@@ -131,7 +137,9 @@ def _cmd_build(args) -> int:
     run_build(refs=args.refs, taxonomy_path=args.taxonomy, k=args.k,
               out=args.out, w=args.minimizer_w, names_dmp=args.names_dmp,
               taxid_map_path=args.taxid_map, load_factor=args.load_factor,
-              ways=args.ways, ooc_shards=args.ooc_shards)
+              ways=args.ways, ooc_shards=args.ooc_shards,
+              parts_per_shard=args.parts_per_shard,
+              spill_dir=args.spill_dir)
     return 0
 
 

@@ -39,6 +39,23 @@
 // and the second writes its 16-byte record and its place; the restore
 // reads 20 bytes and writes 12 a probe. Shared-memory atomics do the
 // counting; a tile makes one global atomic a key in each pass.
+//
+// K10 (pangea_route_bin): the routing bin of the routed sharded step,
+// replacing the lax.sort, searchsorted and four scatters of the
+// XLA-compiled reference function
+//   src/pangea_tpu/dist/mesh.py:371  _local_classify_routed (B14), :410-430
+// with the third key rule: key = the probe's owner shard, the top log2 S
+// bits of hash32 (:410). An invalid probe stays home (no slot, no count,
+// inv = -1: its answer is zeros), where the reference sends it to owner 0
+// as padding (:412), which fills owner 0's bin. One scatter pass of the
+// same tile code, with no scan: a key's run of places starts at its owner's
+// first slot owner * C, so each probe lands at owner * C + its rank among
+// its owner's probes when that rank is below C, and counts an overflow
+// otherwise (inv = -1, no record). The grid is zeroed first, so unused slots
+// carry valid 0, and the counts end as each owner's total: the caller's
+// overflow flag is max(counts) > C. The way back is the restore below, on
+// the records the owners answered: out[i] = answer[inv[i]]. Bytes bound it:
+// 9 bytes read and 20 written a probe, plus the S * C * 16-byte grid zeroed.
 #include "common.cuh"
 
 namespace {
@@ -48,20 +65,27 @@ constexpr int kItems = 8;                  // probes a thread in a tile
 constexpr long long kTile = kThreads * kItems;
 constexpr int kRestoreThreads = 256;
 
+enum KeyKind { kQuotBucket, kStdBucket, kOwner };
+constexpr uint32_t kHome = 0xFFFFFFFFu;   // kOwner: an invalid probe's key
+
 struct KeyRule {
-  bool quot;           // the q8/q12 bucket (else the std bucket)
+  KeyKind kind;        // the q8/q12 bucket, the std bucket or the owner
   int m, r;            // quotient mix width and remainder bits
   uint32_t nb_mask;    // NB - 1
-  int shift;
+  int shift;           // kOwner: 32 - log2 S (0: one shard)
   uint32_t key_mask;   // (NB >> shift) - 1
 };
 
 __device__ __forceinline__ uint32_t probe_key(const KeyRule& rule,
                                               uint32_t hi, uint32_t lo,
                                               bool ok, long long i) {
+  if (rule.kind == kOwner) {
+    if (!ok) return kHome;
+    return rule.shift > 0 ? hash32(hi, lo) >> rule.shift : 0u;
+  }
   if (!ok) return static_cast<uint32_t>(i) & rule.key_mask;
   uint64_t bucket;
-  if (rule.quot) {
+  if (rule.kind == kQuotBucket) {
     const uint64_t K = (static_cast<uint64_t>(hi) << 32) | lo;
     bucket = ((K * 0x9E3779B1ull) & ((1ull << rule.m) - 1)) >> rule.r;
   } else {
@@ -73,13 +97,16 @@ __device__ __forceinline__ uint32_t probe_key(const KeyRule& rule,
 // One tile of kTile probes a block, counted by key in shared memory
 // (tile_count, n_keys ints). kScatter = false adds the tile's counts to
 // counter; kScatter = true claims a run of counter's places for each key
-// and writes each probe's record at its run's place plus its rank.
+// and writes each probe's record at its run's place plus its rank: place
+// pos itself (cap = 0, the sort), or key * cap + pos while pos < cap (the
+// routing bin; a probe past cap, or with key kHome, writes no record and
+// gets inv = -1).
 template <bool kScatter>
 __global__ void count_or_scatter(const uint32_t* __restrict__ hi,
                                  const uint32_t* __restrict__ lo,
                                  const uint8_t* __restrict__ valid,
                                  long long N, KeyRule rule, int n_keys,
-                                 int* __restrict__ counter,
+                                 int cap, int* __restrict__ counter,
                                  SortedProbe* __restrict__ order,
                                  int32_t* __restrict__ inv) {
   extern __shared__ int tile_count[];
@@ -92,7 +119,7 @@ __global__ void count_or_scatter(const uint32_t* __restrict__ hi,
     const long long i = base + j * static_cast<long long>(kThreads);
     if (i < N) {
       key[j] = probe_key(rule, hi[i], lo[i], valid[i] != 0, i);
-      rank[j] = atomicAdd(&tile_count[key[j]], 1);
+      rank[j] = key[j] != kHome ? atomicAdd(&tile_count[key[j]], 1) : 0;
     }
   }
   __syncthreads();
@@ -109,10 +136,17 @@ __global__ void count_or_scatter(const uint32_t* __restrict__ hi,
   __syncthreads();
   for (int j = 0; j < kItems; ++j) {
     const long long i = base + j * static_cast<long long>(kThreads);
-    if (i < N) {
-      const int pos = tile_count[key[j]] + rank[j];
-      order[pos] = SortedProbe{static_cast<int32_t>(i), hi[i], lo[i],
-                               valid[i] != 0 ? 1u : 0u};
+    if (i < N && key[j] == kHome) {
+      inv[i] = -1;
+    } else if (i < N) {
+      int pos = tile_count[key[j]] + rank[j];
+      if (cap > 0) {
+        pos = pos < cap ? static_cast<int>(key[j]) * cap + pos : -1;
+      }
+      if (pos >= 0) {
+        order[pos] = SortedProbe{static_cast<int32_t>(i), hi[i], lo[i],
+                                 valid[i] != 0 ? 1u : 0u};
+      }
       inv[i] = pos;
     }
   }
@@ -160,7 +194,8 @@ __global__ void restore(const int32_t* __restrict__ inv,
   const long long i = blockIdx.x * static_cast<long long>(kRestoreThreads) +
                       threadIdx.x;
   if (i >= N) return;
-  const int4 v = sorted_out[inv[i]];
+  const int p = inv[i];
+  const int4 v = p >= 0 ? sorted_out[p] : make_int4(0, 0, 0, 0);
   o0[i] = v.x;
   o1[i] = v.y;
   o2[i] = v.z;
@@ -186,7 +221,7 @@ extern "C" int pangea_bucket_sort(const void* hi, const void* lo,
   }
   if (N == 0) return 0;
   KeyRule rule;
-  rule.quot = k > 0;
+  rule.kind = k > 0 ? kQuotBucket : kStdBucket;
   rule.m = 2 * k;
   rule.r = r;
   rule.nb_mask = static_cast<uint32_t>(NB - 1);
@@ -203,19 +238,55 @@ extern "C" int pangea_bucket_sort(const void* hi, const void* lo,
   const auto v = static_cast<const uint8_t*>(valid);
   const auto c = static_cast<int*>(counts);
   count_or_scatter<false><<<blocks, kThreads, smem, s>>>(
-      h, l, v, N, rule, n_keys, c, nullptr, nullptr);
+      h, l, v, N, rule, n_keys, 0, c, nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   scan_counts<<<1, kThreads, 0, s>>>(c, n_keys);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   count_or_scatter<true><<<blocks, kThreads, smem, s>>>(
-      h, l, v, N, rule, n_keys, c, static_cast<SortedProbe*>(order),
+      h, l, v, N, rule, n_keys, 0, c, static_cast<SortedProbe*>(order),
       static_cast<int32_t*>(inv));
   return static_cast<int>(cudaGetLastError());
 }
 
-// inv int32 [N] (pangea_bucket_sort's); sorted_out int32 [N, 4], a sorted
-// lookup's outputs in sorted order; o0/o1/o2 int32 [N]: the first three
-// lanes of each probe's record, in the probes' own order.
+// K10. hi/lo int32 bit patterns and valid bytes [N]; S = 2^log2S owners
+// (log2S <= 12) of C slots each; counts: int32 [S], written with each
+// owner's valid probes; records: int32 [S * C, 4], the slot grid, written with
+// the records (index, hi, lo, valid) of the probes that fit and zeros
+// elsewhere; inv: int32 [N], each probe's slot, or -1 for an invalid probe
+// and past its owner's C.
+extern "C" int pangea_route_bin(const void* hi, const void* lo,
+                                const void* valid, long long N, int log2S,
+                                int C, void* counts, void* records,
+                                void* inv, void* stream) {
+  if (N < 0 || N > INT_MAX || log2S < 0 || log2S > 12 || C < 1 ||
+      (static_cast<long long>(C) << log2S) > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_keys = 1 << log2S;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * n_keys, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(records, 0,
+                        sizeof(SortedProbe) * (static_cast<size_t>(C) << log2S),
+                        s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (N == 0) return 0;
+  KeyRule rule{};
+  rule.kind = kOwner;
+  rule.shift = log2S > 0 ? 32 - log2S : 0;
+  count_or_scatter<true><<<blocks_for(N, kTile), kThreads,
+                           sizeof(int) * n_keys, s>>>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+      static_cast<const uint8_t*>(valid), N, rule, n_keys, C,
+      static_cast<int*>(counts), static_cast<SortedProbe*>(records),
+      static_cast<int32_t*>(inv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// inv int32 [N] (pangea_bucket_sort's or pangea_route_bin's); sorted_out
+// int32 [M, 4], a sorted lookup's outputs in sorted order or the owners'
+// answers in slot order; o0/o1/o2 int32 [N]: the first three lanes of each
+// probe's record, in the probes' own order (zeros where inv is -1).
 extern "C" int pangea_bucket_restore(const void* inv, const void* sorted_out,
                                      long long N, void* o0, void* o1,
                                      void* o2, void* stream) {

@@ -1,8 +1,11 @@
 // K4: std bucket-row probe plus full-key stash scan, one table shard.
 //
 // Replaces the XLA-compiled reference function
-//   src/pangea_tpu/kernels/lookup.py:94  lookup_jnp (B8), n_shards = 1
-// (its _std_lanes :125-147 and the stash scan :165-172). The reference
+//   src/pangea_tpu/kernels/lookup.py:94  lookup_jnp (B8)
+// (its _std_lanes :125-147 and the stash scan :165-172), with its owner
+// mask for a table of S > 1 shards (:117-120; B14's std branch): a probe
+// whose owner, the top log2 S bits of hash32, is not this shard gives zeros
+// (owner_shift = 32 - log2 S; 0 turns the mask off). The reference
 // gathers whole [N, 4W | 6W] rows into device memory and compares them in
 // a second pass; here a group of kProbeLanes (8) lanes owns one probe and
 // reads its row's hi lanes once, and the lo, val and Euler lanes only where
@@ -49,6 +52,7 @@ __global__ void lookup_std_kernel(const uint32_t* __restrict__ hi,
                                   uint32_t nb_mask, int W, int lanes,
                                   bool packed,
                                   const uint32_t* __restrict__ stash, int S,
+                                  int owner_shift, uint32_t shard_id,
                                   const SortedProbe* __restrict__ order,
                                   int4* __restrict__ sorted_out,
                                   int32_t* __restrict__ taxon,
@@ -74,8 +78,10 @@ __global__ void lookup_std_kernel(const uint32_t* __restrict__ hi,
   }
   // a: pk (packed) or tin (wide); c: tout (wide only).
   uint32_t tax = 0, a = 0, c = 0, s_tax = 0, s_in = 0, s_out = 0;
+  const uint32_t h = hash32(qhi, qlo);
+  if (owner_shift > 0 && (h >> owner_shift) != shard_id) ok = false;
   if (ok) {
-    const uint32_t bucket = hash32(qhi, qlo) & nb_mask;
+    const uint32_t bucket = h & nb_mask;
     const uint32_t* row = fused + static_cast<size_t>(bucket) * lanes;
     for (int j = g; j < W; j += kProbeLanes) {
       if (row[j] == qhi && row[W + j] == qlo) {
@@ -119,20 +125,23 @@ __global__ void lookup_std_kernel(const uint32_t* __restrict__ hi,
 }  // namespace
 
 // hi/lo int32 bit patterns and valid bytes [N]; fused [NB, 4W] (packed) or
-// [NB, 6W] (wide) and stash [5, S] int32 bit patterns; order: NULL, or K9's
-// int32 [N, 4] sorted probes (index, hi, lo, valid), which the sorted form
-// takes in place of hi/lo/valid, writing (taxon, t_in, t_out, 0) a probe in
-// sorted order to sorted_out, int32 [N, 4], in place of taxon/t_in/t_out,
-// int32 [N].
+// [NB, 6W] (wide) and stash [5, S] int32 bit patterns; owner_shift: 0, or
+// 32 - log2 of the table's shard count, with shard_id the table's shard (the
+// owner mask); order: NULL, or K9's int32 [N, 4] sorted probes (index, hi,
+// lo, valid), which the sorted form takes in place of hi/lo/valid, writing
+// (taxon, t_in, t_out, 0) a probe in sorted order to sorted_out, int32
+// [N, 4], in place of taxon/t_in/t_out, int32 [N].
 extern "C" int pangea_lookup_std(const void* hi, const void* lo,
                                  const void* valid, long long N,
                                  const void* fused, long long NB, int W,
                                  int packed, const void* stash, int S,
+                                 int owner_shift, int shard_id,
                                  const void* order, void* sorted_out,
                                  void* taxon, void* t_in, void* t_out,
                                  void* stream) {
   if (NB < 1 || NB > (1ll << 32) || (NB & (NB - 1)) != 0 || W < 1 ||
-      S < 0) {
+      S < 0 || owner_shift < 0 || owner_shift > 31 || shard_id < 0 ||
+      (owner_shift > 0 && (shard_id >> (32 - owner_shift)) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
@@ -145,8 +154,9 @@ extern "C" int pangea_lookup_std(const void* hi, const void* lo,
       static_cast<const uint8_t*>(valid), N,
       static_cast<const uint32_t*>(fused),
       static_cast<uint32_t>(NB - 1), W, lanes, packed != 0,
-      static_cast<const uint32_t*>(stash), S,
-      static_cast<const SortedProbe*>(order), static_cast<int4*>(sorted_out),
+      static_cast<const uint32_t*>(stash), S, owner_shift,
+      static_cast<uint32_t>(shard_id), static_cast<const SortedProbe*>(order),
+      static_cast<int4*>(sorted_out),
       static_cast<int32_t*>(taxon), static_cast<int32_t*>(t_in),
       static_cast<int32_t*>(t_out));
   return static_cast<int>(cudaGetLastError());

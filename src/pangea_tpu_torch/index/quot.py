@@ -1,13 +1,11 @@
-"""The one-shard device relayouts of an index, numpy only.
+"""The quotient table layouts of an index, numpy only.
 
 The port's copy of the reference's q8 and q12 table builders and sizing
 (``pangea_tpu/kernels/lookup.py`` ``q8_hash_np``, ``q8_rem_bits``,
 ``q8_nb_for``, ``q12_nb_for``, ``q8_layout``, ``_q12_row_lanes``,
-``_q12_split_np``, ``q12_layout``, ``_bucket_rank``) and of its one-shard
-relayouts (``pangea_tpu/index/shard.py`` ``extract_pairs``,
-``shard_tables_quot`` and ``shard_tables`` at one shard).
-``tests/test_torch_quot.py`` and ``tests/test_torch_q12.py`` hold them
-byte-identical to the reference.
+``_q12_split_np``, ``q12_layout``, ``_bucket_rank``); ``shard.py`` lays an
+index's shards out with them. ``tests/test_torch_quot.py`` and
+``tests/test_torch_q12.py`` hold them byte-identical to the reference.
 
 q8 (SEMANTICS.md §5): the canonical k-mer K (2k bits) is mixed by the
 bijection h = K·A mod 2^(2k); bucket = the top log2(NB) bits of h, rem =
@@ -20,10 +18,6 @@ q12 (the k=31 lane, where r = 2k − log2(NB) exceeds 31): the same mix and
 split, with the remainder in two lanes. A row holds W = 42 rem_lo lanes (the
 low 32 remainder bits), W rem_hi lanes (the rest; empty = 0xFFFFFFFF, which
 no real rem_hi reaches), W payload lanes and 2 pad lanes: 128 lanes, 512 B.
-
-std: the index's own layout (``build.layout_table``) at its bucket width,
-with the stash padded to at least one column of EMPTY_HI keys, as the
-reference's ``stack_parts`` does.
 """
 from __future__ import annotations
 
@@ -212,81 +206,3 @@ def q12_layout(kmers, taxa, tin, tout, k: int, ways: int = Q12_WAYS,
         else:
             stash = np.zeros((3, 0), dtype=np.uint32)
         return fused, stash, nb
-
-
-def extract_pairs(index):
-    """Recover (canon uint64[N] ascending, taxon int32[N]) from an index's
-    table (bucket rows + stash; padded stash columns excluded)."""
-    occ = index.key_hi != np.uint32(EMPTY_HI)
-    hi = index.key_hi[occ].astype(np.uint64)
-    lo = index.key_lo[occ].astype(np.uint64)
-    canon = (hi << np.uint64(32)) | lo
-    taxa = np.asarray(index.val)[occ]
-    stash = index.stash
-    if stash is not None and stash.shape[1]:
-        s_hi, s_lo, s_val = stash
-        s_real = s_hi != np.uint32(EMPTY_HI)
-        canon = np.concatenate(
-            [canon, (s_hi[s_real].astype(np.uint64) << np.uint64(32))
-             | s_lo[s_real].astype(np.uint64)])
-        taxa = np.concatenate([taxa, s_val.view(np.int32)[s_real]])
-    order = np.argsort(canon, kind="stable")
-    return canon[order], taxa[order]
-
-
-def _relayout_quot(index, ways: int, load_factor: float, layout_fn, nb_fn):
-    """The reference's ``shard_tables_quot`` at one shard, for the layout
-    whose builder is ``layout_fn`` and whose sizing is ``nb_fn``."""
-    tax = index.taxonomy
-    if int(tax.tout.max(initial=0)) > 0xFFFF:
-        return None
-    k = index.meta.k
-    canon, taxa = extract_pairs(index)
-    nb = nb_fn(int(canon.shape[0]), k, ways, load_factor)
-    if nb is None:
-        return None
-    while True:                     # a stash overflow can outgrow nb
-        out = layout_fn(canon, taxa, tax.tin, tax.tout, k, ways=ways,
-                        load_factor=load_factor, min_nb=nb)
-        if out is None:
-            return None
-        fused, stash3, nb_s = out
-        if nb_s <= nb:
-            break
-        nb = nb_s
-    return fused[None], stash3[None], nb
-
-
-def relayout_q8(index, ways: int = Q8_WAYS, load_factor: float = 0.5):
-    """One-shard q8 relayout of an index: the reference's
-    ``shard_tables_quot(index, 1, ways, load_factor, "q8")``.
-
-    Returns (fused uint32 [1, NB, 2W], stash uint32 [1, 3, S], nb), or
-    None when the layout is ineligible."""
-    return _relayout_quot(index, ways, load_factor, q8_layout, q8_nb_for)
-
-
-def relayout_q12(index, ways: int = Q12_WAYS, load_factor: float = 0.5):
-    """One-shard q12 relayout of an index: the reference's
-    ``shard_tables_quot(index, 1, ways, load_factor, "q12")``.
-
-    Returns (fused uint32 [1, NB, 128], stash uint32 [1, 3, S], nb), or
-    None when the Euler stamps exceed 16 bits."""
-    return _relayout_quot(index, ways, load_factor, q12_layout, q12_nb_for)
-
-
-def relayout_std(index, load_factor: float = 0.5):
-    """One-shard std relayout of an index: the reference's
-    ``shard_tables(index, 1, load_factor)``, the index's pairs laid out
-    again at ``index.meta.ways``.
-
-    Returns (key_hi uint32 [1, NB, W], key_lo uint32 [1, NB, W], val int32
-    [1, NB, W], stash uint32 [1, 3, max(S, 1)])."""
-    from .build import layout_table
-    canon, taxa = extract_pairs(index)
-    key_hi, key_lo, val, st, _nb = layout_table(canon, taxa, load_factor,
-                                                ways=index.meta.ways)
-    stash = np.zeros((1, 3, max(st.shape[1], 1)), dtype=np.uint32)
-    stash[:, 0, :] = EMPTY_HI
-    stash[0, :, :st.shape[1]] = st
-    return key_hi[None], key_lo[None], val[None], stash

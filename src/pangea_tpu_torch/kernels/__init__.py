@@ -6,10 +6,13 @@ from .lookup import (bucket_sort, bucket_sort_plain, fuse_stash,
                      fuse_table, hash32, lookup_q8, lookup_q8_plain,
                      lookup_q8_sorted, lookup_q8_sorted_plain, lookup_q12,
                      lookup_q12_plain, lookup_q12_sorted,
-                     lookup_q12_sorted_plain, lookup_std, lookup_std_plain,
-                     lookup_std_sorted, lookup_std_sorted_plain, mix32)
+                     lookup_q12_sorted_plain, lookup_std, lookup_std_owned,
+                     lookup_std_plain, lookup_std_sorted,
+                     lookup_std_sorted_plain, mix32)
 from .minimize import (extract_probes, extract_probes_packed,
                        extract_probes_plain, select_minimizers)
+from .route import (route_bin, route_bin_plain, route_restore,
+                    route_restore_plain)
 from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
                     pscore_ranked_plain, score_ranked, score_reads_plain,
                     score_reads_taxon, score_reads_taxon_plain,
@@ -28,7 +31,9 @@ KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "extract_packed": extract_probes_packed,
            "bucket_sort": bucket_sort, "lookup_q8_sorted": lookup_q8_sorted,
            "lookup_q12_sorted": lookup_q12_sorted,
-           "lookup_std_sorted": lookup_std_sorted}
+           "lookup_std_sorted": lookup_std_sorted,
+           "lookup_std_owned": lookup_std_owned, "route_bin": route_bin,
+           "route_restore": route_restore}
 
 
 def kernel_launches() -> dict:
@@ -48,9 +53,11 @@ __all__ = ["KERNELS", "bucket_sort", "bucket_sort_plain", "extract_kmers",
            "lca_pairs_plain", "lookup_q8", "lookup_q8_plain",
            "lookup_q8_sorted", "lookup_q8_sorted_plain", "lookup_q12",
            "lookup_q12_plain", "lookup_q12_sorted", "lookup_q12_sorted_plain",
-           "lookup_std", "lookup_std_plain", "lookup_std_sorted",
-           "lookup_std_sorted_plain", "mix32",
-           "pscore_ranked_plain", "reset_kernel_launches", "score_ranked",
+           "lookup_std", "lookup_std_owned", "lookup_std_plain",
+           "lookup_std_sorted", "lookup_std_sorted_plain", "mix32",
+           "pscore_ranked_plain", "reset_kernel_launches", "route_bin",
+           "route_bin_plain", "route_restore", "route_restore_plain",
+           "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",
            "score_reads_tin_plain", "score_winners", "score_winners_plain",

@@ -51,10 +51,12 @@ SIGNATURES = {
     # sorted_out, hit, t_in, t_out, stream
     "pangea_lookup_q12": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P),
-    # hi, lo, valid, N, fused, NB, W, packed, stash, S, order, sorted_out,
-    # taxon, t_in, t_out, stream
-    "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I,
-                          _P, _P, _P, _P, _P, _P),
+    # hi, lo, valid, N, fused, NB, W, packed, stash, S, owner_shift,
+    # shard_id, order, sorted_out, taxon, t_in, t_out, stream
+    "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
+                          _I, _P, _P, _P, _P, _P, _P),
+    # hi, lo, valid, N, log2 S, C, counts, records, inv, stream
+    "pangea_route_bin": (_P, _P, _P, _I64, _I, _I, _P, _P, _P, _P),
     # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
     # thr, o0..o5, stream
     "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,

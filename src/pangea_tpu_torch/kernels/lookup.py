@@ -3,8 +3,9 @@
 Counterpart of ``pangea_tpu/kernels/lookup.py``: ``mix32``/``hash32``
 (``mix32_jnp``/``hash32_jnp``), ``lookup_q8`` (``lookup_q8_jnp``, kernel K2),
 ``lookup_q12`` (``lookup_q12_jnp``, K2's q12 form) and ``lookup_std``
-(``lookup_jnp`` for one shard, kernel K4), with the host builders of the
-std device rows, ``fuse_table`` and ``fuse_stash``. The port has no
+(``lookup_jnp``, kernel K4; ``lookup_std_owned`` is its owner mask for one
+shard of an S-shard table, K4's masked form), with the host builders of
+the std device rows, ``fuse_table`` and ``fuse_stash``. The port has no
 counterpart of the reference's chunked gather (``_chunked_pk``): it leaves
 the outputs unchanged.
 
@@ -489,13 +490,29 @@ def _std_geometry(fused: torch.Tensor, ways: int) -> bool:
     return lanes == 4 * ways
 
 
-def lookup_std_plain(hi, lo, valid, fused, stash, ways: int):
+def _owner_shift(owner) -> tuple[int, int]:
+    """(32 - log2 S, shard id) of an owner mask (n_shards, shard_id), or
+    (0, 0) for none (None or one shard)."""
+    if owner is None or owner[0] == 1:
+        return 0, 0
+    n_shards, shard_id = owner
+    log2s = n_shards.bit_length() - 1
+    if n_shards != 1 << log2s or not 0 <= shard_id < n_shards:
+        raise ValueError(f"owner mask: shard {shard_id} of {n_shards}")
+    return 32 - log2s, shard_id
+
+
+def lookup_std_plain(hi, lo, valid, fused, stash, ways: int, owner=None):
     """Plain PyTorch std probe (any device), one shard. hi/lo int32 bit
     patterns and valid bool, any shape; fused int32 [NB, 4W | 6W]; stash
-    int32 [5, S]. Returns (taxon, t_in, t_out) int32 like hi: the hit
-    taxon (0 = miss or invalid) and its Euler interval; every sum wraps
-    in 32 bits, as the reference's do."""
+    int32 [5, S]; owner: None, or (n_shards, shard_id) of a table that is
+    one shard of n_shards, where a probe whose owner (the top log2
+    n_shards bits of hash32) is another shard gives zeros (the reference's
+    owner mask, lookup.py:117-120). Returns (taxon, t_in, t_out) int32
+    like hi: the hit taxon (0 = miss, not owned or invalid) and its Euler
+    interval; every sum wraps in 32 bits, as the reference's do."""
     packed = _std_geometry(fused, ways)
+    shift, shard_id = _owner_shift(owner)
     W = ways
     shape = hi.shape
     hi, lo, valid = hi.reshape(-1), lo.reshape(-1), valid.reshape(-1)
@@ -503,7 +520,10 @@ def lookup_std_plain(hi, lo, valid, fused, stash, ways: int):
     outs = []
     for s in range(0, max(hi.shape[0], 1), _PLAIN_CHUNK):
         h_c, l_c, v_c = (x[s:s + _PLAIN_CHUNK] for x in (hi, lo, valid))
-        bucket = _hash32(widen(h_c), widen(l_c)) & mask
+        h = _hash32(widen(h_c), widen(l_c))
+        if shift:
+            v_c = v_c & ((h >> shift) == shard_id)
+        bucket = h & mask
         rows = fused[bucket]                            # [n, 4W | 6W]
         match = (v_c[:, None] & (rows[:, :W] == h_c[:, None])
                  & (rows[:, W:2 * W] == l_c[:, None]))
@@ -531,11 +551,11 @@ def lookup_std_plain(hi, lo, valid, fused, stash, ways: int):
 def lookup_std(hi, lo, valid, fused, stash, ways: int):
     """std probe: the plain version for CPU tensors, kernel K4
     (``csrc/lookup_std.cu``) for CUDA tensors. Same contract as
-    :func:`lookup_std_plain`."""
+    :func:`lookup_std_plain` without an owner mask."""
     dev = _build.dispatch_device(hi, lo, valid, fused, stash)
     if dev is None:
         return lookup_std_plain(hi, lo, valid, fused, stash, ways)
-    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, None)
+    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, None, None)
     lookup_std.launches += 1
     return out
 
@@ -543,28 +563,45 @@ def lookup_std(hi, lo, valid, fused, stash, ways: int):
 lookup_std.launches = 0
 
 
+def lookup_std_owned(hi, lo, valid, fused, stash, ways: int, owner):
+    """std probe of one shard of a sharded table, owner = (n_shards,
+    shard_id): the plain version for CPU tensors, K4's masked form for
+    CUDA tensors. Same contract as :func:`lookup_std_plain`."""
+    dev = _build.dispatch_device(hi, lo, valid, fused, stash)
+    if dev is None:
+        return lookup_std_plain(hi, lo, valid, fused, stash, ways, owner)
+    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, None, owner)
+    lookup_std_owned.launches += 1
+    return out
+
+
+lookup_std_owned.launches = 0
+
+
 def lookup_std_sorted_plain(hi, lo, valid, fused, stash, ways: int,
-                            order=None):
+                            order=None, owner=None):
     """Plain sorted std probe, as :func:`lookup_q8_sorted_plain` with the
     std bucket. Equal to :func:`lookup_std_plain`."""
     if order is None:
         order = bucket_sort_plain(hi, lo, valid, fused.shape[0])
     return _sorted_plain(lookup_std_plain, order, hi.shape, fused, stash,
-                         ways)
+                         ways, owner)
 
 
-def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None):
+def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None,
+                      owner=None):
     """Sorted std probe: the plain version for CPU tensors; for CUDA tensors
-    K9 (unless ``order`` is given), then K4's sorted form. Same contract as
+    K9 (unless ``order`` is given), then K4's sorted form (with the owner
+    mask when ``owner`` is given). Same contract as
     :func:`lookup_std_plain`."""
     dev = _build.dispatch_device(hi, lo, valid, fused, stash)
     if dev is None:
         return lookup_std_sorted_plain(hi, lo, valid, fused, stash, ways,
-                                       order)
+                                       order, owner)
     if order is None:
         order = bucket_sort(hi, lo, valid, fused.shape[0])
     _check_order(order, hi)
-    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, order)
+    out = _std_kernel(dev, hi, lo, valid, fused, stash, ways, order, owner)
     lookup_std_sorted.launches += 1
     return out
 
@@ -572,17 +609,19 @@ def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None):
 lookup_std_sorted.launches = 0
 
 
-def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order):
-    """K4 on CUDA tensors; K9's order selects its sorted form."""
+def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order, owner):
+    """K4 on CUDA tensors; K9's order selects its sorted form and owner
+    (n_shards, shard_id) its owner mask."""
     _build.check(hi, torch.int32, name="hi")
     _build.check(lo, torch.int32, shape=hi.shape, name="lo")
     _build.check(valid, torch.bool, shape=hi.shape, name="valid")
     _build.check(fused, torch.int32, ndim=2, name="fused")
     _build.check(stash, torch.int32, ndim=2, name="stash")
     packed = _std_geometry(fused, ways)
+    shift, shard_id = _owner_shift(owner)
     if stash.shape[0] != 5:
         raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
     return _launch_lookup(
         "pangea_lookup_std", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
         valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], ways,
-        int(packed), stash.data_ptr(), stash.shape[1])
+        int(packed), stash.data_ptr(), stash.shape[1], shift, shard_id)

@@ -1,16 +1,17 @@
-"""The offline index build and the streaming classify run on one device.
+"""The offline index build and the streaming classify run.
 
 ``run_build`` is the reference's: the genomes of reference FASTAs (the
 taxon from a ``taxid=N`` header key or a seqid-to-taxid map) -> canonical
-k-mers -> LCA merge -> table -> the index directory, byte-equal to the
-reference's on the same inputs. Its out-of-core form (``ooc_shards`` > 0)
-writes a sharded container, which the port does not run yet (ROADMAP A5).
+k-mers -> LCA merge -> table -> the index directory, or with ``ooc_shards``
+> 0 the out-of-core builder's sharded container, byte-equal to the
+reference's on the same inputs.
 
 The classify run is the counterpart of ``pangea_tpu/pipeline/run.py``
-``run_classify`` on one device, for one or more indexes (q8, q12 or std
-layout each) built on one taxonomy: each batch runs one
-:class:`MultiKClassifier` step (several
-indexes merge on the device, SEMANTICS.md §9), and the run writes
+``run_classify``, for one or more indexes (q8, q12 or std layout each)
+built on one taxonomy, on one device or on a mesh of ranks (one process a
+rank, ``dist/mesh.py``): each batch runs one sharded step (several indexes
+merge on the device, SEMANTICS.md §9; one index may route its probes to
+their owners with ``mesh.routing=alltoall``), and rank 0 writes
 ``{sample}.assign.tsv``, ``{sample}.summary.tsv`` (plus
 ``cohort.summary.tsv`` for several samples) and ``stats.json`` exactly as
 the reference does. Like ``run_classify`` (its lines 729-734), it takes one
@@ -55,10 +56,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..classify.engine import DeviceIndex, MultiKClassifier, pad_batch
+from ..classify.engine import pad_batch
 from ..config import RunConfig, dump_config
-from ..index import build_index, load_index_any
+from ..dist.mesh import (OUT_KEYS, Mesh, MeshConfig, MeshStep, choose_mesh,
+                         initialize_multihost, place_index)
+from ..index import build_index, build_index_ooc, load_index_any
 from ..io import native
 from ..io.fastx import FastxReader, read_batches
 from ..io.native import (NativeFastxReader, TaxBlobs,
@@ -73,7 +77,6 @@ from ..taxonomy import Taxonomy
 
 LONG_BUCKET_ROWS = 64        # the least reads a long-read launch holds
 DRAIN_DEPTH = 4              # launched batches that may await the drain
-_OUT_KEYS = ("taxon", "best", "nvalid")
 _END = object()
 
 
@@ -124,13 +127,13 @@ def run_build(refs: list[str], taxonomy_path: str, k: int, out: str,
               w: int = 1, names_dmp: str | None = None,
               taxid_map_path: str | None = None,
               load_factor: float = 0.5, ways: int = 16,
-              ooc_shards: int = 0):
+              ooc_shards: int = 0, parts_per_shard: int = 8,
+              spill_dir: str | None = None):
     """Build an index from reference FASTAs into the directory ``out``, as
-    the reference's ``run_build`` does in memory; returns the Index."""
-    if ooc_shards:
-        raise NotImplementedError(
-            "build --ooc-shards writes a sharded container, which the port "
-            "does not run yet (ROADMAP A5, A6)")
+    the reference's ``run_build`` does: in memory, or with ooc_shards = S >
+    0 out of core into a sharded container of S shards (parts_per_shard
+    spill partitions a shard, in spill_dir or a temporary directory).
+    Returns the Index or ShardedIndex."""
     tax = load_taxonomy_any(taxonomy_path, names_dmp)
     taxid_map = None
     if taxid_map_path:
@@ -140,20 +143,25 @@ def run_build(refs: list[str], taxonomy_path: str, k: int, out: str,
                 a, b = line.split()[:2]
                 taxid_map[a] = int(b)
     t0 = time.time()
-    idx = build_index(_genomes_from_fasta(refs, tax, taxid_map), tax, k=k,
-                      w=w, load_factor=load_factor, ways=ways,
-                      progress=lambda n: print(f"[build] {n} genomes scanned",
-                                               file=sys.stderr))
-    idx.save(out)
+    genomes = _genomes_from_fasta(refs, tax, taxid_map)
+    if ooc_shards:
+        idx = build_index_ooc(
+            genomes, tax, k=k, out=out, w=w, n_shards=ooc_shards,
+            parts_per_shard=parts_per_shard, load_factor=load_factor,
+            spill_dir=spill_dir, ways=ways,
+            progress=lambda m: print(f"[build] {m}", file=sys.stderr))
+    else:
+        idx = build_index(genomes, tax, k=k, w=w, load_factor=load_factor,
+                          ways=ways, progress=lambda n: print(
+                              f"[build] {n} genomes scanned",
+                              file=sys.stderr))
+        idx.save(out)
     print(f"[build] {idx} in {time.time() - t0:.1f}s -> {out}",
           file=sys.stderr)
     return idx
 
 
 def _check_supported(c: RunConfig) -> None:
-    if c.mesh.n_data > 1 or c.mesh.n_shard > 1 or c.dist.num_processes > 1:
-        raise NotImplementedError(
-            "a mesh of more than one device is not ported yet (ROADMAP A6)")
     if c.trim.min_qual > 0 or c.trim.min_len or c.trim.max_len \
             or c.demux.barcodes:
         raise NotImplementedError(
@@ -232,14 +240,15 @@ def _tally(state: dict, sample: str, n: int, taxon: np.ndarray,
     t["reads"] += n
     t["classified"] += int((taxon != 0).sum())
     t["batches"] += 1
-    print(f"[classify] batch {t['batches']}: {n} reads ({t['reads']} "
-          "total)", file=sys.stderr)
+    if state["write"]:
+        print(f"[classify] batch {t['batches']}: {n} reads ({t['reads']} "
+              "total)", file=sys.stderr)
 
 
 def _run_general(cfg: RunConfig, model, tax, device, inputs,
                  state: dict) -> None:
     out_dir = cfg.classify.out_dir
-    B, L = cfg.input.batch_size, cfg.input.max_read_len
+    B, L = state["batch"], cfg.input.max_read_len
     max_long = max(cfg.input.max_long_read_len, L)
     host_sec = state["host_sec"]
     sinks: dict = {}
@@ -260,22 +269,23 @@ def _run_general(cfg: RunConfig, model, tax, device, inputs,
                                              L, max_long)
                 state["truncated"] += cut
                 lap("pad")
-                res = {k: np.zeros(n, np.int32) for k in _OUT_KEYS}
+                res = {k: np.zeros(n, np.int32) for k in OUT_KEYS}
                 for sub, bases, mates in launches:
                     out = model(torch.from_numpy(bases).to(device),
                                 None if mates is None
                                 else torch.from_numpy(mates).to(device))
-                    for k in _OUT_KEYS:
+                    for k in OUT_KEYS:
                         res[k][sub] = out[k].cpu().numpy()
                 lap("step")
-                if sample not in sinks:
-                    sinks[sample] = open(
-                        os.path.join(out_dir, f"{sample}.assign.tsv"), "w")
-                sinks[sample].write("".join(format_assignment(
-                    AssignmentRecord(batch.ids[i], int(res["taxon"][i]),
-                                     int(res["best"][i]),
-                                     int(res["nvalid"][i])), tax)
-                    for i in range(n)))
+                if state["write"]:
+                    if sample not in sinks:
+                        sinks[sample] = open(os.path.join(
+                            out_dir, f"{sample}.assign.tsv"), "w")
+                    sinks[sample].write("".join(format_assignment(
+                        AssignmentRecord(batch.ids[i], int(res["taxon"][i]),
+                                         int(res["best"][i]),
+                                         int(res["nvalid"][i])), tax)
+                        for i in range(n)))
                 _tally(state, sample, n, res["taxon"], tax.num_taxa + 1)
                 lap("write")
             lap("parse")                  # the read files' last, empty read
@@ -291,7 +301,7 @@ def _run_general(cfg: RunConfig, model, tax, device, inputs,
 def _run_fast(cfg: RunConfig, model, tax, device, inputs,
               state: dict) -> None:
     out_dir = cfg.classify.out_dir
-    B, L = cfg.input.batch_size, cfg.input.max_read_len
+    B, L = state["batch"], cfg.input.max_read_len
     stride = wire_width(L)
     host_sec = state["host_sec"]
     blobs = TaxBlobs(tax)
@@ -331,12 +341,13 @@ def _run_fast(cfg: RunConfig, model, tax, device, inputs,
             while (item := drain_q.get()) is not _END:
                 sample, n, ids, out = item
                 t0 = time.perf_counter()
-                res = {k: out[k].cpu().numpy() for k in _OUT_KEYS}
+                res = {k: out[k].cpu().numpy() for k in OUT_KEYS}
                 t1 = time.perf_counter()
                 path = os.path.join(out_dir, f"{sample}.assign.tsv")
-                write_assignments_native(path, path in written, ids, n,
-                                         res["taxon"], res["best"],
-                                         res["nvalid"], blobs)
+                if state["write"]:
+                    write_assignments_native(path, path in written, ids, n,
+                                             res["taxon"], res["best"],
+                                             res["nvalid"], blobs)
                 written.add(path)
                 _tally(state, sample, n, res["taxon"], tax.num_taxa + 1)
                 host_sec["fetch"] += t1 - t0
@@ -389,17 +400,46 @@ def _write_reports(out_dir: str, counts: dict, tax) -> None:
 
 def run_classify_basic(cfg: RunConfig, device) -> dict:
     """Classify cfg.input's read files against the indexes of cfg.classify
-    on ``device``; returns run metrics."""
+    on ``device``; returns run metrics. With cfg.dist.num_processes > 1 the
+    process is one rank of that many (each launched with its
+    dist.process_id): the ranks join over NCCL for CUDA devices, a card
+    each (cuda:{rank % cards} unless the device names one), and over gloo
+    on the CPU; the run spans the mesh of cfg.mesh (or choose_mesh's for
+    the world and the largest index), as the reference's ``run_classify``
+    does: every rank streams the same batches and takes its rows, and rank
+    0 alone writes the outputs, stats and run config."""
     _check_supported(cfg)
-    out_dir = cfg.classify.out_dir
     if cfg.input.samples and len(cfg.input.samples) != len(cfg.input.reads):
         raise ValueError(f"{len(cfg.input.samples)} sample names for "
                          f"{len(cfg.input.reads)} read files")
     if cfg.input.mates and len(cfg.input.mates) != len(cfg.input.reads):
         raise ValueError(f"{len(cfg.input.mates)} mate files for "
                          f"{len(cfg.input.reads)} read files")
-    os.makedirs(out_dir, exist_ok=True)
-    dump_config(cfg, os.path.join(out_dir, "run_config.json"))
+    device = torch.device(device)
+    world = max(cfg.dist.num_processes, 1)
+    if device.type == "cuda" and world > 1:
+        if device.index is None:
+            rank = cfg.dist.process_id if cfg.dist.process_id >= 0 \
+                else int(os.environ["RANK"])
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    joined = initialize_multihost(
+        cfg.dist.coordinator, world, cfg.dist.process_id,
+        backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _classify(cfg, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _classify(cfg: RunConfig, device) -> dict:
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    out_dir = cfg.classify.out_dir
+    if rank0:
+        os.makedirs(out_dir, exist_ok=True)
+        dump_config(cfg, os.path.join(out_dir, "run_config.json"))
 
     indexes = [load_index_any(p) for p in cfg.classify.index]
     if not indexes:
@@ -409,9 +449,17 @@ def run_classify_basic(cfg: RunConfig, device) -> dict:
             raise ValueError("multi-k indexes built against different "
                              "taxonomies")
     tax = indexes[0].taxonomy
-    model = MultiKClassifier([
-        DeviceIndex.from_index(ix, device, cfg.classify.confidence_threshold)
-        for ix in indexes])
+    if cfg.mesh.n_data and cfg.mesh.n_shard:
+        mcfg = MeshConfig(cfg.mesh.n_data, cfg.mesh.n_shard)
+    else:
+        mcfg = choose_mesh(world, max(ix.nbytes for ix in indexes),
+                           int(cfg.mesh.per_device_hbm_budget_gb * (1 << 30)))
+    mesh = Mesh(mcfg, device)
+    print(f"[classify] {mesh!r}, {mesh.cfg.n_shard}-shard placement of "
+          f"{len(indexes)} index(es)", file=sys.stderr)
+    model = MeshStep([place_index(ix, mesh,
+                                  cfg.classify.confidence_threshold)
+                      for ix in indexes], mesh, cfg.mesh.routing)
     files = list(cfg.input.reads)
     mates = list(cfg.input.mates) or [None] * len(files)
     samples = list(cfg.input.samples) or default_sample_names(files)
@@ -422,20 +470,26 @@ def run_classify_basic(cfg: RunConfig, device) -> dict:
     fast = not cfg.input.long_reads and not os.environ.get("PANGEA_NO_NATIVE")
     if fast:
         native.library()     # set-up: built at first use, raises if it fails
-    print(f"[classify] {'fast' if fast else 'general'} path: "
-          + ("native reader, packed rows" if fast else
-             "Python reader, long reads in length buckets"),
-          file=sys.stderr)
+    if rank0:
+        print(f"[classify] {'fast' if fast else 'general'} path: "
+              + ("native reader, packed rows" if fast else
+                 "Python reader, long reads in length buckets"),
+              file=sys.stderr)
     phases = ("parse", "step", "fetch", "write") if fast else \
         ("parse", "pad", "step", "write")
-    state = {"counts": {}, "truncated": 0,
+    # Batch rows split evenly along the data axis (the reference's
+    # run_classify, run.py:718-720).
+    B = max(cfg.input.batch_size - cfg.input.batch_size % mcfg.n_data,
+            mcfg.n_data)
+    state = {"counts": {}, "truncated": 0, "batch": B, "write": rank0,
              "totals": {"reads": 0, "classified": 0, "batches": 0},
              "host_sec": dict.fromkeys(phases, 0.0)}
     launches0 = kernel_launches()
     t_start = time.time()
     (_run_fast if fast else _run_general)(cfg, model, tax, device, inputs,
                                           state)
-    _write_reports(out_dir, state["counts"], tax)
+    if rank0:
+        _write_reports(out_dir, state["counts"], tax)
     wall = time.time() - t_start
     totals = state["totals"]
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
@@ -444,6 +498,8 @@ def run_classify_basic(cfg: RunConfig, device) -> dict:
             "reads_per_sec": round(totals["reads"] / max(wall, 1e-9), 1),
             "pct_classified": round(100.0 * totals["classified"]
                                     / max(totals["reads"], 1), 2),
+            "mesh": {"data": mcfg.n_data, "shard": mcfg.n_shard},
+            "rank": mesh.rank, "routing": cfg.mesh.routing,
             "samples": sorted(state["counts"]), "device": str(device),
             "fast_path": fast, "truncated_reads": state["truncated"],
             "kernel_launches": launches, "host_sec": state["host_sec"]}

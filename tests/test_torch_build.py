@@ -105,9 +105,23 @@ def test_classify_on_the_port_built_index(testdata, tmp_path, monkeypatch):
 
 
 def test_build_ooc_shards_raises(testdata, tmp_path):
+    """``build --ooc-shards 2`` (it raised before the port ran sharded
+    indexes) writes the JAX CLI's sharded directory, byte for byte, and
+    the port loads it as a ShardedIndex of the monolithic build's k-mers.
+    ``tests/test_torch_shard.py`` covers more shard counts."""
     d = testdata
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        cli.main(["build", "--refs", str(d / "refs.fasta"), "--taxonomy",
-                  str(d / "taxonomy.tsv"), "--ooc-shards", "2",
-                  "--out", str(tmp_path / "idx")])
-    assert not (tmp_path / "idx").exists()
+    common = ["build", "--refs", str(d / "refs.fasta"), "--taxonomy",
+              str(d / "taxonomy.tsv"), "--ooc-shards", "2"]
+    ref, port = tmp_path / "ref", tmp_path / "port"
+    assert ref_cli.main(common + ["--out", str(ref)]) == 0
+    assert cli.main(common + ["--out", str(port)]) == 0
+    for shard in ("shard000", "shard001"):
+        assert _same_tree(ref / shard, port / shard) == [
+            f"{name}.npy" for name in ("key_hi", "key_lo", "stash", "val")]
+    meta = "meta.json"
+    assert (port / meta).read_bytes() == (ref / meta).read_bytes()
+    sidx = load_index_any(str(port))
+    mono = tmp_path / "mono"
+    assert cli.main(common[:5] + ["--out", str(mono)]) == 0
+    assert sidx.meta.n_shards == 2 \
+        and sidx.meta.n_kmers == load_index_any(str(mono)).meta.n_kmers

@@ -2,6 +2,8 @@
 
 Exact equality throughout: every output is an integer.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +15,8 @@ from pangea_tpu.classify.engine import pad_batch as ref_pad_batch
 from pangea_tpu.golden import classify_reads_golden
 from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
                                        make_classify_fn, pad_batch)
-from pangea_tpu_torch.classify.engine import TAX_KEYS
+from pangea_tpu_torch.classify.engine import (TAX_KEYS, _extract_probes,
+                                              classify_reads, probe_tables)
 
 from .helpers import small_world
 
@@ -85,10 +88,41 @@ def test_pad_batch_is_the_reference_copy(world):
 
 
 def test_unsupported_layouts_raise(world):
-    """Sharded tables (the reference's placement on a mesh of two shards)
-    are not ported: they raise."""
-    _, _, idx, _ = world
-    ref = RefDeviceIndex.from_index(idx, n_shards=2, layout="q8",
-                                    device_put=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        DeviceIndex.from_numpy_tables(ref.tables, ref.cfg, "cpu")
+    """Sharded tables carry over, one shard a rank: the reference's tables
+    on a mesh of two shards give each shard's slice as the port's own
+    placement of that shard does, and the two shards' hits summed (the
+    broadcast step's merge) classify as the one-table step does, for q8
+    and std. Only the reference's sub-tables (n_sub > 1, not ported) still
+    raise."""
+    for layout in ("q8", "std"):
+        _check_two_shards(world, layout)
+
+
+def _check_two_shards(world, layout):
+    _, _, idx, rs = world
+    ref = RefDeviceIndex.from_index(idx, n_shards=2, layout=layout,
+                                    device_put=False, n_sub=1)
+    shards = []
+    for s in range(2):
+        a = DeviceIndex.from_numpy_tables(ref.tables, ref.cfg, "cpu",
+                                          shard_id=s)
+        b = DeviceIndex.from_index(idx, "cpu", layout=layout, n_shards=2,
+                                   shard_id=s)
+        assert a.cfg == b.cfg and a.cfg.n_shards == 2
+        for x, y in ((a.fused, b.fused), (a.stash, b.stash)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        shards.append(a)
+    b1, b2 = (torch.from_numpy(x) for x in _batch(rs))
+    hi, lo, valid = _extract_probes(b1, b2, shards[1].cfg, True)
+    other = probe_tables(shards[1].tables, hi, lo, valid, shards[1].cfg,
+                         shard_id=1)
+    got = classify_reads(shards[0].tables, b1, shards[0].cfg,
+                         mate_bases=b2, shard_id=0, merge_hits=lambda h: tuple(
+                             x + y for x, y in zip(h, other)))
+    whole = DeviceIndex.from_index(idx, "cpu", layout=layout)
+    want = classify_reads(whole.tables, b1, whole.cfg, mate_bases=b2)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    sub = dataclasses.replace(ref.cfg, n_sub=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        DeviceIndex.from_numpy_tables(ref.tables, sub, "cpu")

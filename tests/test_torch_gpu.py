@@ -50,7 +50,8 @@ _NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
          "lookup_std": 0, "score_taxon": 0, "lca_lift": 0, "lookup_q12": 0,
          "merge_multik": 0, "score_ranked": 0, "extract_packed": 0,
          "bucket_sort": 0, "lookup_q8_sorted": 0, "lookup_q12_sorted": 0,
-         "lookup_std_sorted": 0}
+         "lookup_std_sorted": 0, "lookup_std_owned": 0, "route_bin": 0,
+         "route_restore": 0}
 Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 
 
@@ -755,3 +756,124 @@ def test_sorted_classifier_cuda_matches_plain_and_golden(cuda, world,
     for key in ("taxon", "best", "nvalid"):
         assert torch.equal(got[key], plain[key].cpu())
         assert got[key].tolist() == [getattr(g, key) for g in gold]
+
+
+@pytest.mark.parametrize("n_shards,cap_frac", [(2, 1.25), (4, 1.25),
+                                               (8, 1.25), (4, 0.01)],
+                         ids=["s2", "s4", "s8", "s4_overflow"])
+def test_route_bin_kernel_matches_plain(cuda, n_shards, cap_frac):
+    """K10 puts each valid probe in its owner's bin once, with the plain
+    version's per-owner counts and overflow; the grid's unused slots are
+    zeros; K9's restore on the answers is the plain restore."""
+    from pangea_tpu_torch.kernels import (route_bin, route_bin_plain,
+                                          route_restore, route_restore_plain)
+    from pangea_tpu_torch.kernels.route import owner_of, route_capacity
+    rng = np.random.default_rng(n_shards)
+    n = 300_007
+    hi = torch.from_numpy(rng.integers(0, 1 << 10, n).astype(np.int32))
+    lo = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64)
+                          .astype(np.uint32).view(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    cap = route_capacity(n, n_shards, cap_frac)
+    _, pinv, pcounts = route_bin_plain(hi, lo, valid, n_shards, cap)
+    reset_kernel_launches()
+    records, inv, counts = (t.cpu() for t in route_bin(
+        hi.to(cuda), lo.to(cuda), valid.to(cuda), n_shards, cap))
+    assert kernel_launches()["route_bin"] == 1
+    assert torch.equal(counts, pcounts)
+    assert int((inv >= 0).sum()) == int((pinv >= 0).sum())
+    fits = inv >= 0
+    assert not fits[~valid].any()
+    owner = owner_of(hi, lo, n_shards)
+    assert torch.equal((inv[fits] // cap).long(), owner[fits])
+    rec = records[inv[fits].long()]
+    assert torch.equal(rec[:, 0], torch.arange(n, dtype=torch.int32)[fits])
+    assert torch.equal(rec[:, 1], hi[fits]) and torch.equal(rec[:, 2],
+                                                            lo[fits])
+    assert (rec[:, 3] == 1).all()
+    used = torch.zeros(records.shape[0], dtype=torch.bool)
+    used[inv[fits].long()] = True
+    assert int(used.sum()) == int(fits.sum()) and (records[~used] == 0).all()
+    answers = records[:, [1, 2, 0, 3]].contiguous()
+    got = route_restore(inv.to(cuda), answers.to(cuda))
+    assert kernel_launches()["route_restore"] == 1
+    for a, b in zip(got, route_restore_plain(inv, answers)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_lookup_std_owner_mask_matches_plain(cuda, world, n_shards):
+    """K4's masked form on every shard of a std table equals the plain
+    version's mask, unsorted and sorted; the shards' sums are the unmasked
+    probe."""
+    from pangea_tpu_torch.kernels import lookup_std_owned, lookup_std_sorted
+    idx = world[2]
+    tax = idx.taxonomy
+    hi, lo, valid = _probes(world)
+    f = torch.from_numpy(fuse_table(idx.key_hi, idx.key_lo, idx.val,
+                                    tax.tin, tax.tout).view(np.int32))
+    st = torch.from_numpy(fuse_stash(idx.stash, tax.tin, tax.tout)
+                          .view(np.int32))
+    args = (f, st, idx.meta.ways)
+    total = None
+    for s in range(n_shards):
+        want = lookup_std_plain(hi, lo, valid, *args, (n_shards, s))
+        on = [t.to(cuda) for t in (hi, lo, valid, f, st)]
+        reset_kernel_launches()
+        got = lookup_std_owned(*on, idx.meta.ways, (n_shards, s))
+        assert kernel_launches()["lookup_std_owned"] == 1
+        srt = lookup_std_sorted(*on, idx.meta.ways, owner=(n_shards, s))
+        for a, b, c in zip(want, got, srt):
+            assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
+        total = want if total is None else tuple(
+            x + y for x, y in zip(total, want))
+    for a, b in zip(total, lookup_std_plain(hi, lo, valid, *args)):
+        assert torch.equal(a, b)
+
+
+def _nccl_rank(rank, world, store, idx_dir, bases, q):
+    import datetime
+
+    import torch.distributed as dist
+
+    from pangea_tpu_torch.dist import mesh as M
+    from pangea_tpu_torch.index import load_index_any
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = M.Mesh(M.MeshConfig(1, world), dev)
+    di = M.place_index(load_index_any(idx_dir), mesh, 0.05)
+    fn = M.make_sharded_classify_fn(di.cfg, mesh, routing="alltoall")
+    out = fn(di.tables, bases.to(dev))
+    torch.cuda.synchronize()
+    if rank == 0:
+        q.put({k: v.cpu() for k, v in out.items()})
+    dist.destroy_process_group()
+
+
+def test_two_card_nccl_routed_step(world, tmp_path):
+    """The routed step over NCCL on two cards, one rank a card, equals the
+    one-device step."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch.multiprocessing as mp
+    _, _, idx, rs = world
+    idx.save(str(tmp_path / "idx"))
+    n = len(rs.seqs) - len(rs.seqs) % 2
+    bases = torch.from_numpy(pad_batch(rs.seqs, n, 120))
+    want = Classifier(DeviceIndex.from_index(idx, "cpu", 0.05))(bases)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_rank, args=(
+        r, 2, str(tmp_path / "store"), str(tmp_path / "idx"), bases, q))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    got = q.get(timeout=300)
+    for p in procs:
+        p.join(60)
+        assert p.exitcode == 0
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

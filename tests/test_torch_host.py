@@ -89,9 +89,26 @@ def test_index_saved_by_one_loads_in_the_other(tmp_path, direction):
 
 
 def test_sharded_index_directory_raises(tmp_path):
-    (tmp_path / "meta.json").write_text(json.dumps({"sharded": True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        index.load_index_any(str(tmp_path))
+    """A sharded directory (it raised before the port ran sharded indexes)
+    loads as a ShardedIndex equal to the reference's load of it, and a
+    directory whose meta.json lacks the taxonomy still raises."""
+    tax = ref_datagen.make_taxonomy(seed=0)
+    genomes = ref_datagen.make_genomes(tax, genome_len=2000, seed=1)
+    ref_index.build_index_ooc(genomes, tax, k=21, out=str(tmp_path / "idx"),
+                              n_shards=4, parts_per_shard=2)
+    want = ref_index.load_index_any(str(tmp_path / "idx"))
+    got = index.load_index_any(str(tmp_path / "idx"))
+    assert isinstance(got, index.ShardedIndex)
+    assert dataclasses.asdict(got.meta) == dataclasses.asdict(want.meta)
+    assert got.nbytes == want.nbytes and len(got.shards) == 4
+    for a, b in zip(got.shards, want.shards):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert got.taxonomy.content_hash() == want.taxonomy.content_hash()
+    (tmp_path / "bad").mkdir()
+    (tmp_path / "bad" / "meta.json").write_text(json.dumps({"sharded": True}))
+    with pytest.raises(TypeError):
+        index.load_index_any(str(tmp_path / "bad"))
 
 
 def _tsv(tmp_path):

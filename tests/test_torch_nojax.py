@@ -9,7 +9,9 @@ through the multi-k step over both, and through run_classify_basic's fast path
 (the port's native reader) and long-read path, equal to the reference's
 golden model; the port's own ``gen-testdata`` and ``build`` then make an
 index that classifies through the sorted deep-table lookup (its gate
-lowered) as golden does.
+lowered) as golden does, and ``build --ooc-shards 2`` a sharded index that
+classifies as golden does on one device and through the routed step of a
+2-rank gloo world.
 """
 import ast
 import json
@@ -139,9 +141,55 @@ res = Classifier(di)(torch.from_numpy(pad_batch(single.seqs, 40, 100)))
 assert sorts == [1], sorts
 out.append({"layout": "sorted " + di.cfg.layout,
             **{key: v.tolist() for key, v in res.items()}})
+LK._DEEP_ROWS = 1 << 17
+# build --ooc-shards 2 -> one device (the shards merged into one table),
+# and a 2-rank gloo world (the streaming placement, the routed step).
+import subprocess
+assert cli.main(["build", "--refs", os.path.join(g, "refs.fasta"),
+                 "--taxonomy", os.path.join(g, "taxonomy.tsv"), "--k", "21",
+                 "--ooc-shards", "2", "--out", os.path.join(g, "sidx")]) == 0
+sidx = load_index_any(os.path.join(g, "sidx"))
+di = DeviceIndex.from_index(sidx, torch.device("cpu"), 0.0)
+res = Classifier(di)(torch.from_numpy(pad_batch(single.seqs, 40, 100)))
+out.append({"layout": f"{type(sidx).__name__} {di.cfg.layout}",
+            **{key: v.tolist() for key, v in res.items()}})
+import numpy as np
+np.save(os.path.join(g, "single.npy"), pad_batch(single.seqs, 40, 100))
+procs = [subprocess.Popen([sys.executable, "-c", RANK, g, str(r)])
+         for r in range(2)]
+assert [p.wait(timeout=120) for p in procs] == [0, 0]
+out.append(json.load(open(os.path.join(g, "routed.json"))))
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
 assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
 print("NOJAX " + json.dumps(out))
+"""
+
+
+# One rank of a 2-rank gloo world: the routed step on the 2-shard index.
+_RANK = """
+import datetime, json, os, sys
+for name in ("jax", "jaxlib", "pangea_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+import torch.distributed as dist
+from pangea_tpu_torch.dist import mesh as M
+from pangea_tpu_torch.index import load_index_any
+g, rank = sys.argv[1], int(sys.argv[2])
+dist.init_process_group("gloo", init_method="file://" + g + "/store",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = M.Mesh(M.MeshConfig(1, 2), "cpu")
+di = M.place_index(load_index_any(os.path.join(g, "sidx")), mesh, 0.0)
+fn = M.make_sharded_classify_fn(di.cfg, mesh, routing="alltoall")
+res = fn(di.tables, torch.from_numpy(np.load(os.path.join(g, "single.npy"))))
+if rank == 0:
+    json.dump({"layout": "routed " + di.cfg.layout,
+               **{k: v.tolist() for k, v in res.items()}},
+              open(os.path.join(g, "routed.json"), "w"))
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
+assert not loaded & {"jax", "jaxlib", "pangea_tpu"}, loaded
+dist.destroy_process_group()
 """
 
 
@@ -153,13 +201,15 @@ def test_port_imports_and_classifies_without_jax():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, json.dumps(WORLDS), *modules],
+        [sys.executable, "-c", "RANK = " + repr(_RANK) + "\n" + _SCRIPT,
+         json.dumps(WORLDS), *modules],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [s for s in proc.stdout.splitlines() if s.startswith("NOJAX ")]
     got = json.loads(line[-1][len("NOJAX "):])
     assert [g["layout"] for g in got] == ["q8", "std", "multi-k", "fast",
-                                          "long", "sorted q8"]
+                                          "long", "sorted q8",
+                                          "ShardedIndex q8", "routed q8"]
     assert got[3]["fast_path"] is True and got[4]["fast_path"] is False
     tax = datagen.make_taxonomy(seed=1)
     genomes = datagen.make_genomes(tax, genome_len=2000, seed=2)
@@ -180,6 +230,8 @@ def test_port_imports_and_classifies_without_jax():
                                   seed=3)
     gold = classify_reads_golden(single.seqs, build_index(genomes, tax, k=21),
                                  0.0)
-    for key in ("taxon", "best", "nvalid"):
-        assert got[5][key] == [getattr(x, key) for x in gold], key
-    assert any(got[5]["taxon"])
+    for res in got[5:]:
+        for key in ("taxon", "best", "nvalid"):
+            assert res[key] == [getattr(x, key) for x in gold], \
+                (res["layout"], key)
+        assert any(res["taxon"])
