@@ -18,9 +18,12 @@ rows (K1's packed form); phases 19-23 drive the deep-table path (B15) on the
 reference bench's deep world (24 genomes of 700 kb, k=21, w=1: 14.0M
 k-mers), built by the port's own `build` CLI, whose q8 table of 524,288
 rows (268 MB, five times the L2) takes the sorted lookup: K9 sorts the
-probes by bucket, then the sorted form of K2 (or K4) probes them. The CLI
-runs of phases 5, 9, 13, 18 and 22 take the fast path (the native reader,
-built with g++ from the checkout), phase 17's the general path:
+probes by bucket, then the sorted form of K2 (or K4) probes them; phases
+24-28 drive config 3's sharded index, and phases 29-31 the repository's
+Pallas experiments (B16: K11-K13) through the port's `experiments` entry
+points. The CLI runs of phases 5, 9, 13, 18 and 22 take the fast path
+(the native reader, built with g++ from the checkout), phase 17's the
+general path:
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -119,7 +122,20 @@ built with g++ from the checkout), phase 17's the general path:
      4-shard index (one card: mesh (1, 1), one q8 table) with 1,048,576
      single-end reads in four batches of 262,144, its first 16,384 lines
      against the one-rank step at config 3's threshold, reads/s;
- 29. the launch summary.
+ 29. K11 and K12 (the Pallas row probe of experiments/mb_pallas.py)
+     against their plain versions, bit for bit: K11 on the experiment's
+     world (a 16,384 x 128 table, 524,288 queries, seed 0), on a
+     65,536-row table (past one wave of blocks) and at W = 32; K12 on the
+     same world and on a 1,024-row table, every query; timed, and K12's
+     one-hot product set against the int8 peak;
+ 30. K13 (the Pallas row gathers of experiments/mb_gather2-5.py) in every
+     variant of `experiments.mb_gather` at the scripts' shapes (a [2^19,
+     64] uint32 table of 134.2 MB, 2^20 or 2^19 indices, each (depth,
+     chunk), staged and direct; mb_gather4's 8-row block copies), against
+     row_gather_plain and timed beside torch.index_select;
+ 31. `python -m pangea_tpu_torch.experiments.mb_pallas` and `... .mb_gather`
+     as a user runs them: their lines at 0 mismatches, their launches;
+ 32. the launch summary.
 
 The plain paths are held to the JAX reference and its golden model by the
 CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
@@ -147,6 +163,13 @@ probe's 9 bytes and writes its slot (4 bytes) and the [S, C] grid of
 16-byte records once; its restore reads a slot and a 16-byte answer and
 writes 12 bytes a probe; K4's masked form reads every probe's lanes and
 writes its outputs, and touches the table only for the probes it owns.
+K11 and K12 read the table once and 8 B and write 4 B a query, with 2W
+operations a query; K12's one-hot product is also logged against the
+1,979 T/s dense int8 tensor-core peak. K13 reads and writes each row once
+and reads 4 B an index. library_ms is one PyTorch call of the same
+function, timed and used nowhere in the port: torch.index_select for K13's
+gathers, narrow().clone() for its block copy, and null for the kernels
+that no one PyTorch call computes.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -197,7 +220,7 @@ MAX_LONG = 16384
 # the std gate engages (a chunk of 32,768).
 DEEP_GENOME_LEN, DEEP_K = 700_000, 21
 DEEP_READS, DEEP_STD_READS = 16384, 65536
-# Config 3 (phases 24-29): the deep index built out of core in OOC_SHARDS
+# Config 3 (phases 24-28): the deep index built out of core in OOC_SHARDS
 # shards; K10 at ROUTE_SHARDS owners; MESH_RANKS rank processes on the one
 # card over gloo, at each of MESH_SHAPES; config 3's CLI on C3_READS reads
 # (its file's batches of 262,144), the deep reads' seed.
@@ -208,8 +231,19 @@ MESH_SHAPES = ((1, 4), (2, 2))
 MESH_REPS = 5            # timed steps of each multi-rank case
 C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
+# The Pallas experiments (phases 29-31): K11 on mb_pallas's world and on a
+# table of PROBE_TALL_NB rows (past one wave of blocks); K12 on the same
+# world and on a table of ONEH_SMALL_NB rows, every query. K13's variants
+# are the entry point's own (experiments.mb_gather.VARIANTS);
+# PRIMARY_GATHERS name the variant whose numbers each K13 wrapper's entry
+# of the kernels line carries.
+PROBE_TALL_NB = 65536
+ONEH_SMALL_NB = 1024
+PRIMARY_GATHERS = ("gather2_d16_c512", "gather5_hbm2hbm_d16_c4096",
+                   "gather4_dynamic")
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12   # dense int8 tensor cores: K12's product line
 # name -> (kernel source, the reference function it replaces)
 KERNELS = {
     "extract_probes": ("src/pangea_tpu_torch/csrc/extract_probes.cu",
@@ -246,6 +280,18 @@ KERNELS = {
                   "src/pangea_tpu/dist/mesh.py:371"),
     "route_restore": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
                       "src/pangea_tpu/dist/mesh.py:450"),
+    "rowprobe_smem": ("src/pangea_tpu_torch/csrc/rowprobe_smem.cu",
+                      "experiments/mb_pallas.py:83"),
+    "rowprobe_onehot": ("src/pangea_tpu_torch/csrc/rowprobe_onehot.cu",
+                        "experiments/mb_pallas.py:118"),
+    "row_gather": ("src/pangea_tpu_torch/csrc/row_gather.cu",
+                   "experiments/mb_gather2.py:119, experiments/mb_gather3.py"
+                   ":93, experiments/mb_gather5.py:88"),
+    "row_gather_direct": ("src/pangea_tpu_torch/csrc/row_gather.cu",
+                          "experiments/mb_gather5.py:36"),
+    "block_copy": ("src/pangea_tpu_torch/csrc/row_gather.cu",
+                   "experiments/mb_gather4.py:86, experiments/mb_gather4.py"
+                   ":106"),
 }
 # The int32 extreme cases of tests/test_hardening.py:28-38: (taxon, best,
 # nvalid) of the two calls, products beyond int32.
@@ -315,8 +361,8 @@ class Results:
     """Per-kernel mismatches, errors, times and bounds of this run."""
 
     def __init__(self):
-        self.k = {name: {"mismatches": 0, "max_abs_err": 0}
-                  for name in KERNELS}
+        self.k = {name: {"mismatches": 0, "max_abs_err": 0,
+                         "library_ms": None} for name in KERNELS}
 
     def check(self, name: str, what: str, want, got) -> None:
         mism, err = compare(want, got)
@@ -326,16 +372,24 @@ class Results:
         log(f"[{what}] {name}: mismatches {mism}, max abs error {err}")
 
     def time(self, torch, name: str, what: str, kernel, plain, nbytes,
-             ops, plain_calls: int = PIPELINED,
-             plain_reps: int = REPS) -> None:
-        """Kernel ms (PIPELINED calls a sample), plain ms and the bound."""
+             ops, plain_calls: int = PIPELINED, plain_reps: int = REPS,
+             library=None, primary: bool = True) -> float:
+        """Kernel ms (PIPELINED calls a sample), plain ms and the bound,
+        and the ms of ``library``, one PyTorch call of the same function
+        (timed, never used). ``primary`` False only logs them. Returns the
+        kernel ms."""
         ms = time_ms(torch, kernel, PIPELINED)
         plain_ms = time_ms(torch, plain, plain_calls, plain_reps)
+        library_ms = (None if library is None
+                      else time_ms(torch, library, PIPELINED))
         bound_ms, by = bound(nbytes, ops)
-        self.k[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=by)
-        log(f"[{what}] {name}: kernel {ms} ms, plain {plain_ms} ms, bound "
-            f"{bound_ms} ms ({by}: {nbytes:.0f} B, {ops:.0f} ops)")
+        if primary:
+            self.k[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=by, library_ms=library_ms)
+        log(f"[{what}] {name}: kernel {ms} ms, plain {plain_ms} ms, "
+            f"library {library_ms} ms, bound {bound_ms} ms ({by}: "
+            f"{nbytes:.0f} B, {ops:.0f} ops)")
+        return ms
 
     def assert_clean(self, names) -> None:
         bad = [n for n in names if self.k[n]["mismatches"]]
@@ -2003,6 +2057,131 @@ def phase_config3_cli(torch, deep) -> dict:
     return launches
 
 
+def phase_rowprobe_kernels(torch, cuda, res: Results, card: str) -> None:
+    """Phase 29: K11 and K12 at mb_pallas's shapes against their plain
+    versions, bit for bit: K11 on the experiment's world (16,384 x 128,
+    524,288 queries, seed 0), on a table of PROBE_TALL_NB rows and at W =
+    32; K12 on the same world and on an ONEH_SMALL_NB-row table, every
+    query. Bounds: the table read once, 8 B in and 4 B out a query; K12's
+    one-hot product is also set against the int8 tensor-core peak."""
+    from pangea_tpu_torch.experiments import mb_pallas as MP
+    from pangea_tpu_torch.kernels import (rowprobe_onehot,
+                                          rowprobe_onehot_plain,
+                                          rowprobe_plain, rowprobe_smem)
+
+    def world(**kw):
+        return MP.world_tensors(MP.make_world(0, **kw), cuda)
+
+    def probe_bytes(table, n: int) -> int:
+        return table.numel() * 4 + n * 12
+
+    t0 = time.time()
+    full = world()
+    for what, args in (("full", full), ("tall", world(nb=PROBE_TALL_NB)),
+                       ("W=32", world(w=32))):
+        res.check("rowprobe_smem", f"29 K11 {what} {tuple(args[0].shape)}",
+                  [rowprobe_plain(*args)], [rowprobe_smem(*args)])
+    table, b, rem = full
+    n = b.numel()
+    res.time(torch, "rowprobe_smem", "29 K11 full",
+             lambda: rowprobe_smem(*full), lambda: rowprobe_plain(*full),
+             nbytes=probe_bytes(table, n), ops=n * table.shape[1])
+
+    small = world(nb=ONEH_SMALL_NB)
+    for what, args in (("full", full), ("small table", small)):
+        res.check("rowprobe_onehot",
+                  f"29 K12 {what} {tuple(args[0].shape)}, "
+                  f"{args[1].numel()} queries",
+                  [rowprobe_onehot_plain(*args)], [rowprobe_onehot(*args)])
+    ms = res.time(torch, "rowprobe_onehot", "29 K12 full",
+                  lambda: rowprobe_onehot(*full),
+                  lambda: rowprobe_onehot_plain(*full),
+                  nbytes=probe_bytes(table, n), ops=n * table.shape[1],
+                  plain_calls=1, plain_reps=PLAIN_REPS)
+    ops = 2 * n * table.shape[0] * 4 * table.shape[1]
+    peak_ms = ops / INT8_TC_OPS_PER_S * 1e3
+    log(f"[29] K12's one-hot product on {card}: {ops} int8 operations, "
+        f"{peak_ms} ms at the {INT8_TC_OPS_PER_S:.4g} op/s int8 peak; the "
+        f"kernel's {ms} ms is {100 * peak_ms / ms} % of it; phase 29 in "
+        f"{time.time() - t0:.1f} s")
+    res.assert_clean(("rowprobe_smem", "rowprobe_onehot"))
+
+
+def phase_gather_kernels(torch, cuda, res: Results, card: str) -> None:
+    """Phase 30: K13 in every variant of experiments.mb_gather at its own
+    shapes (the 134.2 MB table, 2^20 or 2^19 indices, each (depth, chunk);
+    mb_gather4's block copies), each against row_gather_plain (and
+    gather4's against the slice), timed beside torch.index_select (gather4:
+    narrow().clone()). Bound: rows read and written once plus the
+    indices."""
+    from pangea_tpu_torch.experiments import mb_gather as MG
+    from pangea_tpu_torch.kernels import (block_copy, row_gather,
+                                          row_gather_plain)
+    t0 = time.time()
+    table, idx = MG.world_tensors(MG.make_world(0), cuda)
+    x = torch.from_numpy(MG.block_world()).to(cuda)
+    row_bytes = table.shape[1] * 4
+    for variant, (n, depth, chunk, direct) in MG.VARIANTS.items():
+        if variant.startswith("gather4"):
+            name = "block_copy"
+            start = torch.tensor([n], dtype=torch.int32, device=cuda)
+            got = block_copy(x, start, MG.BLOCK_ROWS)
+            bits = got.view(torch.int32)
+            res.check(name, f"30 {variant} (the slice)",
+                      [x[n:n + MG.BLOCK_ROWS].view(torch.int32)], [bits])
+            res.check(name, f"30 {variant}", [row_gather_plain(
+                x, start, MG.BLOCK_ROWS).view(torch.int32)], [bits])
+            res.time(torch, name, f"30 {variant}",
+                     lambda: block_copy(x, start, MG.BLOCK_ROWS),
+                     lambda: row_gather_plain(x, start, MG.BLOCK_ROWS),
+                     nbytes=2 * MG.BLOCK_ROWS * x.shape[1] * 4 + 4, ops=0,
+                     library=lambda: x.narrow(0, n, MG.BLOCK_ROWS).clone(),
+                     primary=variant in PRIMARY_GATHERS)
+            continue
+        name = "row_gather_direct" if direct else "row_gather"
+        ix = idx[:n]
+
+        def kernel(ix=ix, depth=depth, chunk=chunk, direct=direct):
+            return row_gather(table, ix, depth=depth, chunk=chunk,
+                              direct=direct)
+        res.check(name, f"30 {variant} ({n} rows of {row_bytes} B, depth "
+                  f"{depth}, chunk {chunk})", [row_gather_plain(table, ix)],
+                  [kernel()])
+        ms = res.time(torch, name, f"30 {variant}", kernel,
+                      lambda ix=ix: row_gather_plain(table, ix),
+                      nbytes=2 * n * row_bytes + 4 * n, ops=0,
+                      library=lambda ix=ix: torch.index_select(table, 0, ix),
+                      primary=variant in PRIMARY_GATHERS)
+        log(f"[30] {variant} on {card}: {n / ms * 1e3} rows/s")
+    log(f"[30] phase 30 in {time.time() - t0:.1f} s")
+    res.assert_clean(("row_gather", "row_gather_direct", "block_copy"))
+
+
+def phase_experiment_clis() -> dict:
+    """Phase 31: `python -m pangea_tpu_torch.experiments.mb_pallas` and
+    `... .mb_gather` as a user runs them, with their defaults: every line
+    at 0 mismatches; returns each process's kernel launches."""
+    clis = {}
+    for mod in ("mb_pallas", "mb_gather"):
+        t0 = time.time()
+        proc = start_process([sys.executable, "-m",
+                              f"pangea_tpu_torch.experiments.{mod}"])
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{mod} returned {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        lines = [json.loads(line) for line in out.splitlines()
+                 if line.startswith("{")]
+        for line in lines[:-1]:
+            log(f"[31] {mod}: {json.dumps(line)}")
+        if any(line["mismatches"] for line in lines[:-1]):
+            raise AssertionError(f"{mod} disagrees with its plain version")
+        clis[mod] = lines[-1]["kernel_launches"]
+        log(f"[31] {mod} in {time.time() - t0:.1f} s: {len(lines) - 1} "
+            f"variants, kernel launches {json.dumps(clis[mod])}")
+    return clis
+
+
 def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
@@ -2117,13 +2296,19 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     phase_nccl_one_rank(torch, deep, q8_out, card)
     c3_cli = phase_config3_cli(torch, deep)
 
+    # Phases 29-31: the Pallas experiments' kernels and entry points.
+    phase_rowprobe_kernels(torch, cuda, res, card)
+    phase_gather_kernels(torch, cuda, res, card)
+    experiments = phase_experiment_clis()
+
     # The main paths' launches: each CLI run's own counts, the q12 and std
-    # deep steps' (phase 21) and the multi-rank steps' (phase 26).
+    # deep steps' (phase 21), the multi-rank steps' (phase 26) and the
+    # experiment entry points' (phase 31).
     clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
             "long": long_cli, "fast_long": fast_long_cli, "deep": deep_cli,
             "deep_q12_step": deep["launches"]["q12"],
             "deep_std_step": deep["launches"]["std"], "mesh": mesh,
-            "config3": c3_cli}
+            "config3": c3_cli, **experiments}
     for path, kernels in (
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
@@ -2143,21 +2328,24 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             ("mesh", ("extract_probes", "route_bin", "route_restore",
                       "lookup_std_owned", "score_tin", "score_taxon")),
             ("config3", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
-                         "score_tin"))):
+                         "score_tin")),
+            ("mb_pallas", ("rowprobe_smem", "rowprobe_onehot")),
+            ("mb_gather", ("row_gather", "row_gather_direct", "block_copy"))):
         if min(clis[path][k] for k in kernels) < 1:
             raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[29] kernel launches of the seven CLI runs, the two deep steps "
-        f"and the multi-rank steps: {json.dumps(clis)}; whole run "
-        f"{time.time() - t_start:.1f} s")
+    log(f"[32] kernel launches of the seven CLI runs, the two deep steps, "
+        f"the multi-rank steps and the two experiment entry points: "
+        f"{json.dumps(clis)}; whole run {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],
          "max_abs_err": res.k[name]["max_abs_err"],
          "ms": res.k[name]["ms"], "plain_ms": res.k[name]["plain_ms"],
          "bound_ms": res.k[name]["bound_ms"],
-         "bound_by": res.k[name]["bound_by"], "library_ms": None}
+         "bound_by": res.k[name]["bound_by"],
+         "library_ms": res.k[name]["library_ms"]}
         for name, (src, ref) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

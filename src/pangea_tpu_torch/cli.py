@@ -190,14 +190,10 @@ def _cmd_gen(args) -> int:
 
 
 def _cmd_classify(args) -> int:
-    import torch
-
     from .config import load_config
     from .pipeline import run_classify_basic
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available "
-                         "(pass --device cpu to run the plain versions)")
+    from .utils import device_from
+    device = device_from(args.device)
     cfg = load_config(args.config, args.overrides)
     if args.index:
         cfg.classify.index = args.index

@@ -82,6 +82,14 @@ struct __align__(16) SortedProbe {
   uint32_t hi, lo, valid;
 };
 
+// Row of a table of NB rows that index i names, as NumPy-style indexing
+// under XLA takes it: below 0 it counts from the end, then it is clamped
+// into [0, NB) (K11-K13).
+__device__ __forceinline__ long long row_in(int32_t i, long long NB) {
+  const long long r = i < 0 ? i + NB : i;
+  return r < 0 ? 0 : r >= NB ? NB - 1 : r;
+}
+
 // Blocks needed to cover n items at `per` items a block.
 inline unsigned int blocks_for(long long n, long long per) {
   return static_cast<unsigned int>((n + per - 1) / per);

@@ -9,10 +9,14 @@ from .lookup import (bucket_sort, bucket_sort_plain, fuse_stash,
                      lookup_q12_sorted_plain, lookup_std, lookup_std_owned,
                      lookup_std_plain, lookup_std_sorted,
                      lookup_std_sorted_plain, mix32)
+from .gather import (block_copy, row_gather, row_gather_direct,
+                     row_gather_plain)
 from .minimize import (extract_probes, extract_probes_packed,
                        extract_probes_plain, select_minimizers)
 from .route import (route_bin, route_bin_plain, route_restore,
                     route_restore_plain)
+from .rowprobe import (rowprobe_onehot, rowprobe_onehot_plain,
+                       rowprobe_plain, rowprobe_smem)
 from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
                     pscore_ranked_plain, score_ranked, score_reads_plain,
                     score_reads_taxon, score_reads_taxon_plain,
@@ -33,7 +37,9 @@ KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "lookup_q12_sorted": lookup_q12_sorted,
            "lookup_std_sorted": lookup_std_sorted,
            "lookup_std_owned": lookup_std_owned, "route_bin": route_bin,
-           "route_restore": route_restore}
+           "route_restore": route_restore, "rowprobe_smem": rowprobe_smem,
+           "rowprobe_onehot": rowprobe_onehot, "row_gather": row_gather,
+           "row_gather_direct": row_gather_direct, "block_copy": block_copy}
 
 
 def kernel_launches() -> dict:
@@ -46,7 +52,8 @@ def reset_kernel_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "bucket_sort", "bucket_sort_plain", "extract_kmers",
+__all__ = ["KERNELS", "block_copy", "bucket_sort", "bucket_sort_plain",
+           "extract_kmers",
            "extract_kmers_packed", "extract_probes", "extract_probes_packed",
            "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
            "kernel_launches", "lca_lift", "lca_lift_plain",
@@ -57,7 +64,9 @@ __all__ = ["KERNELS", "bucket_sort", "bucket_sort_plain", "extract_kmers",
            "lookup_std_sorted", "lookup_std_sorted_plain", "mix32",
            "pscore_ranked_plain", "reset_kernel_launches", "route_bin",
            "route_bin_plain", "route_restore", "route_restore_plain",
-           "score_ranked",
+           "row_gather", "row_gather_direct", "row_gather_plain",
+           "rowprobe_onehot", "rowprobe_onehot_plain", "rowprobe_plain",
+           "rowprobe_smem", "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",
            "score_reads_tin_plain", "score_winners", "score_winners_plain",

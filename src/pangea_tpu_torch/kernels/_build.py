@@ -73,6 +73,12 @@ SIGNATURES = {
     # nvalid, stream
     "pangea_merge_multik": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                             _P, _P, _P, _P),
+    # table, NB, W, b, rem, N, out, stream
+    "pangea_rowprobe_smem": (_P, _I64, _I, _P, _P, _I64, _P, _P),
+    # table, NB, W, b, rem, M, out, stream
+    "pangea_rowprobe_onehot": (_P, _I64, _I, _P, _P, _I64, _P, _P),
+    # table, NB, row_bytes, rows, idx, n, depth, chunk, direct, out, stream
+    "pangea_row_gather": (_P, _I64, _I, _I, _P, _I64, _I, _I, _I, _P, _P),
 }
 
 

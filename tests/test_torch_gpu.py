@@ -26,7 +26,8 @@ from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
 from pangea_tpu_torch.index import relayout_q8, relayout_q12
 from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.index.quot import Q12_WAYS
-from pangea_tpu_torch.kernels import (extract_probes, extract_probes_plain,
+from pangea_tpu_torch.kernels import (KERNELS, extract_probes,
+                                      extract_probes_plain,
                                       fuse_stash, fuse_table, score_ranked,
                                       score_winners, score_winners_plain,
                                       wire_width,
@@ -46,12 +47,7 @@ from .helpers import small_world
 pytestmark = pytest.mark.gpu
 
 # Kernel launches of one paired step, by path.
-_NONE = {"extract_probes": 0, "lookup_q8": 0, "score_tin": 0,
-         "lookup_std": 0, "score_taxon": 0, "lca_lift": 0, "lookup_q12": 0,
-         "merge_multik": 0, "score_ranked": 0, "extract_packed": 0,
-         "bucket_sort": 0, "lookup_q8_sorted": 0, "lookup_q12_sorted": 0,
-         "lookup_std_sorted": 0, "lookup_std_owned": 0, "route_bin": 0,
-         "route_restore": 0}
+_NONE = dict.fromkeys(KERNELS, 0)
 Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 
 
@@ -877,3 +873,108 @@ def test_two_card_nccl_routed_step(world, tmp_path):
         assert p.exitcode == 0
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+# The B16 kernels (K11-K13) of the Pallas experiments.
+
+
+def _probe_world(nb, w, n, device, seed=3):
+    from pangea_tpu_torch.experiments.mb_pallas import (make_world,
+                                                        world_tensors)
+    table, b, rem = world_tensors(make_world(seed, nb, n, w), "cpu")
+    b[:7] = torch.tensor([-1, -5, nb, nb + 9, -nb, -nb - 3, 2**31 - 1],
+                         dtype=torch.int32)        # counted from the end
+    return (table, b, rem), tuple(t.to(device) for t in (table, b, rem))
+
+
+@pytest.mark.parametrize("nb,w,n", [
+    (16384, 64, 100_003),          # N not a multiple of a warp's queries
+    (65536, 64, 50_001),           # 256 slices: past one wave of blocks
+    (16384, 32, 70_001),           # W = 32
+    (256, 64, 5_000),              # a table one slice tall
+    (1000, 64, 3_001),             # NB not a power of two
+    (40000, 3, 20_000),            # an odd W; 10 slices, the last partial
+    (16384, 64, 100),              # fewer queries than a block's threads
+])
+def test_rowprobe_smem_kernel_matches_plain(cuda, nb, w, n):
+    from pangea_tpu_torch.kernels import rowprobe_plain, rowprobe_smem
+    cpu, dev = _probe_world(nb, w, n, cuda)
+    reset_kernel_launches()
+    got = rowprobe_smem(*dev)
+    assert kernel_launches()["rowprobe_smem"] == 1
+    want = rowprobe_plain(*cpu)
+    assert torch.equal(got.cpu(), want)
+    assert int((want != 0).sum()) > n // 4            # planted hits
+
+
+@pytest.mark.parametrize("nb,w,n", [
+    (16384, 64, 1_000),            # the experiment's table; a ragged tile
+    (1024, 64, 70_001),            # every query of a small table
+    (100, 32, 333),                # NB not a multiple of the k-step
+    (32, 4, 65),                   # 2W = 8, one k-step
+])
+def test_rowprobe_onehot_kernel_matches_plain(cuda, nb, w, n):
+    from pangea_tpu_torch.kernels import (rowprobe_onehot,
+                                          rowprobe_onehot_plain,
+                                          rowprobe_plain)
+    cpu, dev = _probe_world(nb, w, n, cuda)
+    reset_kernel_launches()
+    got = rowprobe_onehot(*dev)
+    assert kernel_launches()["rowprobe_onehot"] == 1
+    want = rowprobe_plain(*cpu)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(rowprobe_onehot_plain(*dev).cpu(), want)
+    with pytest.raises(ValueError):
+        rowprobe_onehot(dev[0][:, :6].contiguous(), *dev[1:])
+
+
+@pytest.mark.parametrize("direct", [False, True], ids=["staged", "direct"])
+@pytest.mark.parametrize("depth,chunk,n", [
+    (1, 7, 1_000),                 # depth 1, chunk not dividing n
+    (64, 100, 10_001),             # depth past the chunk
+    (16, 4096, 70_000),            # an experiment's shape, ragged
+    (3, 5, 77),                    # a depth that is not a power of two
+    (8, 4096, 3),                  # fewer indices than the depth
+])
+def test_row_gather_kernel_matches_plain(cuda, direct, depth, chunk, n):
+    from pangea_tpu_torch.kernels import row_gather, row_gather_plain
+    g = torch.Generator().manual_seed(n)
+    table = torch.randint(-2**31, 2**31 - 1, (5000, 64), dtype=torch.int32,
+                          generator=g)
+    idx = torch.randint(-6000, 6000, (n,), dtype=torch.int32, generator=g)
+    reset_kernel_launches()
+    got = row_gather(table.to(cuda), idx.to(cuda), depth=depth, chunk=chunk,
+                     direct=direct)
+    launches = kernel_launches()
+    assert (launches["row_gather_direct"], launches["row_gather"]) == (
+        (1, 0) if direct else (0, 1))
+    assert torch.equal(got.cpu(), row_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("dtype,width,rows", [
+    (torch.float64, 6, 1), (torch.int32, 4, 8), (torch.uint8, 48, 3)])
+def test_row_gather_kernel_takes_bytes(cuda, dtype, width, rows):
+    """Rows of any dtype that are a multiple of 16 bytes, several a copy."""
+    from pangea_tpu_torch.kernels import row_gather, row_gather_plain
+    table = torch.arange(700 * width).reshape(700, width).to(dtype)
+    idx = torch.tensor([0, 699, 350, -1, 5, 698], dtype=torch.int32)
+    for direct in (False, True):
+        got = row_gather(table.to(cuda), idx.to(cuda), depth=4, chunk=4,
+                         direct=direct, rows=rows)
+        assert torch.equal(got.cpu(), row_gather_plain(table, idx, rows))
+    with pytest.raises(ValueError):
+        row_gather(table[:, :1].contiguous().to(cuda), idx.to(cuda),
+                   depth=4, chunk=4)
+
+
+@pytest.mark.parametrize("start", [0, 4, 12, -3])
+def test_block_copy_kernel_matches_the_slice(cuda, start):
+    from pangea_tpu_torch.kernels import block_copy, row_gather_plain
+    x = torch.arange(16 * 128, dtype=torch.float32).reshape(16, 128)
+    s = torch.tensor([start], dtype=torch.int32)
+    reset_kernel_launches()
+    got = block_copy(x.to(cuda), s.to(cuda), 8)
+    assert kernel_launches()["block_copy"] == 1
+    assert torch.equal(got.cpu(), row_gather_plain(x, s, 8))
+    if start in (0, 4):
+        assert torch.equal(got.cpu(), x[start:start + 8])
