@@ -132,7 +132,8 @@ general path:
      variant of `experiments.mb_gather` at the scripts' shapes (a [2^19,
      64] uint32 table of 134.2 MB, 2^20 or 2^19 indices, each (depth,
      chunk), staged and direct; mb_gather4's 8-row block copies), against
-     row_gather_plain and timed beside torch.index_select;
+     row_gather_plain and timed beside torch.index_select, each variant's
+     ratio to it on a line of its own and in its kernel's `variants` map;
  31. `python -m pangea_tpu_torch.experiments.mb_pallas` and `... .mb_gather`
      as a user runs them: their lines at 0 mismatches, their launches;
  32. the launch summary.
@@ -236,7 +237,7 @@ THRESHOLDS = (0.0, 0.05)
 # world and on a table of ONEH_SMALL_NB rows, every query. K13's variants
 # are the entry point's own (experiments.mb_gather.VARIANTS);
 # PRIMARY_GATHERS name the variant whose numbers each K13 wrapper's entry
-# of the kernels line carries.
+# of the kernels line carries; its `variants` map carries every variant's.
 PROBE_TALL_NB = 65536
 ONEH_SMALL_NB = 1024
 PRIMARY_GATHERS = ("gather2_d16_c512", "gather5_hbm2hbm_d16_c4096",
@@ -373,11 +374,13 @@ class Results:
 
     def time(self, torch, name: str, what: str, kernel, plain, nbytes,
              ops, plain_calls: int = PIPELINED, plain_reps: int = REPS,
-             library=None, primary: bool = True) -> float:
+             library=None, primary: bool = True,
+             variant: str | None = None) -> float:
         """Kernel ms (PIPELINED calls a sample), plain ms and the bound,
         and the ms of ``library``, one PyTorch call of the same function
-        (timed, never used). ``primary`` False only logs them. Returns the
-        kernel ms."""
+        (timed, never used). ``primary`` False only logs them; a
+        ``variant`` also goes into the kernel's ``variants`` map. Returns
+        the kernel ms."""
         ms = time_ms(torch, kernel, PIPELINED)
         plain_ms = time_ms(torch, plain, plain_calls, plain_reps)
         library_ms = (None if library is None
@@ -386,6 +389,9 @@ class Results:
         if primary:
             self.k[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=by, library_ms=library_ms)
+        if variant is not None:
+            self.k[name].setdefault("variants", {})[variant] = {
+                "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms}
         log(f"[{what}] {name}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {library_ms} ms, bound {bound_ms} ms ({by}: "
             f"{nbytes:.0f} B, {ops:.0f} ops)")
@@ -2136,7 +2142,8 @@ def phase_gather_kernels(torch, cuda, res: Results, card: str) -> None:
                      lambda: row_gather_plain(x, start, MG.BLOCK_ROWS),
                      nbytes=2 * MG.BLOCK_ROWS * x.shape[1] * 4 + 4, ops=0,
                      library=lambda: x.narrow(0, n, MG.BLOCK_ROWS).clone(),
-                     primary=variant in PRIMARY_GATHERS)
+                     primary=variant in PRIMARY_GATHERS, variant=variant)
+            log_ratio(res, name, variant, "narrow().clone()")
             continue
         name = "row_gather_direct" if direct else "row_gather"
         ix = idx[:n]
@@ -2151,10 +2158,20 @@ def phase_gather_kernels(torch, cuda, res: Results, card: str) -> None:
                       lambda ix=ix: row_gather_plain(table, ix),
                       nbytes=2 * n * row_bytes + 4 * n, ops=0,
                       library=lambda ix=ix: torch.index_select(table, 0, ix),
-                      primary=variant in PRIMARY_GATHERS)
+                      primary=variant in PRIMARY_GATHERS, variant=variant)
         log(f"[30] {variant} on {card}: {n / ms * 1e3} rows/s")
+        log_ratio(res, name, variant, "torch.index_select")
     log(f"[30] phase 30 in {time.time() - t0:.1f} s")
     res.assert_clean(("row_gather", "row_gather_direct", "block_copy"))
+
+
+def log_ratio(res: Results, name: str, variant: str, library: str) -> None:
+    """One line: a K13 variant's time over its library call's, and over its
+    bound."""
+    v = res.k[name]["variants"][variant]
+    log(f"[30] {variant}: {v['ms'] / v['library_ms']} x {library} "
+        f"({v['ms']} / {v['library_ms']} ms), {v['ms'] / v['bound_ms']} x "
+        f"its bound ({v['bound_ms']} ms)")
 
 
 def phase_experiment_clis() -> dict:
@@ -2345,7 +2362,9 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
          "ms": res.k[name]["ms"], "plain_ms": res.k[name]["plain_ms"],
          "bound_ms": res.k[name]["bound_ms"],
          "bound_by": res.k[name]["bound_by"],
-         "library_ms": res.k[name]["library_ms"]}
+         "library_ms": res.k[name]["library_ms"],
+         **({"variants": res.k[name]["variants"]}
+            if "variants" in res.k[name] else {})}
         for name, (src, ref) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

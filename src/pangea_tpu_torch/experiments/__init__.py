@@ -19,9 +19,10 @@ import time
 WARMUP, REPS = 3, 10
 
 
-def step_ms(fn, device) -> float:
-    """Median ms of one call of fn over REPS calls after WARMUP: CUDA events
-    on a card, the host clock on the CPU."""
+def step_ms(fn, device, calls: int = 1) -> float:
+    """Median ms of one call of fn over REPS samples of ``calls``
+    back-to-back calls after WARMUP: CUDA events on a card, the host clock
+    on the CPU."""
     import torch
     for _ in range(WARMUP):
         fn()
@@ -31,14 +32,16 @@ def step_ms(fn, device) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / calls)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times)
 
 

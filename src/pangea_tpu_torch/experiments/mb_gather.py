@@ -23,7 +23,9 @@ clock with ``--device cpu``), ``rows_per_sec``, ``mismatches`` against
 ``row_gather_plain`` (gather4: against the slice the script checks), and
 ``yardstick_ms``, one PyTorch call for the same function
 (``torch.index_select``; gather4: ``x.narrow(0, i, 8).clone()``), timed
-here and used nowhere in the port. ``--queries`` caps the indices of every
+here and used nowhere in the port, with ``vs_yardstick`` = ms /
+yardstick_ms, and ``bound_ms``, the rows read and written once plus 4 B an
+index over the H100's 3.35 TB/s. ``--queries`` caps the indices of every
 variant; the last line is the process's kernel launches.
 
 The scripts' XLA-only sections (row-width, table-size and locality sweeps,
@@ -56,6 +58,7 @@ VARIANTS = {
     "gather5_vmem_out_d16_c4096": (1 << 19, 16, 4096, False),
 }
 BLOCK_ROWS = 8                    # mb_gather4's DMA: rows [i, i + 8)
+HBM_BYTES_PER_S = 3.35e12         # an H100 SXM's device memory
 
 
 def make_world(seed: int = 0, nb: int = NB, n: int = 1 << 20):
@@ -98,7 +101,7 @@ def run_variant(name: str, table, idx, x, device) -> dict:
 
         def yardstick():
             return x.narrow(0, n, BLOCK_ROWS).clone()
-        rows, shape = BLOCK_ROWS, list(x.shape)
+        rows, shape, table_ = BLOCK_ROWS, list(x.shape), x
     else:
         ix = idx[:n]
         got = row_gather(table, ix, depth=depth, chunk=chunk, direct=direct)
@@ -110,12 +113,16 @@ def run_variant(name: str, table, idx, x, device) -> dict:
 
         def yardstick():
             return torch.index_select(table, 0, ix)
-        rows, shape = ix.numel(), list(table.shape)
-    ms = step_ms(kernel, device)
+        rows, shape, table_ = ix.numel(), list(table.shape), table
+    ms, yardstick_ms = step_ms(kernel, device), step_ms(yardstick, device)
+    row_bytes = table_[0].numel() * table_.element_size()
+    indices = 1 if name.startswith("gather4") else rows
+    nbytes = 2 * rows * row_bytes + 4 * indices
     return {"variant": name, "device": device_name(device), "table": shape,
             "rows": rows, "depth": depth, "chunk": chunk, "direct": direct,
             "ms": ms, "rows_per_sec": rows / ms * 1e3, "mismatches": mism,
-            "yardstick_ms": step_ms(yardstick, device)}
+            "yardstick_ms": yardstick_ms, "vs_yardstick": ms / yardstick_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def main(argv=None) -> int:

@@ -77,8 +77,10 @@ SIGNATURES = {
     "pangea_rowprobe_smem": (_P, _I64, _I, _P, _P, _I64, _P, _P),
     # table, NB, W, b, rem, M, out, stream
     "pangea_rowprobe_onehot": (_P, _I64, _I, _P, _P, _I64, _P, _P),
-    # table, NB, row_bytes, rows, idx, n, depth, chunk, direct, out, stream
-    "pangea_row_gather": (_P, _I64, _I, _I, _P, _I64, _I, _I, _I, _P, _P),
+    # table, NB, row_bytes, rows, idx, n, chunk, direct, grid, warps,
+    # lanes, slots (gather.gather_plan), out, stream
+    "pangea_row_gather": (_P, _I64, _I, _I, _P, _I64, _I, _I, _I, _I, _I,
+                          _I, _P, _P),
 }
 
 

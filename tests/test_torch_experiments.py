@@ -214,6 +214,10 @@ def test_entry_points_run_on_the_cpu(capsys, module, argv):
         assert line["mismatches"] == 0 and line["device"] == "cpu", line
         if module is port_pallas:             # every variant on every query
             assert line["queries"] == 3000, line
+        else:                                 # the gathers' bound and ratio
+            assert line["bound_ms"] > 0, line
+            assert line["vs_yardstick"] == (line["ms"]
+                                            / line["yardstick_ms"]), line
     assert not any(lines[-1]["kernel_launches"].values())
 
 

@@ -935,6 +935,11 @@ def test_rowprobe_onehot_kernel_matches_plain(cuda, nb, w, n):
     (16, 4096, 70_000),            # an experiment's shape, ragged
     (3, 5, 77),                    # a depth that is not a power of two
     (8, 4096, 3),                  # fewer indices than the depth
+    (16, 4096, 20),                # fewer indices than one warp's run
+    (16, 512, 202_769),            # past the persistent grid, n % 32 = 17
+    (32, 8192, 1 << 19),           # the experiments' longest chunks
+    (64, 8192, 1 << 19),
+    (200, 4096, 100_003),          # 7 slots a lane: the direct lag ladder
 ])
 def test_row_gather_kernel_matches_plain(cuda, direct, depth, chunk, n):
     from pangea_tpu_torch.kernels import row_gather, row_gather_plain
@@ -952,7 +957,8 @@ def test_row_gather_kernel_matches_plain(cuda, direct, depth, chunk, n):
 
 
 @pytest.mark.parametrize("dtype,width,rows", [
-    (torch.float64, 6, 1), (torch.int32, 4, 8), (torch.uint8, 48, 3)])
+    (torch.float64, 6, 1), (torch.int32, 4, 8), (torch.uint8, 48, 3),
+    (torch.int32, 128, 8)])                  # 4 KB slots
 def test_row_gather_kernel_takes_bytes(cuda, dtype, width, rows):
     """Rows of any dtype that are a multiple of 16 bytes, several a copy."""
     from pangea_tpu_torch.kernels import row_gather, row_gather_plain
