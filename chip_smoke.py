@@ -39,10 +39,13 @@ general path:
      8192 (the fast path), with its kernel launches, its lines against
      phase 4's outputs, and its host time by phase;
   6. torch.profiler over back-to-back q8 steps: the device time of each
-     kernel and the device's busy share of the wall;
+     kernel (and a JSON line of it by kernel) and the device's busy share
+     of the wall;
   7. K4, K3's taxon form and K5 against their plain versions, bit for bit:
      K4 on the wide table with 16384 pairs x 260 probes, on the k=31
-     packed table and on a table with a forced stash; K3-taxon and K5 at
+     packed table and on a table with a forced stash, the wide and packed
+     tables timed beside their bounds, each with its launch plan
+     (kernels.lookup.std_plan) in K4's `variants` map; K3-taxon and K5 at
      two thresholds; K5 also on a 5,251-taxon q8 world and on a 5,000-node
      chain (13 lifting levels);
   8. the std Classifier at full width: launch counts of K1, K4, K3 and K5,
@@ -91,7 +94,9 @@ general path:
      reads, the std form with the 8,519,680 probes of 65,536 reads (and the
      unsorted K2, K2-q12 and K4 on the same probes, timed in the same
      call), K4's sorted form on the wide std world's table; K2-q12's sorted
-     form also on config 4's k=31 table (phase 11);
+     form also on config 4's k=31 table (phase 11); the unsorted and sorted
+     K4 on the deep std table and the sorted K4 on the wide one logged with
+     their plans, bounds and ratios in the kernels' `variants` maps;
  21. the deep steps through the Classifier: q8 and q12 on 16,384 reads, std
      on 65,536 (where the std gate engages): launch counts (K1, K9 and the
      sorted form; no unsorted lookup), the outputs against the plain path
@@ -107,7 +112,8 @@ general path:
  25. K10 (the routing bin) on the deep probes at 2, 4 and 8 owners and with
      a forced overflow (cap_frac 0.01), K9's restore on its records, and
      K4's owner mask on the wide std table at 4 shards, every shard: each
-     against its plain version, timed beside its bound;
+     against its plain version, timed beside its bound (K4's mask with
+     its plan and ratio in its `variants` map);
  26. the multi-rank steps: four rank processes (this script with `--rank
      R SPEC`) on the one card, joined over gloo with their tensors on the
      card, at meshes (1, 4) and (2, 2): the deep 4-shard index (streamed a
@@ -180,6 +186,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -375,12 +382,13 @@ class Results:
     def time(self, torch, name: str, what: str, kernel, plain, nbytes,
              ops, plain_calls: int = PIPELINED, plain_reps: int = REPS,
              library=None, primary: bool = True,
-             variant: str | None = None) -> float:
+             variant: str | None = None, plan: dict | None = None) -> float:
         """Kernel ms (PIPELINED calls a sample), plain ms and the bound,
         and the ms of ``library``, one PyTorch call of the same function
         (timed, never used). ``primary`` False only logs them; a
-        ``variant`` also goes into the kernel's ``variants`` map. Returns
-        the kernel ms."""
+        ``variant`` also goes into the kernel's ``variants`` map, with its
+        ratio to the bound and the launch ``plan``. Returns the kernel
+        ms."""
         ms = time_ms(torch, kernel, PIPELINED)
         plain_ms = time_ms(torch, plain, plain_calls, plain_reps)
         library_ms = (None if library is None
@@ -391,7 +399,9 @@ class Results:
                                 bound_by=by, library_ms=library_ms)
         if variant is not None:
             self.k[name].setdefault("variants", {})[variant] = {
-                "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms}
+                "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "vs_bound": ms / bound_ms,
+                **({"plan": plan} if plan is not None else {})}
         log(f"[{what}] {name}: kernel {ms} ms, plain {plain_ms} ms, "
             f"library {library_ms} ms, bound {bound_ms} ms ({by}: "
             f"{nbytes:.0f} B, {ops:.0f} ops)")
@@ -771,6 +781,12 @@ def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
             f"launch: {name[:100]}")
     if not kernels:
         log(f"[{tag}] the profiler recorded no device time")
+    split = {}
+    for name, (ms, _, _) in kernels.items():
+        m = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
+        key = m.group(1) if m else name[:60]
+        split[key] = split.get(key, 0.0) + ms
+    log(f"[{tag}] device ms a step by kernel on {card}: {json.dumps(split)}")
 
 
 def chain_tax(torch, cuda) -> dict:
@@ -856,10 +872,20 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
              lambda: lookup_std(*flat, di.fused, di.stash, ways),
              lambda: lookup_std_plain(*flat, di.fused, di.stash, ways),
              nbytes=N * 21 + need, ops=N * (4 * ways + 16),
-             plain_calls=1, plain_reps=PLAIN_REPS)
-    log(f"[7] lookup_std packed: kernel "
-        f"{time_ms(torch, lambda: lookup_std(*pflat, pdi.fused, pdi.stash, pdi.cfg.ways), PIPELINED)}"
-        f" ms a call for {pflat[0].numel()} probes")
+             plain_calls=1, plain_reps=PLAIN_REPS, variant="wide",
+             plan=k4_plan(N, di))
+    log_bound(res, "lookup_std", "wide", "7")
+    pN, pways = pflat[0].numel(), pdi.cfg.ways
+    pbucket = hash32(pflat[0], pflat[1]) & (pdi.fused.shape[0] - 1)
+    pneed = touched_bytes(torch, pbucket, pflat[2], pwant[0] != 0, pflat[0],
+                          pflat[1], 2 * pways, 2, pdi.stash)
+    res.time(torch, "lookup_std", "7 packed",
+             lambda: lookup_std(*pflat, pdi.fused, pdi.stash, pways),
+             lambda: lookup_std_plain(*pflat, pdi.fused, pdi.stash, pways),
+             nbytes=pN * 21 + pneed, ops=pN * (4 * pways + 16),
+             plain_calls=1, plain_reps=PLAIN_REPS, primary=False,
+             variant="packed_k31", plan=k4_plan(pN, pdi))
+    log_bound(res, "lookup_std", "packed_k31", "7")
 
     # K3's taxon form and K5 on the wide lookups (lifting), at thresholds.
     taxon, t_in, t_out = (t.reshape(B, R) for t in want)
@@ -1509,11 +1535,15 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
         log(f"[20] deep {layout}: {N} probes on {tuple(di.fused.shape)} "
             f"({di.fused.numel() * 4} B), {int(hit.sum())} hits, {rows} rows "
             f"reached; K9 key shift {key_shift(nb)}; touches {need} B")
+        k4 = layout == "std"
         res.time(torch, name, what,
                  lambda: srt(*flat, *tab, order=order),
                  lambda: srt_plain(*flat, *tab, order=order_plain),
                  nbytes=N * 32 + need, ops=ops, plain_calls=1,
-                 plain_reps=PLAIN_REPS)
+                 plain_reps=PLAIN_REPS, variant="deep_std" if k4 else None,
+                 plan=k4_plan(N, di, True) if k4 else None)
+        if k4:
+            log_bound(res, name, "deep_std", "20")
         sort_args = (*flat, nb, qk)
         if layout == "q8":
             res.time(torch, "bucket_sort", what,
@@ -1525,8 +1555,16 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
         else:
             k9_ms = time_ms(torch, lambda: bucket_sort(*sort_args),
                             PIPELINED)
-        unsorted_ms = time_ms(torch, lambda: unsorted(*flat, *tab),
-                              PIPELINED)
+        if k4:
+            unsorted_ms = res.time(
+                torch, "lookup_std", what, lambda: unsorted(*flat, *tab),
+                lambda: plain(*flat, *tab), nbytes=N * 21 + need, ops=ops,
+                plain_calls=1, plain_reps=1, primary=False,
+                variant="deep_std", plan=k4_plan(N, di))
+            log_bound(res, "lookup_std", "deep_std", "20")
+        else:
+            unsorted_ms = time_ms(torch, lambda: unsorted(*flat, *tab),
+                                  PIPELINED)
         both_ms = time_ms(torch, lambda: srt(*flat, *tab), PIPELINED)
         log(f"[20] deep {layout}, {N} probes, on {card}: unsorted "
             f"{unsorted_ms} ms; K9 {k9_ms} ms + sorted form "
@@ -1539,9 +1577,23 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
     wflat = [t.reshape(-1) for t in probes(torch, wide, WIDE["k"],
                                            WIDE["w"])]
     wtab = (wdi.fused, wdi.stash, wdi.cfg.ways)
-    check_sort(torch, res, "20 wide std", wflat, wdi.fused.shape[0], None)
-    res.check("lookup_std_sorted", "20 wide std", lookup_std_plain(
-        *wflat, *wtab), lookup_std_sorted(*wflat, *wtab))
+    worder, worder_plain = check_sort(torch, res, "20 wide std", wflat,
+                                      wdi.fused.shape[0], None)
+    wwant = lookup_std_plain(*wflat, *wtab)
+    res.check("lookup_std_sorted", "20 wide std", wwant,
+              lookup_std_sorted(*wflat, *wtab))
+    wN, W = wflat[0].numel(), wdi.cfg.ways
+    wbucket = hash32(wflat[0], wflat[1]) & (wdi.fused.shape[0] - 1)
+    wneed = touched_bytes(torch, wbucket, wflat[2], wwant[0] != 0, wflat[0],
+                          wflat[1], 2 * W, 3, wdi.stash)
+    res.time(torch, "lookup_std_sorted", "20 wide std",
+             lambda: lookup_std_sorted(*wflat, *wtab, order=worder),
+             lambda: lookup_std_sorted_plain(*wflat, *wtab,
+                                             order=worder_plain),
+             nbytes=wN * 32 + wneed, ops=wN * (4 * W + 16), plain_calls=1,
+             plain_reps=1, primary=False, variant="wide",
+             plan=k4_plan(wN, wdi, True))
+    log_bound(res, "lookup_std_sorted", "wide", "20")
     unsorted_ms, both_ms = (time_ms(torch, lambda fn=fn: fn(*wflat, *wtab),
                                     PIPELINED)
                             for fn in (lookup_std, lookup_std_sorted))
@@ -1800,7 +1852,9 @@ def phase_route_kernels(torch, deep, wide, res: Results, card: str) -> None:
              lambda: lookup_std_plain(*wflat, *wtab, (4, 0)),
              nbytes=n * 21 + need,
              ops=n * 12 + int(mine.sum()) * (4 * W + 16), plain_calls=1,
-             plain_reps=PLAIN_REPS)
+             plain_reps=PLAIN_REPS, variant="wide_4_shards",
+             plan=k4_plan(n, wdi))
+    log_bound(res, "lookup_std_owned", "wide_4_shards", "25")
     log(f"[25] K4's mask on the wide table {tuple(wdi.fused.shape)}, {n} "
         f"probes, {int(mine.sum())} owned by shard 0 of 4, on {card}")
     res.assert_clean(("route_bin", "route_restore", "lookup_std_owned"))
@@ -2163,6 +2217,23 @@ def phase_gather_kernels(torch, cuda, res: Results, card: str) -> None:
         log_ratio(res, name, variant, "torch.index_select")
     log(f"[30] phase 30 in {time.time() - t0:.1f} s")
     res.assert_clean(("row_gather", "row_gather_direct", "block_copy"))
+
+
+def k4_plan(n: int, di, sorted_form: bool = False) -> dict:
+    """K4's launch plan (kernels.lookup.std_plan) for n probes of di's
+    std table, as its wrapper takes it."""
+    from pangea_tpu_torch.kernels import _build
+    from pangea_tpu_torch.kernels.lookup import std_plan
+    return std_plan(n, di.cfg.ways, di.stash.shape[1], sorted_form,
+                    _build.sm_count(di.fused.device.index))._asdict()
+
+
+def log_bound(res: Results, name: str, variant: str, tag: str) -> None:
+    """One line: a kernel variant's time, its plan and its ratio to its
+    bound."""
+    v = res.k[name]["variants"][variant]
+    log(f"[{tag}] {name} {variant}: {v['ms']} ms, {v['vs_bound']} x its "
+        f"bound ({v['bound_ms']} ms); plan {v.get('plan')}")
 
 
 def log_ratio(res: Results, name: str, variant: str, library: str) -> None:

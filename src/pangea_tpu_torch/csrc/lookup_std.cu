@@ -7,29 +7,49 @@
 // whose owner, the top log2 S bits of hash32, is not this shard gives zeros
 // (owner_shift = 32 - log2 S; 0 turns the mask off). The reference
 // gathers whole [N, 4W | 6W] rows into device memory and compares them in
-// a second pass; here a group of kProbeLanes (8) lanes owns one probe and
-// reads its row's hi lanes once, and the lo, val and Euler lanes only where
-// they match, so no row copy reaches device memory.
+// a second pass; here a group of kProbeLanes (8) lanes owns a probe and
+// reads its row's key lanes, and the val and Euler lanes only where a key
+// matches, so no row copy reaches device memory.
 //
 // The sorted form (kSorted; B15, the reference's _sorted_std at
 // lookup.py:389 through _sorted_apply :300) takes K9's output
-// (bucket_sort.cu): the probes in bucket order. Group w probes the w-th
-// sorted probe and writes its outputs as the w-th 16-byte record of
-// sorted_out, which K9's restore puts back in the probes' order (the
-// reference's restoring sort, :349-350). Invalid probes write
-// zeros, as here unsorted, where the reference folds them into its
-// _NEVER_HI sentinel (:386). The groups walk the table in bucket order, so
-// a row read from HBM serves the probes that share it; the probe addresses
-// the whole table, so there is no span guard and no fallback branch.
+// (bucket_sort.cu): the probes in bucket order. The w-th sorted probe's
+// outputs go to the w-th 16-byte record of sorted_out, which K9's restore
+// puts back in the probes' order (the reference's restoring sort,
+// :349-350). Invalid probes write zeros, as here unsorted, where the
+// reference folds them into its _NEVER_HI sentinel (:386). The probes walk
+// the table in bucket order, so a row read from HBM serves the probes that
+// share it; the probe addresses the whole table, so there is no span guard
+// and no fallback branch.
 //
-// What bounds it on an H100: one random row a probe, of which the W hi
-// lanes (128 B at W = 32, 64 B at W = 16) are read, then one 32 B sector
-// each of the lo, val and Euler lanes where hi matches. The wide bench
-// table (131,072 rows x 768 B = 100.7 MB) is twice the 50 MB L2 and the
-// deep std table (4,194,304 rows x 256 B) twenty times it, so most row
-// reads go to HBM unsorted; each group makes two dependent random reads and
-// little else, so the latency of those reads, not the HBM rate, is the
-// likely limit. The packed k=31 table (16.8 MB) stays in L2.
+// What bounds it on an H100: a probe's random row. Its W hi and W lo lanes
+// (256 B at W = 32) decide the hit; the val and Euler lanes (one 32 B
+// sector each) are read for the slot that hits. The wide bench table
+// (131,072 rows x 768 B = 100.7 MB) is twice the 50 MB L2, its key lanes
+// (33.5 MB) are not; the deep std table (1.07 GB) is twenty times it. The
+// first form gave each probe a group of 8 lanes that read its inputs,
+// hashed it and wrote its outputs 8 times over, read its hi lanes in a
+// loop over a runtime W with lo after hi and the payload after lo, and
+// summed three values in three 3-step shuffle reductions a probe. The
+// design:
+//  - Each lane owns one of its warp's 32 consecutive probes a step: one
+//    coalesced load of the inputs and one coalesced store of the outputs
+//    a warp, one hash a probe, and each lane scans the stash (staged in
+//    shared memory once a block) for its own probe.
+//  - A group of 8 lanes probes the rows of its lanes' probes, `batch` of
+//    them at a time, their key loads issued together: with W = 16 or 32
+//    (what index/build.py auto_ways picks) and the row form as template
+//    parameters, a lane reads its 2 or 4 hi lanes in one 8- or 16-byte
+//    load and its lo lanes in a second (any other W: a generic body, both
+//    keys a slot, no short-circuit); a matching slot's payload lanes
+//    follow.
+//  - A reduce-scatter over the group (7 shuffles a value for 8 probes)
+//    hands each lane the row sums of its own probe.
+//  - A persistent grid (kernels/lookup.py std_plan) walks the probes, the
+//    next step's inputs loaded before the current step is probed.
+//  - L2 policies (`l2`): the key lanes can be read evict-last, so that the
+//    wide world's 33.5 MB of keys stay in L2, the payload lanes and the
+//    streams (inputs and outputs) evict-first or evict-normal.
 //
 // Rules (SEMANTICS.md §4-5): bucket = hash32(hi, lo) & (NB - 1); for a
 // valid probe, every lane j < W with row[j] == hi && row[W + j] == lo adds
@@ -43,83 +63,321 @@
 
 namespace {
 
+constexpr int kMaxWarps = 8;            // warps a block at most
+constexpr int kMinBlocks = 4;           // blocks of kMaxWarps an SM holds
+constexpr int kStashRows = 5;
+constexpr int kStashSmemMax = 48 * 1024;
+constexpr uint32_t kNoRow = 0xFFFFFFFFu;  // the bucket of a dropped probe
+
+struct StdArgs {
+  const uint32_t* hi;
+  const uint32_t* lo;
+  const uint8_t* valid;
+  const SortedProbe* order;             // the sorted form's input
+  long long N;
+  const uint32_t* fused;
+  uint32_t nb_mask;
+  int W, lanes;                         // the generic body's geometry
+  const uint32_t* stash;
+  int S;
+  bool staged;                          // the stash in shared memory
+  int l2;                               // the L2 policy mode (Policies)
+  int owner_shift;
+  uint32_t shard_id;
+  int4* sorted_out;
+  int32_t* taxon;
+  int32_t* t_in;
+  int32_t* t_out;
+};
+
+struct Probe {
+  uint32_t hi, lo;
+  bool ok;
+};
+
+enum Priority { kNormal, kLast, kFirst };
+
+__device__ __forceinline__ uint64_t policy(int priority) {
+  uint64_t p;
+  if (priority == kLast) {
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  } else if (priority == kFirst) {
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  } else {
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
+  }
+  return p;
+}
+
+// The L2 policies of the key lanes, the payload lanes and the streams (the
+// probes' inputs and the outputs) by mode: 0 all evict-normal; 1 keys
+// evict-last, the rest evict-first; 2 keys evict-last, payload
+// evict-normal, streams evict-first.
+struct Policies {
+  uint64_t keys, payload, streams;
+
+  __device__ explicit Policies(int mode)
+      : keys(policy(mode == 0 ? kNormal : kLast)),
+        payload(policy(mode == 1 ? kFirst : kNormal)),
+        streams(policy(mode == 0 ? kNormal : kFirst)) {}
+};
+
+__device__ __forceinline__ uint32_t ld(const uint32_t* p, uint64_t pol) {
+  uint32_t v;
+  asm volatile("ld.global.L2::cache_hint.u32 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_u8(const uint8_t* p, uint64_t pol) {
+  uint32_t v;
+  asm volatile("ld.global.L2::cache_hint.u8 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// K = 2 or 4 consecutive words from an address aligned to 4K bytes.
+template <int K>
+__device__ __forceinline__ void ld_vec(const uint32_t* p, uint64_t pol,
+                                       uint32_t (&v)[K]) {
+  static_assert(K == 2 || K == 4, "K4 reads 2 or 4 key lanes a load");
+  if constexpr (K == 4) {
+    asm volatile(
+        "ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+        : "l"(p), "l"(pol));
+  } else {
+    asm volatile("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+                 : "=r"(v[0]), "=r"(v[1]) : "l"(p), "l"(pol));
+  }
+}
+
+__device__ __forceinline__ void st(int32_t* p, uint32_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u32 [%0], %1, %2;"
+               :: "l"(p), "r"(v), "l"(pol) : "memory");
+}
+
+__device__ __forceinline__ void st_v4(int4* p, uint32_t a, uint32_t b,
+                                      uint32_t c, uint64_t pol) {
+  asm volatile(
+      "st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
+      :: "l"(p), "r"(a), "r"(b), "r"(c), "r"(0u), "l"(pol) : "memory");
+}
+
 template <bool kSorted>
-__global__ void lookup_std_kernel(const uint32_t* __restrict__ hi,
-                                  const uint32_t* __restrict__ lo,
-                                  const uint8_t* __restrict__ valid,
-                                  long long N,
-                                  const uint32_t* __restrict__ fused,
-                                  uint32_t nb_mask, int W, int lanes,
-                                  bool packed,
-                                  const uint32_t* __restrict__ stash, int S,
-                                  int owner_shift, uint32_t shard_id,
-                                  const SortedProbe* __restrict__ order,
-                                  int4* __restrict__ sorted_out,
-                                  int32_t* __restrict__ taxon,
-                                  int32_t* __restrict__ t_in,
-                                  int32_t* __restrict__ t_out) {
-  const int g = threadIdx.x % kProbeLanes;
-  const long long w = blockIdx.x * static_cast<long long>(kProbesPerBlock) +
-                      threadIdx.x / kProbeLanes;
-  const bool in = w < N;    // the warp stays whole for its shuffles
-  bool ok = false;
-  uint32_t qhi = 0, qlo = 0;
-  if (in) {
+__device__ __forceinline__ Probe load_probe(const StdArgs& a, long long w,
+                                            uint64_t pol) {
+  Probe p{0u, 0u, false};
+  if (w < a.N) {
     if (kSorted) {
-      const SortedProbe p = order[w];
-      ok = p.valid != 0;
-      qhi = p.hi;
-      qlo = p.lo;
+      uint32_t r[4];
+      ld_vec<4>(reinterpret_cast<const uint32_t*>(a.order + w), pol, r);
+      p.hi = r[1];
+      p.lo = r[2];
+      p.ok = r[3] != 0;
     } else {
-      ok = valid[w] != 0;
-      qhi = hi[w];
-      qlo = lo[w];
+      p.hi = ld(a.hi + w, pol);
+      p.lo = ld(a.lo + w, pol);
+      p.ok = ld_u8(a.valid + w, pol) != 0;
     }
   }
-  // a: pk (packed) or tin (wide); c: tout (wide only).
-  uint32_t tax = 0, a = 0, c = 0, s_tax = 0, s_in = 0, s_out = 0;
-  const uint32_t h = hash32(qhi, qlo);
-  if (owner_shift > 0 && (h >> owner_shift) != shard_id) ok = false;
-  if (ok) {
-    const uint32_t bucket = h & nb_mask;
-    const uint32_t* row = fused + static_cast<size_t>(bucket) * lanes;
-    for (int j = g; j < W; j += kProbeLanes) {
-      if (row[j] == qhi && row[W + j] == qlo) {
-        tax += row[2 * W + j];
-        a += row[3 * W + j];
-        if (!packed) c += row[4 * W + j];
+  return p;
+}
+
+// The probe's bucket, or kNoRow for an invalid probe or one the owner mask
+// drops.
+__device__ __forceinline__ uint32_t bucket_of(const StdArgs& a,
+                                              const Probe& p) {
+  const uint32_t h = hash32(p.hi, p.lo);
+  const bool mine = a.owner_shift == 0 || (h >> a.owner_shift) == a.shard_id;
+  return p.ok && mine ? h & a.nb_mask : kNoRow;
+}
+
+// Slot j's val and Euler lanes into the sums of probe r.
+template <bool kPacked>
+__device__ __forceinline__ void add_payload(const uint32_t* row, int W,
+                                            int j, uint64_t pol,
+                                            uint32_t& tax, uint32_t& x,
+                                            uint32_t& y) {
+  tax += ld(row + 2 * W + j, pol);
+  x += ld(row + 3 * W + j, pol);
+  if (!kPacked) y += ld(row + 4 * W + j, pol);
+}
+
+// Reduce-scatter over a group of 8 lanes: lane g of the group gets the sum
+// over the group's lanes of v[g] (7 shuffles for 8 probes, where a sum a
+// probe takes 3).
+__device__ __forceinline__ uint32_t reduce_scatter(const uint32_t (&v)[8],
+                                                   int g) {
+  uint32_t h[4], q[2];
+  const bool b4 = g & 4, b2 = g & 2, b1 = g & 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t keep = b4 ? v[4 + i] : v[i];
+    const uint32_t send = b4 ? v[i] : v[4 + i];
+    h[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t keep = b2 ? h[2 + i] : h[i];
+    const uint32_t send = b2 ? h[i] : h[2 + i];
+    q[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 2);
+  }
+  const uint32_t keep = b1 ? q[1] : q[0];
+  const uint32_t send = b1 ? q[0] : q[1];
+  return keep + __shfl_xor_sync(0xFFFFFFFFu, send, 1);
+}
+
+// Each lane owns one probe of the warp's 32 consecutive probes a step: it
+// loads the probe's inputs (one coalesced load a warp), hashes it, scans
+// the stash for it and writes its outputs (one coalesced store a warp).
+// The rows are probed by groups of kProbeLanes (8) lanes: group q takes
+// the probes of its own 8 lanes in turn, kR at a time, each lane
+// comparing its slots of the row (kW 16 or 32: its 2 or 4 hi and lo lanes
+// in one 8- or 16-byte load each, the kR probes' loads issued together;
+// kW = 0, any W: slot by slot, both keys, no short-circuit) and reading a
+// matching slot's payload lanes. A reduce-scatter then hands each lane the
+// row sums of its own probe. The next step's inputs load before the
+// current step is probed. The launch bounds hold a thread to 64 registers,
+// so that the plan's 4 blocks of 8 warps fit an SM.
+template <int kW, bool kPacked, bool kSorted, int kR>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+    lookup_std_kernel(const StdArgs a) {
+  extern __shared__ uint32_t staged[];  // the stash, [5, S], when a.staged
+  const uint32_t* stash = a.stash;
+  if (a.staged) {
+    for (int i = threadIdx.x; i < kStashRows * a.S; i += blockDim.x) {
+      staged[i] = a.stash[i];
+    }
+    __syncthreads();
+    stash = staged;
+  }
+  const Policies pol(a.l2);
+  const int W = kW ? kW : a.W;
+  const int lanes = kW ? (kPacked ? 4 : 6) * kW : a.lanes;
+  const int S = a.S;
+  const int lane = threadIdx.x % 32;
+  const int g = lane % kProbeLanes;
+  const long long warps = static_cast<long long>(gridDim.x) * blockDim.x /
+                          32;
+  const long long step = warps * 32;
+  const long long first = (static_cast<long long>(blockIdx.x) *
+                           blockDim.x / 32 + threadIdx.x / 32) * 32;
+
+  Probe me = load_probe<kSorted>(a, first + lane, pol.streams);
+  for (long long base = first; base < a.N; base += step) {
+    const Probe next = load_probe<kSorted>(a, base + step + lane,
+                                           pol.streams);
+    const uint32_t my_bucket = bucket_of(a, me);
+    uint32_t tax[8], x[8], y[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) tax[r] = x[r] = y[r] = 0u;
+#pragma unroll
+    for (int r0 = 0; r0 < 8; r0 += kR) {
+      uint32_t qhi[kR], qlo[kR], qb[kR];
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        qhi[q] = __shfl_sync(0xFFFFFFFFu, me.hi, r0 + q, kProbeLanes);
+        qlo[q] = __shfl_sync(0xFFFFFFFFu, me.lo, r0 + q, kProbeLanes);
+        qb[q] = __shfl_sync(0xFFFFFFFFu, my_bucket, r0 + q, kProbeLanes);
+      }
+      if constexpr (kW != 0) {
+        constexpr int K = kW / kProbeLanes;
+        uint32_t kh[kR][K], kl[kR][K];
+#pragma unroll
+        for (int q = 0; q < kR; ++q) {
+          if (qb[q] != kNoRow) {
+            const uint32_t* row =
+                a.fused + static_cast<size_t>(qb[q]) * lanes;
+            ld_vec<K>(row + g * K, pol.keys, kh[q]);
+            ld_vec<K>(row + kW + g * K, pol.keys, kl[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kR; ++q) {
+          if (qb[q] == kNoRow) continue;
+          const uint32_t* row = a.fused + static_cast<size_t>(qb[q]) * lanes;
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            if (kh[q][i] == qhi[q] && kl[q][i] == qlo[q]) {
+              add_payload<kPacked>(row, kW, g * K + i, pol.payload,
+                                   tax[r0 + q], x[r0 + q], y[r0 + q]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kR; ++q) {
+          if (qb[q] == kNoRow) continue;
+          const uint32_t* row = a.fused + static_cast<size_t>(qb[q]) * lanes;
+#pragma unroll 4
+          for (int j = g; j < W; j += kProbeLanes) {
+            const uint32_t h = ld(row + j, pol.keys);
+            const uint32_t l = ld(row + W + j, pol.keys);
+            if (h == qhi[q] && l == qlo[q]) {
+              add_payload<kPacked>(row, W, j, pol.payload, tax[r0 + q],
+                                   x[r0 + q], y[r0 + q]);
+            }
+          }
+        }
       }
     }
-    for (int s = g; s < S; s += kProbeLanes) {
-      if (stash[s] == qhi && stash[S + s] == qlo) {
-        s_tax += stash[2 * S + s];
-        s_in += stash[3 * S + s];
-        s_out += stash[4 * S + s];
+    // This lane's probe: its row sums, then its stash matches.
+    uint32_t o0 = reduce_scatter(tax, g);
+    const uint32_t pk = reduce_scatter(x, g);
+    uint32_t o1 = kPacked ? pk >> 16 : pk;
+    uint32_t o2 = kPacked ? pk & 0xFFFFu : reduce_scatter(y, g);
+    if (my_bucket != kNoRow) {
+      for (int s = 0; s < S; ++s) {
+        if (stash[s] == me.hi && stash[S + s] == me.lo) {
+          o0 += stash[2 * S + s];
+          o1 += stash[3 * S + s];
+          o2 += stash[4 * S + s];
+        }
       }
     }
-  }
-  tax = group_sum(tax);
-  a = group_sum(a);
-  if (!packed) c = group_sum(c);
-  if (S > 0) {
-    s_tax = group_sum(s_tax);
-    s_in = group_sum(s_in);
-    s_out = group_sum(s_out);
-  }
-  if (in && g == 0) {
-    const uint32_t r_in = packed ? a >> 16 : a;
-    const uint32_t r_out = packed ? a & 0xFFFFu : c;
-    const auto o0 = static_cast<int32_t>(tax + s_tax);
-    const auto o1 = static_cast<int32_t>(r_in + s_in);
-    const auto o2 = static_cast<int32_t>(r_out + s_out);
-    if (kSorted) {
-      sorted_out[w] = make_int4(o0, o1, o2, 0);
-    } else {
-      taxon[w] = o0;
-      t_in[w] = o1;
-      t_out[w] = o2;
+    const long long w = base + lane;
+    if (w < a.N) {
+      if (kSorted) {
+        st_v4(a.sorted_out + w, o0, o1, o2, pol.streams);
+      } else {
+        st(a.taxon + w, o0, pol.streams);
+        st(a.t_in + w, o1, pol.streams);
+        st(a.t_out + w, o2, pol.streams);
+      }
     }
+    me = next;
   }
+}
+
+using Kernel = void (*)(StdArgs);
+
+template <int kW, bool kPacked, bool kSorted>
+Kernel pick_r(int batch) {
+  switch (batch) {
+    case 2: return lookup_std_kernel<kW, kPacked, kSorted, 2>;
+    case 4: return lookup_std_kernel<kW, kPacked, kSorted, 4>;
+    default: return nullptr;
+  }
+}
+
+template <bool kPacked, bool kSorted>
+Kernel pick_w(int spec, int batch) {
+  switch (spec) {
+    case 0: return pick_r<0, kPacked, kSorted>(batch);
+    case 16: return pick_r<16, kPacked, kSorted>(batch);
+    case 32: return pick_r<32, kPacked, kSorted>(batch);
+    default: return nullptr;
+  }
+}
+
+Kernel pick(int spec, bool packed, bool sorted, int batch) {
+  if (packed) {
+    return sorted ? pick_w<true, true>(spec, batch)
+                  : pick_w<true, false>(spec, batch);
+  }
+  return sorted ? pick_w<false, true>(spec, batch)
+                : pick_w<false, false>(spec, batch);
 }
 
 }  // namespace
@@ -130,7 +388,12 @@ __global__ void lookup_std_kernel(const uint32_t* __restrict__ hi,
 // owner mask); order: NULL, or K9's int32 [N, 4] sorted probes (index, hi,
 // lo, valid), which the sorted form takes in place of hi/lo/valid, writing
 // (taxon, t_in, t_out, 0) a probe in sorted order to sorted_out, int32
-// [N, 4], in place of taxon/t_in/t_out, int32 [N].
+// [N, 4], in place of taxon/t_in/t_out, int32 [N]. The plan (std_plan of
+// kernels/lookup.py): grid blocks of `warps` warps; batch probes (2 or 4)
+// whose key loads a group issues together; spec the W of the specialised
+// body (16 or 32, equal to W, fused 16-byte aligned) or 0 for the generic
+// one; l2 the L2 policy mode (0-2); smem 20 S bytes to stage the stash in
+// shared memory, or 0.
 extern "C" int pangea_lookup_std(const void* hi, const void* lo,
                                  const void* valid, long long N,
                                  const void* fused, long long NB, int W,
@@ -138,26 +401,43 @@ extern "C" int pangea_lookup_std(const void* hi, const void* lo,
                                  int owner_shift, int shard_id,
                                  const void* order, void* sorted_out,
                                  void* taxon, void* t_in, void* t_out,
-                                 void* stream) {
-  if (NB < 1 || NB > (1ll << 32) || (NB & (NB - 1)) != 0 || W < 1 ||
+                                 int grid, int warps, int batch, int spec,
+                                 int l2, int smem, void* stream) {
+  // NB <= 2^31 leaves kNoRow out of every table (2^31 rows are 512 GB).
+  if (NB < 1 || NB > (1ll << 31) || (NB & (NB - 1)) != 0 || W < 1 ||
       S < 0 || owner_shift < 0 || owner_shift > 31 || shard_id < 0 ||
       (owner_shift > 0 && (shard_id >> (32 - owner_shift)) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
-  const int lanes = (packed ? 4 : 6) * W;
-  const auto kernel = order != nullptr ? lookup_std_kernel<true>
-                                       : lookup_std_kernel<false>;
-  kernel<<<blocks_for(N, kProbesPerBlock), kProbesPerBlock * kProbeLanes, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-      static_cast<const uint8_t*>(valid), N,
-      static_cast<const uint32_t*>(fused),
-      static_cast<uint32_t>(NB - 1), W, lanes, packed != 0,
-      static_cast<const uint32_t*>(stash), S, owner_shift,
-      static_cast<uint32_t>(shard_id), static_cast<const SortedProbe*>(order),
-      static_cast<int4*>(sorted_out),
-      static_cast<int32_t*>(taxon), static_cast<int32_t*>(t_in),
-      static_cast<int32_t*>(t_out));
+  if (grid < 1 || warps < 1 || warps > kMaxWarps || l2 < 0 || l2 > 2 ||
+      (spec != 0 && (spec != W ||
+                     reinterpret_cast<uintptr_t>(fused) % 16 != 0)) ||
+      (smem != 0 && (smem != 4 * kStashRows * S || smem > kStashSmemMax))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Kernel kernel = pick(spec, packed != 0, order != nullptr, batch);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  StdArgs a;
+  a.hi = static_cast<const uint32_t*>(hi);
+  a.lo = static_cast<const uint32_t*>(lo);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.order = static_cast<const SortedProbe*>(order);
+  a.N = N;
+  a.fused = static_cast<const uint32_t*>(fused);
+  a.nb_mask = static_cast<uint32_t>(NB - 1);
+  a.W = W;
+  a.lanes = (packed ? 4 : 6) * W;
+  a.stash = static_cast<const uint32_t*>(stash);
+  a.S = S;
+  a.staged = smem != 0;
+  a.l2 = l2;
+  a.owner_shift = owner_shift;
+  a.shard_id = static_cast<uint32_t>(shard_id);
+  a.sorted_out = static_cast<int4*>(sorted_out);
+  a.taxon = static_cast<int32_t*>(taxon);
+  a.t_in = static_cast<int32_t*>(t_in);
+  a.t_out = static_cast<int32_t*>(t_out);
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -371,3 +371,14 @@ extern "C" int pangea_row_gather(const void* table, long long NB,
       static_cast<unsigned char*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The block copy (mb_gather4's DMA probes): rows rows from the start that
+// the int32 at `start` names, into out [rows, row_bytes], by the staged
+// kernel with the plan gather_plan gives one index: one block of one warp,
+// one issuing lane, one slot.
+extern "C" int pangea_block_copy(const void* table, long long NB,
+                                 int row_bytes, int rows, const void* start,
+                                 void* out, void* stream) {
+  return pangea_row_gather(table, NB, row_bytes, rows, start, 1, 1, 0, 1, 1,
+                           1, 1, out, stream);
+}

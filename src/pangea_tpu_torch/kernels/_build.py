@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIB_NAME = "libpangea_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,9 +54,11 @@ SIGNATURES = {
     "pangea_lookup_q12": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P),
     # hi, lo, valid, N, fused, NB, W, packed, stash, S, owner_shift,
-    # shard_id, order, sorted_out, taxon, t_in, t_out, stream
+    # shard_id, order, sorted_out, taxon, t_in, t_out, grid, warps, batch,
+    # spec, l2, smem (lookup.std_plan), stream
     "pangea_lookup_std": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
-                          _I, _P, _P, _P, _P, _P, _P),
+                          _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P),
     # hi, lo, valid, N, log2 S, C, counts, records, inv, stream
     "pangea_route_bin": (_P, _P, _P, _I64, _I, _I, _P, _P, _P, _P),
     # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
@@ -81,6 +85,8 @@ SIGNATURES = {
     # lanes, slots (gather.gather_plan), out, stream
     "pangea_row_gather": (_P, _I64, _I, _I, _P, _I64, _I, _I, _I, _I, _I,
                           _I, _P, _P),
+    # table, NB, row_bytes, rows, start, out, stream: K13 on one index
+    "pangea_block_copy": (_P, _I64, _I, _I, _P, _P, _P),
 }
 
 
@@ -182,32 +188,55 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# Each launcher's ctypes function, looked up once (launcher()).
+_launchers: dict = {}
+
+
+def launcher(name: str):
+    """The ctypes function of launcher ``name``."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = _launchers[name] = getattr(library(), name)
+    return fn
+
+
 def launch(name: str, device, *args) -> None:
-    """Call one launcher with ``device`` as the current CUDA device and its
-    current stream as the last argument; raise if it reports a CUDA
-    error."""
-    import torch
-    with torch.cuda.device(device):
-        err = getattr(library(), name)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+    """Call one launcher with ``device`` as the current CUDA device and the
+    handle of its current stream as the last argument; raise if it reports
+    a CUDA error. The device is made current, and put back after, only
+    where another one is."""
+    fn = _launchers.get(name) or launcher(name)
+    index = device.index
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dispatch_device(*tensors):
     """None when every tensor lies on the CPU (the wrapper then runs the
     plain version); the common CUDA device otherwise. Raises for mixed
     devices and for any other device type."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(
-            f"tensors on several devices: {sorted(map(str, devs))}")
-    (dev,) = devs
-    if dev.type == "cpu":
+    first = tensors[0]
+    dev = first.device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on several devices: "
+                             f"{sorted({str(t.device) for t in tensors})}")
+    if first.is_cuda:
+        return dev
+    if first.is_cpu:
         return None
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return dev
+    raise ValueError(f"no kernel for device {dev}")
 
 
 def check(t, dtype, *, shape=None, ndim=None, name: str = "tensor") -> None:
@@ -215,7 +244,7 @@ def check(t, dtype, *, shape=None, ndim=None, name: str = "tensor") -> None:
     is contiguous."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
                          f"{tuple(shape)}")
     if ndim is not None and t.dim() != ndim:

@@ -1,0 +1,335 @@
+"""Time K4's forms, K13's block copy and the q8 and std steps through the
+port's public entry points, so that one file times any checkout of it.
+
+    PYTHONPATH=<checkout>/src python \\
+        src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split]
+
+The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
+checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
+A) in one call to compare them on one card. Each run prints one JSON line:
+
+- ``k4``: K4 (``lookup_std``) on the wide std world of ``chip_smoke.py``
+  phase 7 (16,384 pairs x 260 probes, 4,259,840, on the 131,072 x 192
+  table, W = 32) and on the k=31 packed world (the same pairs at k=31,
+  w=8, W = 16); its owner mask (``lookup_std_owned``) at 4 shards, shard
+  0; its sorted form (``lookup_std_sorted``) on the wide world given K9's
+  order; with ``--deep DIR``, unsorted and sorted on the deep world's std
+  table (4,194,304 packed rows, 1.07 GB) with the 8,519,680 probes of
+  65,536 reads, the deep index built once into DIR and loaded after;
+- ``block_copy``: K13's block copy and ``narrow().clone()`` on mb_gather4's
+  array, static and dynamic (``experiments.mb_gather``'s gather4 starts);
+- ``steps``: the q8 headline and the std world's Classifier steps on
+  16,384 pairs, one step and back to back;
+- with ``--split``, ``split``: the block copy's host time a call in parts,
+  by ``time.perf_counter_ns`` over SPLIT_CALLS calls: the whole call; the
+  wrapper's checks, plan and ``torch.empty``; the device guard and stream
+  lookup; the ``ctypes`` call of a launcher that returns before launching;
+  the same call that launches. Each part is timed as the earlier launch
+  path ran it (``parent``: a ``torch.cuda.device`` context, a ``Stream``
+  object and the 14-argument row gather launcher, as at commit
+  ``c2855ad``) and as this file's checkout runs it (``current``; its
+  dispatch, checks and allocation apart where it has the raw-stream
+  path); and ``graph``: the block copy captured in a CUDA graph, a
+  replay's host ns and ms beside the block copy's and
+  ``narrow().clone()``'s.
+
+Kernel times are CUDA events over PIPELINED back-to-back calls, the median
+of REPS samples after WARMUP calls (``chip_smoke.py``'s ``time_ms``). A
+card is needed; it exits 1 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import sys
+import time
+from pathlib import Path
+
+WARMUP, REPS, PIPELINED = 3, 20, 10
+BATCH, READ_LEN = 16384, 150
+WIDE = {"k": 21, "w": 1, "tree": (512, 64)}
+PACKED = {"k": 31, "w": 8}
+HEADLINE = {"k": 21, "w": 8}
+DEEP_READS = 65536
+SPLIT_CALLS = 10_000
+
+
+def time_ms(torch, fn, calls: int = PIPELINED, reps: int = REPS) -> float:
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_ns(torch, fn, calls: int = SPLIT_CALLS) -> float:
+    """Host ns a call of fn, over ``calls`` calls, then a synchronize."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls
+
+
+def probes(torch, b1, b2, k: int, w: int):
+    """Flat (hi, lo, valid) of both mates' probes, by K1."""
+    from pangea_tpu_torch.kernels import extract_probes
+    from pangea_tpu_torch.kernels.minimize import probe_width
+    nw = probe_width(READ_LEN, k, w)
+    mates = [b for b in (b1, b2) if b is not None]
+    shape = (mates[0].shape[0], len(mates) * nw)
+    out = (torch.empty(shape, dtype=torch.int32, device=b1.device),
+           torch.empty(shape, dtype=torch.int32, device=b1.device),
+           torch.empty(shape, dtype=torch.bool, device=b1.device))
+    for m, b in enumerate(mates):
+        extract_probes(b, k, w, out, m * nw)
+    return [t.reshape(-1) for t in out]
+
+
+def bench_world(torch, dev, n_reads: int, **kw):
+    """(device index, b1, b2) of a bench world."""
+    from pangea_tpu_torch.bench import make_bench_world
+    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
+    bw = make_bench_world(n_reads=n_reads, read_len=READ_LEN, **kw)
+    di = DeviceIndex.from_index(bw.index, dev, 0.0)
+    n = min(BATCH, n_reads)
+    return di, *(torch.from_numpy(pad_batch(r[:n], n, READ_LEN)).to(dev)
+                 for r in (bw.reads.seqs, bw.reads.mates))
+
+
+def deep_std(torch, dev, cache: Path):
+    """(std device index, flat probes) of the deep world: its index built
+    into ``cache`` once, its 65,536 reads at k=21, w=1."""
+    from pangea_tpu_torch.bench import deep_genomes, deep_reads
+    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
+    from pangea_tpu_torch.index import build_index, load_index_any
+    tax, genomes = deep_genomes()
+    if not (cache / "taxonomy.npz").exists():     # written last
+        cache.mkdir(parents=True, exist_ok=True)
+        build_index(genomes, tax, k=21, w=1).save(str(cache))
+    di = DeviceIndex.from_index(load_index_any(str(cache)), dev, 0.0,
+                                layout="std")
+    reads = deep_reads(genomes, DEEP_READS, READ_LEN)
+    b = torch.from_numpy(pad_batch(reads.seqs, DEEP_READS, READ_LEN)).to(dev)
+    return di, probes(torch, b, None, 21, 1)
+
+
+def time_k4(torch, dev, deep: Path | None) -> dict:
+    from pangea_tpu_torch.kernels import (bucket_sort, lookup_std,
+                                          lookup_std_owned, lookup_std_plain,
+                                          lookup_std_sorted)
+    out = {}
+
+    def check(name, want, got):
+        mism = sum(int((a != b).sum()) for a, b in zip(want, got))
+        if mism:
+            raise AssertionError(f"{name}: {mism} mismatches")
+
+    di, b1, b2 = bench_world(torch, dev, BATCH, **WIDE)
+    flat = probes(torch, b1, b2, WIDE["k"], WIDE["w"])
+    tab = (di.fused, di.stash, di.cfg.ways)
+    check("wide", lookup_std_plain(*flat, *tab), lookup_std(*flat, *tab))
+    out["wide"] = time_ms(torch, lambda: lookup_std(*flat, *tab))
+    check("owned", lookup_std_plain(*flat, *tab, (4, 0)),
+          lookup_std_owned(*flat, *tab, (4, 0)))
+    out["owned_4_0"] = time_ms(
+        torch, lambda: lookup_std_owned(*flat, *tab, (4, 0)))
+    order = bucket_sort(*flat, di.fused.shape[0])
+    check("sorted wide", lookup_std_plain(*flat, *tab),
+          lookup_std_sorted(*flat, *tab, order=order))
+    out["sorted_wide"] = time_ms(
+        torch, lambda: lookup_std_sorted(*flat, *tab, order=order))
+    out["n_wide"] = flat[0].numel()
+    pdi, _, _ = bench_world(torch, dev, 1, **PACKED)
+    pflat = probes(torch, b1, b2, PACKED["k"], PACKED["w"])
+    ptab = (pdi.fused, pdi.stash, pdi.cfg.ways)
+    check("packed", lookup_std_plain(*pflat, *ptab),
+          lookup_std(*pflat, *ptab))
+    out["packed"] = time_ms(torch, lambda: lookup_std(*pflat, *ptab))
+    if deep is not None:
+        ddi, dflat = deep_std(torch, dev, deep)
+        dtab = (ddi.fused, ddi.stash, ddi.cfg.ways)
+        want = lookup_std_plain(*dflat, *dtab)
+        check("deep", want, lookup_std(*dflat, *dtab))
+        out["deep"] = time_ms(torch, lambda: lookup_std(*dflat, *dtab))
+        dorder = bucket_sort(*dflat, ddi.fused.shape[0])
+        check("sorted deep", want,
+              lookup_std_sorted(*dflat, *dtab, order=dorder))
+        out["sorted_deep"] = time_ms(
+            torch, lambda: lookup_std_sorted(*dflat, *dtab, order=dorder))
+        out["n_deep"] = dflat[0].numel()
+    return out
+
+
+def time_block_copy(torch, dev) -> dict:
+    from pangea_tpu_torch.experiments import mb_gather as MG
+    from pangea_tpu_torch.kernels import block_copy
+    x = torch.from_numpy(MG.block_world()).to(dev)
+    out = {}
+    for name, (n, _, _, _) in MG.VARIANTS.items():
+        if not name.startswith("gather4"):
+            continue
+        start = torch.tensor([n], dtype=torch.int32, device=dev)
+        if not torch.equal(block_copy(x, start, MG.BLOCK_ROWS),
+                           x[n:n + MG.BLOCK_ROWS]):
+            raise AssertionError(f"{name}: the block copy is not the slice")
+        ms = time_ms(torch, lambda: block_copy(x, start, MG.BLOCK_ROWS))
+        lib = time_ms(torch, lambda: x.narrow(0, n, MG.BLOCK_ROWS).clone())
+        out[name] = {"ms": ms, "library_ms": lib, "ratio": ms / lib}
+    return out
+
+
+def time_steps(torch, dev) -> dict:
+    from pangea_tpu_torch.classify import Classifier
+    out = {}
+    for name, kw in (("q8", HEADLINE), ("std", WIDE)):
+        di, b1, b2 = bench_world(torch, dev, BATCH, **kw)
+        model = Classifier(di)
+        out[name] = {"one": time_ms(torch, lambda: model(b1, b2), 1),
+                     "back_to_back": time_ms(torch, lambda: model(b1, b2))}
+    return out
+
+
+def split(torch, dev) -> dict:
+    """The block copy's host time a call, in parts (see the docstring)."""
+    from pangea_tpu_torch.experiments import mb_gather as MG
+    from pangea_tpu_torch.kernels import _build, block_copy
+    from pangea_tpu_torch.kernels.gather import SMEM_OPTIN, gather_plan
+    lib = _build.library()
+    x = torch.from_numpy(MG.block_world()).to(dev)
+    start = torch.tensor([4], dtype=torch.int32, device=dev)
+    rows = MG.BLOCK_ROWS
+    row_bytes = x.shape[1] * 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out_t = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=dev)
+    gather = lib.pangea_row_gather
+
+    def parent_wrapper():
+        d = _build.dispatch_device(x, start)
+        _build.check(start, torch.int32, shape=(1,), name="start")
+        _build.check(start, torch.int32, ndim=1, name="idx")
+        if not x.is_contiguous() or x.dim() < 1:
+            raise ValueError
+        rb = math.prod(x.shape[1:]) * x.element_size()
+        if rb == 0 or rb % 16 or x.data_ptr() % 16:
+            raise ValueError
+        if not 1 <= rows <= x.shape[0]:
+            raise ValueError
+        plan = gather_plan(start.numel(), 1, 1, rows * rb, sms, SMEM_OPTIN)
+        torch.empty((start.numel() * rows, *x.shape[1:]), dtype=x.dtype,
+                    device=d)
+        return plan
+
+    plan = parent_wrapper()
+
+    def parent_guard():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    def current_guard():
+        if torch._C._cuda_getDevice() == dev.index:
+            return torch._C._cuda_getCurrentRawStream(dev.index)
+        raise AssertionError("the card is not current")
+
+    stream = parent_guard()
+
+    def gather_call(n):
+        return lambda: gather(x.data_ptr(), x.shape[0], row_bytes, rows,
+                              start.data_ptr(), n, 1, 0, plan.grid,
+                              plan.warps, plan.lanes, plan.slots,
+                              out_t.data_ptr(), stream)
+
+    parts = {"loop": host_ns(torch, lambda: None),
+             "library": host_ns(
+                 torch, lambda: x.narrow(0, 4, rows).clone())}
+    parts["parent"] = {
+        "wrapper": host_ns(torch, parent_wrapper),
+        "guard": host_ns(torch, parent_guard),
+        "ctypes": host_ns(torch, gather_call(0)),
+        "ctypes_launch": host_ns(torch, gather_call(1))}
+    current = {"whole": host_ns(torch, lambda: block_copy(x, start, rows)),
+               "guard": host_ns(torch, current_guard)}
+    if hasattr(lib, "pangea_block_copy"):
+        from pangea_tpu_torch.kernels.gather import _block_geometry
+        shape = _block_geometry(x.shape, x.dtype, rows)[1]
+
+        def checks():
+            _build.check(start, torch.int32, shape=(1,), name="start")
+            if not x.is_contiguous() or x.data_ptr() % 16:
+                raise ValueError
+            return _block_geometry(x.shape, x.dtype, rows)
+        current.update(
+            dispatch=host_ns(torch, lambda: _build.dispatch_device(x,
+                                                                   start)),
+            checks=host_ns(torch, checks),
+            empty=host_ns(torch, lambda: torch.empty(
+                shape, dtype=x.dtype, device=dev)))
+        copy = lib.pangea_block_copy
+        # rows 0: the launcher refuses the copy before launching.
+        current["ctypes"] = host_ns(torch, lambda: copy(
+            x.data_ptr(), x.shape[0], row_bytes, 0, start.data_ptr(),
+            out_t.data_ptr(), stream))
+        current["ctypes_launch"] = host_ns(torch, lambda: copy(
+            x.data_ptr(), x.shape[0], row_bytes, rows, start.data_ptr(),
+            out_t.data_ptr(), stream))
+    parts["current"] = current
+    # The block copy captured in a CUDA graph (its output is the graph's
+    # own): host ns a replay, and CUDA-event ms as for the kernels.
+    graph = torch.cuda.CUDAGraph()
+    block_copy(x, start, rows)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        static = block_copy(x, start, rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(static, x[4:4 + rows]):
+        raise AssertionError("the captured block copy is not the slice")
+    parts["graph"] = {"replay": host_ns(torch, graph.replay),
+                      "replay_ms": time_ms(torch, graph.replay),
+                      "block_copy_ms": time_ms(
+                          torch, lambda: block_copy(x, start, rows)),
+                      "library_ms": time_ms(
+                          torch, lambda: x.narrow(0, 4, rows).clone())}
+    return parts
+
+
+def main(argv=None) -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--deep", type=Path, default=None,
+                    help="time K4 on the deep std table, its index in DIR")
+    ap.add_argument("--split", action="store_true",
+                    help="split the block copy's host time into parts")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_timing: no CUDA device", file=sys.stderr)
+        return 1
+    import pangea_tpu_torch
+    dev = torch.device("cuda", 0)
+    line = {"checkout": str(Path(pangea_tpu_torch.__file__).parent),
+            "device": torch.cuda.get_device_name(dev),
+            "block_copy": time_block_copy(torch, dev)}
+    if args.split:
+        line["split"] = split(torch, dev)
+    line["k4"] = time_k4(torch, dev, args.deep)
+    line["steps"] = time_steps(torch, dev)
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

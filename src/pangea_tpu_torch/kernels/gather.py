@@ -104,11 +104,6 @@ def gather_plan(n: int, depth: int, chunk: int, slot_bytes: int, sms: int,
     return GatherPlan(grid, warps, lanes, slots, smem)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _gather_kernel(dev, table, idx, depth: int, chunk: int, direct: bool,
                    rows: int):
     """K13 on CUDA tensors: the output of ``row_gather_plain``."""
@@ -123,7 +118,7 @@ def _gather_kernel(dev, table, idx, depth: int, chunk: int, direct: bool,
         raise ValueError(f"rows={rows}, depth={depth}, chunk={chunk} for "
                          f"{table.shape[0]} table rows")
     plan = gather_plan(idx.numel(), depth, chunk, rows * row_bytes,
-                       _sm_count(dev.index), SMEM_OPTIN)
+                       _build.sm_count(dev.index), SMEM_OPTIN)
     out = torch.empty((idx.numel() * rows, *table.shape[1:]),
                       dtype=table.dtype, device=dev)
     _build.launch("pangea_row_gather", dev, table.data_ptr(), table.shape[0],
@@ -168,15 +163,38 @@ def row_gather_direct(table, idx, *, depth: int, chunk: int, rows: int = 1):
 row_gather_direct.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _block_geometry(shape, dtype, rows: int):
+    """(row bytes, output shape) of a block copy of ``rows`` rows of a
+    [NB, ...] table of ``shape`` and ``dtype``; raises where K13 cannot
+    copy it."""
+    row_bytes = math.prod(shape[1:]) * dtype.itemsize
+    if len(shape) < 1 or row_bytes == 0 or row_bytes % 16:
+        raise ValueError(f"K13 copies 16-byte-aligned rows of a multiple of "
+                         f"16 bytes; a row of {tuple(shape)} has {row_bytes}")
+    if not 1 <= rows <= shape[0]:
+        raise ValueError(f"rows={rows} for {shape[0]} table rows")
+    return row_bytes, (rows, *shape[1:])
+
+
 def block_copy(x, start, rows: int):
     """x[s:s + rows] for s = start[0], read from the tensor ``start`` (int32
     [1]) where the copy runs: K13 with one index of ``rows`` rows on CUDA
-    tensors."""
+    tensors, launched by ``pangea_block_copy`` with the plan
+    :func:`gather_plan` gives one index (one block of one warp, one lane
+    and one slot), its geometry cached by shape."""
     dev = _build.dispatch_device(x, start)
     if dev is None:
         return row_gather_plain(x, start, rows)
     _build.check(start, torch.int32, shape=(1,), name="start")
-    out = _gather_kernel(dev, x, start, 1, 1, False, rows)
+    table = x.data_ptr()
+    if table % 16 or not x.is_contiguous():
+        raise ValueError("x: K13 takes a contiguous, 16-byte-aligned table")
+    shape = x.shape
+    row_bytes, out_shape = _block_geometry(shape, x.dtype, rows)
+    out = x.new_empty(out_shape)
+    _build.launch("pangea_block_copy", dev, table, shape[0], row_bytes, rows,
+                  start.data_ptr(), out.data_ptr())
     block_copy.launches += 1
     return out
 

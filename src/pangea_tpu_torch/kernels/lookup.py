@@ -24,7 +24,9 @@ halves (:func:`_mul32`) and narrow back at the end (:func:`narrow`).
 """
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -242,21 +244,22 @@ def _check_order(order, hi) -> None:
                              f"{hi.device}")
 
 
-def _launch_lookup(name: str, dev, hi, order, *args):
+def _launch_lookup(name: str, dev, hi, order, *args, tail=()):
     """Launch the lookup ``name`` with ``args`` (its arguments before
-    K9's order) and return its outputs, int32 like hi. Sorted (``order``
-    given), it writes one record a probe in sorted order, and K9's restore
-    gathers them back into the probes' order."""
+    K9's order) and ``tail`` (those after its outputs) and return its
+    outputs, int32 like hi. Sorted (``order`` given), it writes one record
+    a probe in sorted order, and K9's restore gathers them back into the
+    probes' order."""
     outs = [torch.empty(hi.shape, dtype=torch.int32, device=dev)
             for _ in range(3)]
     if order is None:
         _build.launch(name, dev, *args, None, None,
-                      *(o.data_ptr() for o in outs))
+                      *(o.data_ptr() for o in outs), *tail)
         return tuple(outs)
     records, inv = order
     sorted_out = torch.empty_like(records)
     _build.launch(name, dev, *args, records.data_ptr(),
-                  sorted_out.data_ptr(), None, None, None)
+                  sorted_out.data_ptr(), None, None, None, *tail)
     _build.launch("pangea_bucket_restore", dev, inv.data_ptr(),
                   sorted_out.data_ptr(), hi.numel(),
                   *(o.data_ptr() for o in outs))
@@ -609,9 +612,63 @@ def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None,
 lookup_std_sorted.launches = 0
 
 
-def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order, owner):
-    """K4 on CUDA tensors; K9's order selects its sorted form and owner
-    (n_shards, shard_id) its owner mask."""
+# K4's launch (std_plan), from kernels.lookup_sweep on an NVIDIA H100 80GB
+# HBM3: warps a block and blocks an SM (64 registers a thread fit 1,024
+# threads an SM); the probes whose key loads a group issues together, by
+# W; the L2 policy mode of the unsorted and the sorted form; the W K4 is
+# specialised for (auto_ways' choices); the stash staged in shared memory
+# up to STASH_SMEM_MAX bytes.
+STD_WARPS = 8
+STD_BLOCKS_PER_SM = 4
+STD_BATCH = {16: 4, 32: 2}
+STD_BATCH_GENERIC = 2
+STD_L2 = {False: 1, True: 2}          # by sorted form
+STD_SPECS = (16, 32)
+STASH_ROWS = 5
+STASH_SMEM_MAX = 48 * 1024
+
+
+class StdPlan(NamedTuple):
+    """K4's launch: ``grid`` blocks of ``warps`` warps, each warp taking 32
+    consecutive probes a step, one a lane; a group of 8 lanes probes its
+    lanes' rows ``batch`` at a time (2 or 4), their key loads issued
+    together; ``spec`` the W of the specialised body (0: the generic one);
+    ``l2`` the L2 policy mode (0: all evict-normal; 1: keys evict-last,
+    the rest evict-first; 2: keys evict-last, payload evict-normal,
+    streams evict-first); ``smem`` the shared bytes that stage the stash
+    (0: read from device memory)."""
+    grid: int
+    warps: int
+    batch: int
+    spec: int
+    l2: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def std_plan(n: int, ways: int, stash_cols: int, sorted_form: bool,
+             sms: int) -> StdPlan:
+    """K4's launch for n probes of a table of ``ways`` slots a row and a
+    stash of ``stash_cols`` columns, unsorted or ``sorted_form``, on a
+    card of ``sms`` SMs: a persistent grid of STD_BLOCKS_PER_SM blocks an
+    SM, capped by the work; the stash staged where it fits STASH_SMEM_MAX
+    bytes."""
+    if n < 0 or ways < 1 or stash_cols < 0 or sms < 1:
+        raise ValueError(f"n={n}, ways={ways}, stash_cols={stash_cols}, "
+                         f"sms={sms}")
+    grid = min(sms * STD_BLOCKS_PER_SM, -(-n // (STD_WARPS * 32)))
+    spec = ways if ways in STD_SPECS else 0
+    smem = STASH_ROWS * 4 * stash_cols
+    return StdPlan(grid, STD_WARPS, STD_BATCH.get(spec, STD_BATCH_GENERIC),
+                   spec, STD_L2[bool(sorted_form)],
+                   smem if smem <= STASH_SMEM_MAX else 0)
+
+
+def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order, owner,
+                plan: StdPlan | None = None):
+    """K4 on CUDA tensors; K9's order selects its sorted form, owner
+    (n_shards, shard_id) its owner mask, and ``plan`` overrides
+    :func:`std_plan` (kernels.lookup_sweep)."""
     _build.check(hi, torch.int32, name="hi")
     _build.check(lo, torch.int32, shape=hi.shape, name="lo")
     _build.check(valid, torch.bool, shape=hi.shape, name="valid")
@@ -619,9 +676,15 @@ def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order, owner):
     _build.check(stash, torch.int32, ndim=2, name="stash")
     packed = _std_geometry(fused, ways)
     shift, shard_id = _owner_shift(owner)
-    if stash.shape[0] != 5:
+    if stash.shape[0] != STASH_ROWS:
         raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
+    if plan is None:
+        plan = std_plan(hi.numel(), ways, stash.shape[1], order is not None,
+                        _build.sm_count(dev.index))
+    # The specialised bodies read 8 or 16 bytes at once from the table.
+    spec = plan.spec if fused.data_ptr() % 16 == 0 else 0
     return _launch_lookup(
         "pangea_lookup_std", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
         valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], ways,
-        int(packed), stash.data_ptr(), stash.shape[1], shift, shard_id)
+        int(packed), stash.data_ptr(), stash.shape[1], shift, shard_id,
+        tail=(plan.grid, plan.warps, plan.batch, spec, plan.l2, plan.smem))

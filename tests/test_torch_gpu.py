@@ -984,3 +984,174 @@ def test_block_copy_kernel_matches_the_slice(cuda, start):
     assert torch.equal(got.cpu(), row_gather_plain(x, s, 8))
     if start in (0, 4):
         assert torch.equal(got.cpu(), x[start:start + 8])
+
+
+# K4's specialisations (kernels/lookup.py std_plan): W = 16 and 32 take the
+# specialised body, every other W the generic one; packed and wide rows;
+# stashes of 0, a few and STASH_MAX columns, staged in shared memory.
+def _std_table(ways, wide, stash_cols, seed=11):
+    """(hi, lo, valid, fused, stash) of a random std table of W = ways,
+    a random payload (so that sums wrap), some rows holding a key twice
+    and a stash of ``stash_cols`` columns, half of them keys of the rows;
+    the probes are every key, the stash's and 500 absent ones."""
+    from pangea_tpu_torch.index.build import STASH_MAX
+    rng = np.random.default_rng(seed + ways + stash_cols)
+    n = 60 * ways
+    keys = np.unique(rng.integers(1, 1 << 42, size=n, dtype=np.uint64))
+    kh, kl, _, _, nb = layout_table(keys, np.ones(keys.shape, np.int32),
+                                    0.25, ways=ways)
+    dup = np.flatnonzero(kh[:, -1] == kh.max())[:40]   # empty last slots
+    kh[dup, -1], kl[dup, -1] = kh[dup, 0], kl[dup, 0]
+    payload = rng.integers(0, 1 << 32, size=(nb, (4 if wide else 2) * ways),
+                           dtype=np.uint64).astype(np.uint32)
+    fused = np.concatenate([kh, kl, payload], axis=1)
+    assert stash_cols <= STASH_MAX
+    pick = rng.choice(keys.shape[0], stash_cols // 2, replace=False)
+    fresh = rng.integers(1, 1 << 42, size=stash_cols - pick.size,
+                         dtype=np.uint64)
+    skeys = np.concatenate([keys[pick], fresh])
+    stash = np.concatenate([
+        (skeys >> np.uint64(32)).astype(np.uint32)[None],
+        (skeys & np.uint64(0xFFFFFFFF)).astype(np.uint32)[None],
+        rng.integers(0, 1 << 32, size=(3, stash_cols),
+                     dtype=np.uint64).astype(np.uint32)])
+    probes = rng.permutation(np.concatenate([
+        keys, skeys, rng.integers(0, 1 << 42, size=500, dtype=np.uint64)]))
+    hi = (probes >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (probes & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    valid = rng.random(probes.shape[0]) < 0.9
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        hi, lo, valid, fused.view(np.int32), stash.view(np.int32)))
+
+
+@pytest.fixture(params=[2, 4], ids=lambda b: f"batch{b}")
+def k4_batch(request, monkeypatch):
+    """K4's plan with each batch of probes whose key loads a group issues
+    together."""
+    from pangea_tpu_torch.kernels import lookup as LK
+    monkeypatch.setattr(LK, "STD_BATCH", {16: request.param,
+                                          32: request.param})
+    monkeypatch.setattr(LK, "STD_BATCH_GENERIC", request.param)
+    LK.std_plan.cache_clear()
+    yield request.param
+    LK.std_plan.cache_clear()
+
+
+@pytest.mark.parametrize("stash_cols", [0, 7, 128])
+@pytest.mark.parametrize("wide", [False, True], ids=["packed", "wide"])
+@pytest.mark.parametrize("ways", [4, 8, 16, 32, 64])
+def test_lookup_std_kernel_every_specialisation(cuda, k4_batch, ways, wide,
+                                                stash_cols):
+    """K4 and its sorted form equal lookup_std_plain bit for bit on every
+    specialisation: the W-specialised and generic bodies, every batch,
+    packed and wide rows, duplicate keys in a row, stash hits on keys the
+    rows hold."""
+    from pangea_tpu_torch.kernels import lookup_std_sorted
+    args = _std_table(ways, wide, stash_cols)
+    assert args[3].shape[1] == (6 if wide else 4) * ways
+    assert args[4].shape == (5, stash_cols)
+    want = lookup_std_plain(*args, ways)
+    on = [a.to(cuda) for a in args]
+    reset_kernel_launches()
+    got = lookup_std(*on, ways)
+    srt = lookup_std_sorted(*on, ways)
+    assert kernel_launches()["lookup_std"] == 1
+    assert kernel_launches()["lookup_std_sorted"] == 1
+    for a, b, c in zip(want, got, srt):
+        assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
+    assert int((want[0] != 0).sum()) > (args[0].numel() - 500) // 2
+
+
+def _step_probes():
+    """Three steps of std_plan's persistent grid (32 probes a warp), plus
+    17."""
+    from pangea_tpu_torch.kernels.lookup import std_plan
+    plan = std_plan(1 << 30, 32, 0, False, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    return 3 * plan.grid * plan.warps * 32 + 17
+
+
+@pytest.mark.parametrize("invalid", [False, True], ids=["valid", "invalid"])
+@pytest.mark.parametrize("n", [0, 1, 33, "steps"])
+def test_lookup_std_kernel_edge_sizes(cuda, k4_batch, n, invalid):
+    """N = 0, 1, 33 and past three steps of the persistent grid (not a
+    multiple of a step), with the probes valid or all invalid."""
+    from pangea_tpu_torch.kernels import lookup_std_sorted
+    hi, lo, valid, fused, stash = _std_table(32, True, 0)
+    n = _step_probes() if n == "steps" else n
+    reps = -(-n // hi.numel()) if n else 0
+    hi, lo, valid = (t.repeat(reps)[:n] for t in (hi, lo, valid))
+    if invalid:
+        valid = torch.zeros_like(valid)
+    want = lookup_std_plain(hi, lo, valid, fused, stash, 32)
+    on = [a.to(cuda) for a in (hi, lo, valid, fused, stash)]
+    got = lookup_std(*on, 32)
+    srt = lookup_std_sorted(*on, 32)
+    for a, b, c in zip(want, got, srt):
+        assert b.shape == (n,) and torch.equal(a, b.cpu())
+        assert torch.equal(a, c.cpu())
+    if invalid:
+        assert not any(bool(o.any()) for o in want)
+
+
+@pytest.mark.parametrize("wide,ways", [(False, 16), (True, 32)],
+                         ids=["packed16", "wide32"])
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_lookup_std_owner_mask_on_the_specialised_bodies(cuda, k4_batch,
+                                                         n_shards, wide,
+                                                         ways):
+    """K4's masked form, unsorted and sorted, on every shard of 2, 4 and 8
+    equals the plain mask; the shards' outputs sum to the unmasked probe."""
+    from pangea_tpu_torch.kernels import lookup_std_owned, lookup_std_sorted
+    args = _std_table(ways, wide, 7)
+    on = [a.to(cuda) for a in args]
+    total = None
+    for s in range(n_shards):
+        want = lookup_std_plain(*args, ways, (n_shards, s))
+        got = lookup_std_owned(*on, ways, (n_shards, s))
+        srt = lookup_std_sorted(*on, ways, owner=(n_shards, s))
+        for a, b, c in zip(want, got, srt):
+            assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
+        total = want if total is None else tuple(
+            (x.long() + y.long()) & 0xFFFFFFFF for x, y in zip(total, want))
+    for a, b in zip(total, lookup_std_plain(*args, ways)):
+        assert torch.equal(a.long() & 0xFFFFFFFF, b.long() & 0xFFFFFFFF)
+
+
+def test_lookup_std_kernel_on_a_device_that_is_not_current():
+    """K4 on the last card while the first is current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    args = _std_table(32, True, 7)
+    got = lookup_std(*(a.to(dev) for a in args), 32)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(lookup_std_plain(*args, 32), got):
+        assert b.device == dev and torch.equal(a, b.cpu())
+
+
+def test_kernels_launch_on_the_callers_stream(cuda, monkeypatch):
+    """A launch under torch.cuda.stream(s) passes s's handle to the
+    launcher and runs there: queued behind a sleep on s, its outputs are
+    right once s is synchronised."""
+    from pangea_tpu_torch.kernels import _build
+    args = _std_table(32, True, 7)
+    on = [a.to(cuda) for a in args]
+    lookup_std(*on, 32)                       # the launcher, looked up
+    real = _build.launcher("pangea_lookup_std")
+    seen = []
+
+    def spy(*a):
+        seen.append(a[-1])
+        return real(*a)
+    monkeypatch.setitem(_build._launchers, "pangea_lookup_std", spy)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(10_000_000)
+        got = lookup_std(*on, 32)
+    assert seen == [s.cuda_stream]
+    assert seen[0] != torch.cuda.default_stream().cuda_stream
+    s.synchronize()
+    for a, b in zip(lookup_std_plain(*args, 32), got):
+        assert torch.equal(a, b.cpu())
