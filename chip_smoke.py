@@ -30,7 +30,10 @@ general path:
      then one link;
   3. K1-K3 against their plain PyTorch versions, bit for bit, at the bench
      shapes (16384 pairs of 150 bp reads), plus K2 on a table with a forced
-     stash and K3 at two thresholds; mismatches and times;
+     stash and K3 at two thresholds, on the lookups and on scorer worlds
+     of chosen U (bench.score_world: U = 1, 8 and R, nested along a
+     lineage and from unrelated taxa), each world's mean and largest U and
+     its reads that took the general branch logged; mismatches and times;
   4. the q8 Classifier on that batch: every kernel's launch count, the
      outputs against the plain path and the reads' planted truth, and the
      step time of both paths by CUDA events;
@@ -46,8 +49,10 @@ general path:
      packed table and on a table with a forced stash, the wide and packed
      tables timed beside their bounds, each with its launch plan
      (kernels.lookup.std_plan) in K4's `variants` map; K3-taxon and K5 at
-     two thresholds; K5 also on a 5,251-taxon q8 world and on a 5,000-node
-     chain (13 lifting levels);
+     two thresholds, K3-taxon also on scorer worlds of U = 1, 8, 64 and R
+     at 16,384 x 260, 64 x 1,180 and 16 x 2,048 (past score_cap(R)
+     distinct intervals, the general branch); K5 also on a 5,251-taxon q8
+     world and on a 5,000-node chain (13 lifting levels);
   8. the std Classifier at full width: launch counts of K1, K4, K3 and K5,
      the outputs against the plain path and the planted truth, step times;
   9. the CLI on the std index (written by the port's Index.save) with
@@ -70,7 +75,8 @@ general path:
      bucket, sorted in shared memory) and 32,728 (75 pairs of that bucket,
      sorted in a device scratch), q8 and taxon forms, with the direct LCA
      (the headline's 67-taxon tree) and K5's lifting (66,563 taxa), at two
-     thresholds; K1's packed form on the headline pairs as the native
+     thresholds, and on scorer worlds of U = 1, 8, 64 and R at each shape;
+     K1's packed form on the headline pairs as the native
      reader packs them (w=8 and w=1), held to its plain version and to K1
      on the codes;
  16. the long-read step on the std world: one FASTQ of the bench's first
@@ -160,16 +166,19 @@ counts only what this run's probes need: the key lanes of the buckets they
 reach, the payload lanes of the keys they hit and the stash (K2, K2-q12,
 K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
 entries of the lineages its pairs (K7: its conflicting pairs) reach, beside
-their [B] inputs and outputs. K8's operations are the least a sort
-needs: R log2 R compares for each of the read's two sorts, and log2 R steps
-for each of a hit's two ranks. K9's bytes are its probes' lanes read once
-and its 16-byte records and inverse permutation written once, its
-operations a key a probe; a sorted form reads the records and the inverse
-in place of the probes' lanes and writes the outputs. K10 reads a
-probe's 9 bytes and writes its slot (4 bytes) and the [S, C] grid of
-16-byte records once; its restore reads a slot and a 16-byte answer and
-writes 12 bytes a probe; K4's masked form reads every probe's lanes and
-writes its outputs, and touches the table only for the probes it owns.
+their [B] inputs and outputs. K3 and K8 (the scorer) read each probe's
+13 bytes once and write their [B] outputs once; their operations are the
+least of the exact form they run: one key a probe and U^2 compares a read
+over its U distinct (t_in, t_out) intervals (U counted from this run's
+data), plus (T + 1) x 6 a read for the direct LCA scan. K9's bytes are
+its probes' lanes read once and its 16-byte records and inverse
+permutation written once, its operations a key a probe; a sorted form
+reads the records and the inverse in place of the probes' lanes and
+writes the outputs. K10 reads a probe's 9 bytes and writes its slot (4
+bytes) and the [S, C] grid of 16-byte records once; its restore reads a
+slot and a 16-byte answer and writes 12 bytes a probe; K4's masked form
+reads every probe's lanes and writes its outputs, and touches the table
+only for the probes it owns.
 K11 and K12 read the table once and 8 B and write 4 B a query, with 2W
 operations a query; K12's one-hot product is also logged against the
 1,979 T/s dense int8 tensor-core peak. K13 reads and writes each row once
@@ -239,6 +248,14 @@ MESH_SHAPES = ((1, 4), (2, 2))
 MESH_REPS = 5            # timed steps of each multi-rank case
 C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
+# The scorer's worlds of chosen U (bench.score_world) in phases 3, 7 and
+# 15: U = 1, 8, 64 and R (None: every probe a hit of its own), nested
+# along a chain's lineage and from unrelated taxa of the 66,563-taxon tree,
+# with U_MISS of the probes misses; the K3 shapes of phase 7 beside the
+# wide world's.
+U_WORLDS = (1, 8, 64, None)
+U_MISS = 0.5
+K3_SHAPES = ((1180, 64), (2048, 16))
 # The Pallas experiments (phases 29-31): K11 on mb_pallas's world and on a
 # table of PROBE_TALL_NB rows (past one wave of blocks); K12 on the same
 # world and on a table of ONEH_SMALL_NB rows, every query. K13's variants
@@ -544,6 +561,104 @@ def lineage_bytes(torch, u, v, tax: dict) -> int:
     return 4 * nodes.numel() * (tax["up"].shape[0] + 2)
 
 
+def distinct_per_read(lanes, t_in, t_out):
+    """[B] distinct (t_in, t_out) intervals among each read's hits, of
+    [B, R] tensors."""
+    from pangea_tpu_torch.bench import distinct_intervals
+    return distinct_intervals(*(t.cpu().numpy() for t in (lanes, t_in,
+                                                          t_out)))
+
+
+def score_ops(lanes, t_in, t_out) -> int:
+    """The scorer's least operations on these inputs: a key a probe and
+    U^2 compares a read over its U distinct intervals."""
+    u = distinct_per_read(lanes, t_in, t_out).astype("int64")
+    return lanes.numel() + int((u * u).sum())
+
+
+def check_score(torch, res: Results, name: str, what: str, args, tax,
+                taxon_lanes: bool, want_general=None) -> None:
+    """A scorer (K3 ``name`` or K8) against its plain version on one
+    input: winners, and the direct or lifted LCA at THRESHOLDS; logs the
+    reads that took the general branch (and holds them to
+    ``want_general`` over the three launches where it is given)."""
+    from pangea_tpu_torch.kernels import (general_reads, reset_general_reads,
+                                          score_ranked, score_reads_plain,
+                                          score_reads_taxon, score_reads_tin,
+                                          score_winners, score_winners_plain)
+    from pangea_tpu_torch.kernels.score import MAX_PROBES
+    R = args[0].shape[1]
+    form = "taxon" if taxon_lanes else "q8"
+    reset_general_reads()
+    res.check(name, f"{what}, {form} winners",
+              score_winners_plain(*args, taxon_lanes),
+              score_winners(*args, taxon_lanes))
+    for thr in THRESHOLDS:
+        if R > MAX_PROBES:
+            got = score_ranked(*args, tax, thr, taxon_lanes)
+        elif taxon_lanes:
+            got = score_reads_taxon(*args, tax, thr)
+        else:
+            got = score_reads_tin(*args, tax, thr)
+        res.check(name, f"{what}, {form}, threshold {thr}",
+                  score_reads_plain(*args, tax, thr, taxon_lanes), got)
+    general = general_reads()[name]
+    log(f"[{what}] {name} {form}: {general} reads took the general branch "
+        "in 3 launches")
+    if want_general is not None and general != want_general:
+        raise AssertionError(f"{general} general-branch reads, want "
+                             f"{want_general}")
+
+
+_TAXA: dict = {}
+
+
+def check_u_worlds(torch, res: Results, name: str, tag: str, B: int,
+                   R: int, forms, cuda) -> None:
+    """The scorer ``name`` against its plain version on score_world inputs
+    of B reads of R probes at each U of U_WORLDS, nested and unrelated, in
+    ``forms`` (True: taxon lanes, False: q8 hit counts); each world's mean
+    and largest U, and the reads past score_cap(R) distinct intervals (all
+    but read 0, which has no hit) held to the general branch."""
+    from pangea_tpu_torch.bench import chain_taxonomy, score_world
+    from pangea_tpu_torch.kernels.score import score_cap
+    from pangea_tpu_torch.utils import datagen
+    if "wide" not in _TAXA:
+        _TAXA["wide"] = datagen.make_taxonomy(2, *WIDE["tree"], seed=0)
+    for U in U_WORLDS:
+        for nested in (False, True):
+            miss = 0.0 if U is None else U_MISS
+            hits = R - round(miss * R)
+            if U is not None and U > hits:
+                continue
+            distinct = hits if U is None else U
+            if nested:
+                n = max(distinct, 64) + 2
+                if n not in _TAXA:
+                    _TAXA[n] = chain_taxonomy(n)
+                tax = _TAXA[n]
+            else:
+                tax = _TAXA["wide"]
+            world = score_world(tax, B, R, U, nested, miss,
+                                seed=R + distinct)
+            lanes, t_in, t_out, valid = (torch.from_numpy(a).to(cuda)
+                                         for a in world)
+            u = distinct_per_read(lanes, t_in, t_out)
+            what = (f"{tag} U={'R' if U is None else U} "
+                    f"{'nested' if nested else 'unrelated'}, {R} x {B}")
+            log(f"[{what}] {tax.num_taxa} taxa; distinct intervals a "
+                f"read: mean {float(u.mean())}, largest {int(u.max())}")
+            dev_tax = {k: torch.from_numpy(v).to(cuda)
+                       for k, v in tax.device_arrays().items()}
+            for taxon_lanes in forms:
+                lanes_f = lanes if taxon_lanes else (lanes != 0).to(
+                    torch.int32)
+                check_score(torch, res, name, what,
+                            (lanes_f, t_in, t_out, valid), dev_tax,
+                            taxon_lanes,
+                            3 * (B - 1) if distinct > score_cap(R) else 0)
+
+
 def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import relayout_q8
     from pangea_tpu_torch.kernels import (extract_probes_plain, fuse_stash,
@@ -605,18 +720,19 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
 
     hit, t_in, t_out = (t.reshape(BATCH, R) for t in want)
     valid2 = valid.reshape(BATCH, R)
-    for thr in THRESHOLDS:
-        res.check("score_tin", f"3 threshold {thr}",
-                  score_reads_tin_plain(hit, t_in, t_out, valid2, di.tax,
-                                        thr),
-                  score_reads_tin(hit, t_in, t_out, valid2, di.tax, thr))
+    check_score(torch, res, "score_tin", "3", (hit, t_in, t_out, valid2),
+                di.tax, False)
+    u = distinct_per_read(hit, t_in, t_out)
+    log(f"[3] the headline's lookups: distinct intervals a read: mean "
+        f"{float(u.mean())}, largest {int(u.max())}")
+    check_u_worlds(torch, res, "score_tin", "3", BATCH, R, (False,), cuda)
     T1 = di.tax["tin"].numel()
     res.time(torch, "score_tin", "3",
              lambda: score_reads_tin(hit, t_in, t_out, valid2, di.tax, 0.0),
              lambda: score_reads_tin_plain(hit, t_in, t_out, valid2,
                                            di.tax, 0.0),
              nbytes=BATCH * R * 13 + 12 * T1 + 12 * BATCH,
-             ops=int((hit != 0).sum()) * R * 4 + BATCH * T1 * 6)
+             ops=score_ops(hit, t_in, t_out) + BATCH * T1 * 6)
     res.assert_clean(("extract_probes", "lookup_q8", "score_tin"))
 
 
@@ -752,8 +868,14 @@ def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # acc_events keeps every step's events: without it the profiler may
+    # clear them at the end of a cycle and record fewer launches than ran.
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    try:
+        prof = profile(activities=activities, acc_events=True)
+    except TypeError:                # a torch without acc_events
+        prof = profile(activities=activities)
+    with prof:
         start.record()
         for _ in range(steps):
             model(b1, b2)
@@ -790,14 +912,9 @@ def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
 
 
 def chain_tax(torch, cuda) -> dict:
-    from pangea_tpu_torch.taxonomy import Taxonomy
-    parent = list(range(-1, CHAIN_NODES))
-    parent[:2] = [0, 1]
-    tax = Taxonomy(parent=parent, rank=[0] * (CHAIN_NODES + 1),
-                   names=["unclassified"] + [f"n{i}"
-                                             for i in range(CHAIN_NODES)])
+    from pangea_tpu_torch.bench import chain_taxonomy
     return {k: torch.from_numpy(v).to(cuda)
-            for k, v in tax.device_arrays().items()}
+            for k, v in chain_taxonomy(CHAIN_NODES).device_arrays().items()}
 
 
 def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
@@ -891,12 +1008,14 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     taxon, t_in, t_out = (t.reshape(B, R) for t in want)
     args = (taxon, t_in, t_out, valid)
     winners = score_winners_plain(*args, True)
-    res.check("score_taxon", "7 wide winners", winners,
-              score_winners(*args, True))
+    check_score(torch, res, "score_taxon", "7 wide", args, di.tax, True)
+    u = distinct_per_read(taxon, t_in, t_out)
+    log(f"[7] the wide lookups: distinct intervals a read: mean "
+        f"{float(u.mean())}, largest {int(u.max())}")
+    check_u_worlds(torch, res, "score_taxon", "7", B, R, (True,), cuda)
+    for R3, B3 in K3_SHAPES:
+        check_u_worlds(torch, res, "score_taxon", "7", B3, R3, (True,), cuda)
     for thr in THRESHOLDS:
-        res.check("score_taxon", f"7 wide, threshold {thr}",
-                  score_reads_taxon_plain(*args, di.tax, thr),
-                  score_reads_taxon(*args, di.tax, thr))
         res.check("lca_lift", f"7 wide, threshold {thr}",
                   lca_lift_plain(*winners, di.tax, thr, True),
                   lca_lift(*winners, di.tax, thr, True))
@@ -908,7 +1027,6 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
                                           pdi.tax, thr),
                   score_reads_taxon(ptaxon, pt_in, pt_out, pvalid, pdi.tax,
                                     thr))
-    n_hits = int((taxon != 0).sum())
     levels = di.tax["up"].shape[0]
     need = lineage_bytes(torch, winners[0], winners[1], di.tax)
     log(f"[7] lca_lift reaches {need} B of the taxonomy's lifting, parent "
@@ -916,7 +1034,8 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     res.time(torch, "score_taxon", "7 wide winners",
              lambda: score_winners(*args, True),
              lambda: score_winners_plain(*args, True),
-             nbytes=B * R * 13 + B * 24, ops=n_hits * R * 4 + B * R,
+             nbytes=B * R * 13 + B * 24,
+             ops=score_ops(taxon, t_in, t_out),
              plain_calls=1, plain_reps=PLAIN_REPS)
     res.time(torch, "lca_lift", "7 wide",
              lambda: lca_lift(*winners, di.tax, 0.0, True),
@@ -1194,13 +1313,10 @@ def lineage_lanes(torch, tax: dict, B: int, R: int, g):
 
 def phase_ranked_kernels(torch, wide, cuda, res: Results) -> None:
     """K8 against its plain version at RANKED_SHAPES: both forms, the
-    direct LCA and K5's lifting, two thresholds; times of its winners
-    form on the taxon lanes of the 66,563-taxon tree."""
-    import math
-
-    from pangea_tpu_torch.kernels import (score_ranked, score_reads_plain,
-                                          score_winners,
-                                          score_winners_plain)
+    direct LCA and K5's lifting, two thresholds, on reads of four taxa and
+    on score_world inputs of chosen U; times of its winners form on the
+    taxon lanes of the 66,563-taxon tree."""
+    from pangea_tpu_torch.kernels import score_winners, score_winners_plain
     from pangea_tpu_torch.utils import datagen
     bench_tax = datagen.make_taxonomy(2, 8, 3, seed=0).device_arrays()
     trees = {"direct LCA, 67 taxa": {
@@ -1213,24 +1329,15 @@ def phase_ranked_kernels(torch, wide, cuda, res: Results) -> None:
             taxon, t_in, t_out, valid = lineage_lanes(torch, tax, B, R, g)
             for taxon_lanes in (True, False):
                 lanes = taxon if taxon_lanes else (taxon != 0).to(torch.int32)
-                args = (lanes, t_in, t_out, valid)
-                what = (f"15 R={R} x {B}, "
-                        f"{'taxon' if taxon_lanes else 'q8'} form")
-                res.check("score_ranked", f"{what}, winners",
-                          score_winners_plain(*args, taxon_lanes),
-                          score_winners(*args, taxon_lanes))
-                for thr in THRESHOLDS:
-                    res.check("score_ranked",
-                              f"{what}, {name}, threshold {thr}",
-                              score_reads_plain(*args, tax, thr,
-                                                taxon_lanes),
-                              score_ranked(*args, tax, thr, taxon_lanes))
+                check_score(torch, res, "score_ranked",
+                            f"15 R={R} x {B}, {name}",
+                            (lanes, t_in, t_out, valid), tax, taxon_lanes)
+        check_u_worlds(torch, res, "score_ranked", "15", B, R, (True, False),
+                       cuda)
         # The last draw: taxon lanes on the big tree, as on the std path.
         args = (taxon, t_in, t_out, valid)
-        hits = int((taxon != 0).sum())
-        lg = math.log2(R)
         nbytes = B * R * 13 + B * 24
-        ops = 2 * B * R * lg + 2 * hits * lg
+        ops = score_ops(taxon, t_in, t_out)
         if R == RANKED_SHAPES[1][0]:
             res.time(torch, "score_ranked", f"15 R={R} x {B}",
                      lambda: score_winners(*args, True),

@@ -26,6 +26,11 @@ k=21, w=8 and k=31, w=1 by default. At that size the k=31, w=1 index has
 2,559,507 k-mers, past the 2,097,152 that a std table in the reference's
 fast regime holds, so ``pick_layout`` gives it q12; the k=21 index is q8.
 
+``score_world`` makes scorer inputs with a chosen number U of distinct
+(t_in, t_out) intervals among each read's hits, along one lineage or from
+unrelated taxa; ``chain_taxonomy`` is a lineage deep enough for nested
+worlds of any U.
+
 ``make_deep_world`` is the reference bench's deep cell
 (``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
 genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
@@ -159,3 +164,96 @@ def make_deep_world(n_reads: int = 16_384, read_len: int = 150,
     idx = build_index(genomes, tax, k=21, w=1)
     return BenchWorld(tax, idx, deep_reads(genomes, n_reads, read_len),
                       genomes)
+
+
+def chain_taxonomy(n: int) -> Taxonomy:
+    """A chain of n taxa (1 the root, t + 1 the child of t): one lineage
+    of depth n - 1, for nested scorer worlds of large U."""
+    parent = [0, 1] + list(range(1, n))
+    return Taxonomy(parent=parent, rank=[0] * (n + 1),
+                    names=["unclassified"] + [f"n{i}" for i in range(n)])
+
+
+# score_world: the share of hits whose lane names another taxon than their
+# interval's (lanes that differ at one t_in), and the range of the t_in and
+# t_out that misses carry (never read by a scorer).
+RELABEL_SHARE = 1 / 8
+MISS_NOISE = 1 << 20
+
+
+def score_world(tax: Taxonomy, B: int, R: int, U: int | None, nested: bool,
+                miss_share: float = 0.5, seed: int = 0):
+    """Scorer inputs of B reads of R probes, as a lookup hands them over:
+    (lanes, t_in, t_out) int32 [B, R], hit taxa and their Euler intervals,
+    and valid bool [B, R]. Each read's hits, R - round(miss_share * R) of
+    them at random positions, carry exactly U distinct (t_in, t_out)
+    intervals, every one at least once (U None: every hit its own; U 0: no
+    hit at all). The intervals are those of U taxa: a taxon and its U - 1
+    nearest ancestors when ``nested`` (a lineage, as real reads hit a leaf
+    and its ancestors; needs a taxon of depth U - 1, see
+    :func:`chain_taxonomy`), else U distinct taxa drawn uniformly. A share
+    RELABEL_SHARE of the hits keeps its interval but names another taxon
+    in its lane, so that lanes differ at one t_in (the winners' ties at
+    tin_u and tin_v). Misses have lane 0 and random t_in and t_out; hits
+    are valid, misses valid at random. Read 0 has no hit and read 1 no
+    valid probe."""
+    rng = np.random.default_rng(seed)
+    T = tax.num_taxa
+    hits = R - int(round(miss_share * R))
+    if U is None:
+        U = hits
+    if not 0 <= hits <= R or not 0 <= U <= hits:
+        raise ValueError(f"R={R}, miss_share={miss_share}, U={U}: a read "
+                         f"has {hits} hits")
+    if U == 0:
+        hits = 0
+    lanes = np.zeros((B, R), np.int32)
+    t_in = rng.integers(-MISS_NOISE, MISS_NOISE, (B, R)).astype(np.int32)
+    t_out = rng.integers(-MISS_NOISE, MISS_NOISE, (B, R)).astype(np.int32)
+    if hits:
+        if nested:
+            cands = np.flatnonzero(tax.depth[1:] >= U - 1) + 1
+            if cands.size == 0:
+                raise ValueError(f"no lineage of {U} taxa: the deepest "
+                                 f"taxon has depth {tax.depth.max()}")
+            taxa = np.empty((B, U), np.int64)
+            taxa[:, 0] = cands[rng.integers(0, cands.size, B)]
+            for j in range(1, U):
+                taxa[:, j] = tax.parent[taxa[:, j - 1]]
+        else:
+            if U > T:
+                raise ValueError(f"U={U} distinct taxa of {T}")
+            taxa = rng.integers(1, T + 1, (B, U))
+            for b in range(B):
+                if np.unique(taxa[b]).size < U:
+                    taxa[b] = rng.choice(np.arange(1, T + 1), U,
+                                         replace=False)
+        pos = np.argsort(rng.random((B, R)), axis=1)[:, :hits]
+        which = np.concatenate(
+            [np.argsort(rng.random((B, U)), axis=1),
+             rng.integers(0, U, (B, hits - U))], axis=1)
+        hit_taxa = np.take_along_axis(taxa, which, axis=1)
+        rows = np.arange(B)[:, None]
+        lanes[rows, pos] = hit_taxa
+        t_in[rows, pos] = tax.tin[hit_taxa]
+        t_out[rows, pos] = tax.tout[hit_taxa]
+        relabel = rng.random((B, hits)) < RELABEL_SHARE
+        lanes[rows, pos] = np.where(relabel,
+                                    rng.integers(1, T + 1, (B, hits)),
+                                    hit_taxa)
+        lanes[0] = 0
+    valid = (lanes != 0) | (rng.random((B, R)) < 0.5)
+    if B > 1:
+        valid[1] = False
+    return lanes, t_in, t_out, valid
+
+
+def distinct_intervals(lanes, t_in, t_out) -> np.ndarray:
+    """[B] number of distinct (t_in, t_out) pairs among each read's hits
+    (lane != 0)."""
+    key = (t_in.astype(np.int64) << 32) | (t_out.astype(np.int64)
+                                           & 0xFFFFFFFF)
+    key = np.where(lanes != 0, key, np.iinfo(np.int64).min)
+    key = np.sort(key, axis=1)
+    fresh = np.diff(key, axis=1, prepend=np.iinfo(np.int64).min) != 0
+    return ((key != np.iinfo(np.int64).min) & fresh).sum(1)

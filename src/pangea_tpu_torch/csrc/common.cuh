@@ -95,52 +95,298 @@ inline unsigned int blocks_for(long long n, long long per) {
   return static_cast<unsigned int>((n + per - 1) / per);
 }
 
-// The per-read state of a scoring block (K3, K8), in shared memory.
-struct ScoreState {
+
+// ---------------------------------------------------------------------------
+// The scorer: K3 (score_tin.cu, R <= 2048) and K8 (score_ranked.cu), one
+// body (score_kernel) with the form's exact general branch as its Form.
+//
+// A probe's pscore depends on its t_in alone, so a read is scored from the
+// distinct (t_in, t_out) intervals among its hits, each entry with its
+// multiplicity and the largest lane that carries it:
+//   K3  ps(d) = sum_e mult_e * [tin_e <= tin_d < tout_e]
+//   K8  ps(d) = sum_e mult_e * ([tin_e <= tin_d] - [tout_e <= tin_d])
+// (K8's two ranks, term by term). Every hit's pscore is its entry's; best =
+// max(0, max_d ps(d)); the winners' min and max t_in are those of the
+// entries with ps == best > 0, and u / v the largest lane of the entries at
+// those t_in, which is the largest lane of the winning probes there. The
+// table is keyed on the pair, not on t_in, so the result is exact on any
+// input. Misses (lane 0) enter no table.
+//
+// Layout (kernels/score.py score_plan): a read gets `wpr` warps and a block
+// holds `rpb` reads (rpb > 1 only with one warp a read, which then never
+// waits on another warp). The read's warps read its chunks of 32 probes and
+// add their hits to one open-addressed hash table of score_slots(cap)
+// slots in shared memory (atomicCAS claims a slot, shared atomics add the
+// multiplicity and the largest lane). A chunk whose hits all carry one key,
+// as nearly always on real reads, is folded by two warp reductions into a
+// warp's running entry, which reaches the table only when the key changes.
+// The read's first warp then packs the table's entries and scores them. A
+// read with more than `cap` distinct intervals (or a key equal to the empty
+// slot's) takes the form's exact general branch (Form::general: K3's
+// quadratic count, K8's sort) in the same launch, and the launch adds one
+// to *general for each such read.
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kScoreMaxCap = 128;    // a lane keeps cap / 32 entries' pscores
+constexpr int kScoreMaxReads = 8;    // reads a block (one warp each)
+// An empty slot: the key of (t_in, t_out) = (INT_MIN, INT_MIN), which a read
+// that carries it sends to the general branch.
+constexpr unsigned long long kEmptyKey = 0x8000000080000000ull;
+
+// Slots of a read's hash table: a power of two with room for the cap
+// entries and one chunk's 32 more.
+__host__ __device__ __forceinline__ int score_slots(int cap) {
+  int s = 32;
+  while (s < cap + 32) s <<= 1;
+  return s;
+}
+
+struct ScoreArgs {
+  const int32_t* lanes;
+  const int32_t* t_in;
+  const int32_t* t_out;
+  const uint8_t* valid;
+  int B, R;
+  int wpr, cap, per_read;            // score_plan; per_read: shared bytes
+  int rpad;                          // K8's sort width (0 for K3)
+  int32_t* scratch;                  // K8's sort in device memory, or null
+  const int32_t* tin;
+  const int32_t* tout;
+  const int32_t* depth;
+  int T1;
+  float thr;
+  int32_t* o[6];
+  int* general;                      // += reads that took the general branch
+};
+
+// The per-read state, in shared memory.
+struct ReadState {
   int best, nvalid, tin_u, tin_v, u, v;
+  int count;                         // distinct keys in the table
+  int general;                       // the read takes the general branch
   unsigned long long lca;
 };
 
-// One probe position as the score's tail sees it: its lane (hit count or
-// hit taxon, 0 for a miss), its t_in and its pscore (0 for a miss).
+// One probe position as the general branch's tail sees it: its lane (hit
+// count or hit taxon, 0 for a miss), its t_in and its pscore (0 for a miss).
 struct ScorePos {
   int lane, tin, ps;
 };
 
-__device__ __forceinline__ void score_state_init(ScoreState* s) {
-  if (threadIdx.x == 0) {
-    s->best = 0;
-    s->nvalid = 0;
-    s->tin_u = INT_MAX;
-    s->tin_v = -2;
-    s->u = 0;
-    s->v = 0;
-    s->lca = 0ull;
+// The threads that own one read: one warp, or the whole block.
+struct ScoreGroup {
+  int rank, size;
+  bool warp;
+  __device__ __forceinline__ void sync() const {
+    if (warp) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  }
+};
+
+// A table of n slots or entries: 16 * n bytes from base.
+struct IvTable {
+  unsigned long long* key;           // (t_in << 32) | (uint32) t_out
+  int* mult;
+  int* maxl;
+};
+
+__device__ __forceinline__ IvTable iv_table(unsigned char* base, int n) {
+  IvTable r;
+  r.key = reinterpret_cast<unsigned long long*>(base);
+  r.mult = reinterpret_cast<int*>(base + 8 * static_cast<size_t>(n));
+  r.maxl = r.mult + n;
+  return r;
+}
+
+__device__ __forceinline__ unsigned long long iv_key(int tin, int tout) {
+  return (static_cast<unsigned long long>(static_cast<uint32_t>(tin))
+          << 32) | static_cast<uint32_t>(tout);
+}
+
+__device__ __forceinline__ int key_tin(unsigned long long k) {
+  return static_cast<int>(static_cast<uint32_t>(k >> 32));
+}
+
+__device__ __forceinline__ int key_tout(unsigned long long k) {
+  return static_cast<int>(static_cast<uint32_t>(k));
+}
+
+// Adds weight w and lane l to key's slot of the hash table (S slots),
+// claiming an empty one for a new key (and counting it). False where the
+// key is the empty slot's or no slot is left.
+__device__ __forceinline__ bool slot_add(const IvTable& t, int S,
+                                         unsigned long long key, int w, int l,
+                                         int* count) {
+  if (key == kEmptyKey) return false;
+  unsigned h = (static_cast<uint32_t>(key ^ (key >> 32)) * 0x9E3779B1u) &
+               (S - 1);
+  volatile unsigned long long* keys = t.key;
+  for (int p = 0; p < S; ++p) {
+    unsigned long long cur = keys[h];
+    if (cur == kEmptyKey) {
+      cur = atomicCAS(&t.key[h], kEmptyKey, key);
+      if (cur == kEmptyKey) {
+        atomicAdd(count, 1);
+        cur = key;
+      }
+    }
+    if (cur == key) {
+      atomicAdd(&t.mult[h], w);
+      atomicMax(&t.maxl[h], l);
+      return true;
+    }
+    h = (h + 1) & (S - 1);
+  }
+  return false;
+}
+
+// A warp's running entry: the key of its last chunks whose hits all carried
+// one key, and their summed weight and largest lane (the same in every
+// lane).
+struct RunEntry {
+  unsigned long long key;
+  int w, l;
+  bool live;
+};
+
+// Empties the S slots of a read's table (one warp).
+__device__ __forceinline__ void table_clear(const IvTable& t, int S) {
+  for (int s = threadIdx.x & 31; s < S; s += 32) {
+    t.key[s] = kEmptyKey;
+    t.mult[s] = 0;
+    t.maxl[s] = INT_MIN;
+  }
+  __syncwarp();
+}
+
+// Adds a warp's chunk (each lane with `has` brings one key of weight 1 and
+// lane l) to the table through the warp's running entry: hits of the
+// running key fold into it; a chunk of one other key replaces it (the old
+// one goes to the table); other hits go to the table one a lane. `ready`
+// says the table is cleared: a warp that owns its read alone clears it at
+// its first use. False, the warp together, where a slot_add failed.
+__device__ __forceinline__ bool chunk_add(const IvTable& t, int S,
+                                          RunEntry& run, bool& ready,
+                                          bool has, unsigned long long key,
+                                          int l, int* count) {
+  const unsigned hm = __ballot_sync(kFullMask, has);
+  if (hm == 0) return true;
+  const int lane = threadIdx.x & 31;
+  const unsigned long long k0 = __shfl_sync(kFullMask, key, __ffs(hm) - 1);
+  bool ok = true;
+  if (__all_sync(kFullMask, !has || key == k0)) {
+    const int w = __popc(hm);
+    const int gl = __reduce_max_sync(kFullMask, has ? l : INT_MIN);
+    if (run.live && run.key == k0) {
+      run.w += w;
+      run.l = max(run.l, gl);
+      return true;
+    }
+    if (run.live) {
+      if (!ready) {
+        table_clear(t, S);
+        ready = true;
+      }
+      if (lane == 0) ok = slot_add(t, S, run.key, run.w, run.l, count);
+    }
+    run = RunEntry{k0, w, gl, true};
+  } else {
+    if (!ready) {
+      table_clear(t, S);
+      ready = true;
+    }
+    const bool folds = has && run.live && key == run.key;
+    const unsigned fm = __ballot_sync(kFullMask, folds);
+    if (fm) {
+      run.w += __popc(fm);
+      run.l = max(run.l, __reduce_max_sync(kFullMask, folds ? l : INT_MIN));
+    }
+    if (has && !folds) ok = slot_add(t, S, key, 1, l, count);
+  }
+  return __all_sync(kFullMask, ok);
+}
+
+// One warp scores the read from its n packed entries and writes best,
+// tin_u, tin_v, u and v into st.
+template <bool kRanked, bool kTaxon>
+__device__ void table_score(const IvTable& t, int n, ReadState* st) {
+  constexpr int K = kScoreMaxCap / 32;
+  const int lane = threadIdx.x & 31;
+  const int kk = (n + 31) >> 5;
+  int ti[K], ps[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = lane + 32 * k;
+    ti[k] = e < n ? key_tin(t.key[e]) : 0;
+    ps[k] = 0;
+  }
+  for (int f = 0; f < n; ++f) {
+    const unsigned long long kf = t.key[f];
+    const int fi = key_tin(kf), fo = key_tout(kf), m = t.mult[f];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < kk) {
+        if (kRanked) {
+          ps[k] += (fi <= ti[k] ? m : 0) - (fo <= ti[k] ? m : 0);
+        } else {
+          ps[k] += fi <= ti[k] && ti[k] < fo ? m : 0;
+        }
+      }
+    }
+  }
+  int best = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (lane + 32 * k < n) best = max(best, ps[k]);
+  }
+  best = __reduce_max_sync(kFullMask, best);
+  int tu = INT_MAX, tv = -2;
+  if (best > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane + 32 * k < n && ps[k] == best) {
+        tu = min(tu, ti[k]);
+        tv = max(tv, ti[k]);
+      }
+    }
+  }
+  tu = __reduce_min_sync(kFullMask, tu);
+  tv = __reduce_max_sync(kFullMask, tv);
+  int mu = 0, mv = 0;
+  if (kTaxon && best > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = lane + 32 * k;
+      if (e < n) {
+        if (ti[k] == tu) mu = max(mu, t.maxl[e]);
+        if (ti[k] == tv) mv = max(mv, t.maxl[e]);
+      }
+    }
+    mu = __reduce_max_sync(kFullMask, mu);
+    mv = __reduce_max_sync(kFullMask, mv);
+  }
+  if (lane == 0) {
+    st->best = best;
+    st->tin_u = tu;
+    st->tin_v = tv;
+    st->u = mu;
+    st->v = mv;
   }
 }
 
-// The score after the pscore (SEMANTICS.md §7; the rules are stated in
-// score_tin.cu), shared by K3 and K8: one block owns read b, whose R
-// positions at(i) returns, and s->best and s->nvalid are complete and
-// visible to every thread. Finds the tied winners' min and max t_in (and,
-// kTaxon, their taxa), then either the direct LCA scan over the T1 taxa
-// and the threshold (kDirect: o0..o2 = taxon, best, nvalid) or the winners
-// form (o0..o5 = u, v, tin_u, tin_v, best, nvalid) that K5 lifts.
-template <bool kTaxon, bool kDirect, class At>
-__device__ void score_finish(ScoreState* s, int b, int R, At at,
-                             const int32_t* __restrict__ tin,
-                             const int32_t* __restrict__ tout,
-                             const int32_t* __restrict__ depth, int T1,
-                             float thr, int32_t* __restrict__ o0,
-                             int32_t* __restrict__ o1,
-                             int32_t* __restrict__ o2,
-                             int32_t* __restrict__ o3,
-                             int32_t* __restrict__ o4,
-                             int32_t* __restrict__ o5) {
-  const int best = s->best;
+// The general branch's winners: st->best and st->nvalid are complete; at(i)
+// gives position i. Finds the tied winners' min and max t_in and (kTaxon)
+// the largest lane at each, into st.
+template <bool kTaxon, class At>
+__device__ void group_winners(const ScoreGroup& g, ReadState* st, int R,
+                              At at) {
+  const int best = st->best;
   if (best > 0) {
     int u = INT_MAX, v = -2;
-    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+    for (int i = g.rank; i < R; i += g.size) {
       const ScorePos p = at(i);
       if (p.lane != 0 && p.ps == best) {
         u = min(u, p.tin);
@@ -148,67 +394,283 @@ __device__ void score_finish(ScoreState* s, int b, int R, At at,
       }
     }
     if (v != -2) {
-      atomicMin(&s->tin_u, u);
-      atomicMax(&s->tin_v, v);
+      atomicMin(&st->tin_u, u);
+      atomicMax(&st->tin_v, v);
     }
   }
-  __syncthreads();
-  const int tu = s->tin_u, tv = s->tin_v;
+  g.sync();
   if (kTaxon && best > 0) {
-    // Node ids: the largest taxon lane among the winners at each end
-    // (every winner at one tin carries the same taxon in a sound table).
+    const int tu = st->tin_u, tv = st->tin_v;
     int mu = 0, mv = 0;
-    for (int i = threadIdx.x; i < R; i += blockDim.x) {
+    for (int i = g.rank; i < R; i += g.size) {
       const ScorePos p = at(i);
       if (p.lane != 0 && p.ps == best) {
         if (p.tin == tu) mu = max(mu, p.lane);
         if (p.tin == tv) mv = max(mv, p.lane);
       }
     }
-    if (mu) atomicMax(&s->u, mu);
-    if (mv) atomicMax(&s->v, mv);
+    if (mu) atomicMax(&st->u, mu);
+    if (mv) atomicMax(&st->v, mv);
   }
+  g.sync();
+}
+
+// After the winners: the direct LCA scan over the T1 taxa and the threshold
+// (kDirect: o0..o2 = taxon, best, nvalid), or the winners form (o0..o5 =
+// u, v, tin_u, tin_v, best, nvalid) that K5 lifts.
+template <bool kTaxon, bool kDirect>
+__device__ void score_tail(const ScoreGroup& g, ReadState* st,
+                           const ScoreArgs& a, int b) {
+  const int best = st->best;
+  const int tu = st->tin_u, tv = st->tin_v;
   if (kDirect && best > 0) {
     // Key orders by depth, then by the smaller taxon index: the maximum
     // key is the first-index argmax of the masked depth.
     unsigned long long key = 0ull;
-    for (int t = threadIdx.x; t < T1; t += blockDim.x) {
-      const bool ca = tin[t] <= tu && tu < tout[t] && tin[t] <= tv &&
-                      tv < tout[t];
-      const long long d = ca ? depth[t] : -1;
+    for (int t = g.rank; t < a.T1; t += g.size) {
+      const int lo = a.tin[t], hi = a.tout[t];
+      const bool ca = lo <= tu && tu < hi && lo <= tv && tv < hi;
+      const long long d = ca ? a.depth[t] : -1;
       const unsigned long long kt =
           (static_cast<unsigned long long>(d + 1) << 32) |
           static_cast<unsigned int>(0xFFFFFFFFu - static_cast<unsigned>(t));
       key = kt > key ? kt : key;
     }
-    atomicMax(&s->lca, key);
+    atomicMax(&st->lca, key);
   }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    const int nvalid = s->nvalid;
+  g.sync();
+  if (g.rank == 0) {
+    const int nvalid = st->nvalid;
     const int has = best > 0 ? 1 : 0;
-    const int u = kTaxon ? s->u : has;
-    const int v = kTaxon ? s->v : has;
+    const int u = kTaxon ? st->u : has;
+    const int v = kTaxon ? st->v : has;
     if (kDirect) {
       const int res = best > 0 ? static_cast<int>(
-          0xFFFFFFFFu - static_cast<unsigned>(s->lca & 0xFFFFFFFFull)) : 0;
+          0xFFFFFFFFu - static_cast<unsigned>(st->lca & 0xFFFFFFFFull)) : 0;
       const int assigned = (u == 0 && v == 0) ? 0
                            : (u == 0)         ? v
                            : (v == 0)         ? u
                                               : res;
       const bool below = static_cast<float>(best) <
-                         __fmul_rn(thr, static_cast<float>(nvalid));
-      o0[b] = (below || nvalid == 0) ? 0 : assigned;
-      o1[b] = best;
-      o2[b] = nvalid;
+                         __fmul_rn(a.thr, static_cast<float>(nvalid));
+      a.o[0][b] = (below || nvalid == 0) ? 0 : assigned;
+      a.o[1][b] = best;
+      a.o[2][b] = nvalid;
     } else {
-      o0[b] = u;
-      o1[b] = v;
-      o2[b] = tu;
-      o3[b] = tv;
-      o4[b] = best;
-      o5[b] = nvalid;
+      a.o[0][b] = u;
+      a.o[1][b] = v;
+      a.o[2][b] = tu;
+      a.o[3][b] = tv;
+      a.o[4][b] = best;
+      a.o[5][b] = nvalid;
     }
   }
+}
+
+// The scorer (see above). Form: kRanked, general<kTaxon>(group, state,
+// args, read, its shared bytes), general_bytes(R, cap, rpad, scratch). A
+// read's shared bytes hold its hash table (score_slots(cap) slots), then
+// its packed entries (cap); the general branch reuses them from the start.
+template <bool kTaxon, bool kDirect, class Form>
+__global__ void __launch_bounds__(1024) score_kernel(const ScoreArgs a) {
+  extern __shared__ __align__(16) unsigned char score_smem[];
+  __shared__ ReadState states[kScoreMaxReads];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp / a.wpr, wir = warp - slot * a.wpr;
+  const int b = blockIdx.x * (blockDim.x / (32 * a.wpr)) + slot;
+  if (b >= a.B) return;              // a whole read's warps: rpb > 1 only
+                                     // with one warp a read
+  const ScoreGroup g{static_cast<int>(threadIdx.x) - slot * 32 * a.wpr,
+                     32 * a.wpr, a.wpr == 1};
+  ReadState* st = &states[slot];
+  unsigned char* mine = score_smem + static_cast<size_t>(slot) * a.per_read;
+  const size_t base = static_cast<size_t>(b) * a.R;
+  const int S = score_slots(a.cap);
+  const IvTable table = iv_table(mine, S);
+  if (g.rank == 0) {
+    st->best = 0;
+    st->nvalid = 0;
+    st->tin_u = INT_MAX;
+    st->tin_v = -2;
+    st->u = 0;
+    st->v = 0;
+    st->count = 0;
+    st->general = 0;
+    st->lca = 0ull;
+  }
+  // Several warps share the read's table: it is cleared before they add.
+  bool ready = a.wpr > 1;
+  if (ready) {
+    for (int s = g.rank; s < S; s += g.size) {
+      table.key[s] = kEmptyKey;
+      table.mult[s] = 0;
+      table.maxl[s] = INT_MIN;
+    }
+  }
+  g.sync();
+
+  // 1. The read's hits into the table (two chunks ahead in flight), and
+  // the valid count; a warp stops adding once the read overflows.
+  const int chunks = (a.R + 31) >> 5;
+  volatile int* general = &st->general;
+  volatile int* count = &st->count;
+  int nv = 0;
+  bool ok = true;
+  RunEntry run{0ull, 0, 0, false};
+  // A lane's probe of chunk c: lane (0 past R), t_in, t_out, valid.
+  struct Probe {
+    int l, x, y;
+    bool v;
+  };
+  auto load = [&](int c) {
+    const int i = c * 32 + lane;
+    Probe p{0, 0, 0, false};
+    if (c < chunks && i < a.R) {
+      p = Probe{a.lanes[base + i], a.t_in[base + i], a.t_out[base + i],
+                a.valid[base + i] != 0};
+    }
+    return p;
+  };
+  Probe cur = load(wir), next = load(wir + a.wpr);
+  for (int c = wir; c < chunks; c += a.wpr) {
+    const Probe after = load(c + 2 * a.wpr);
+    nv += cur.v;
+    if (ok) {
+      const bool fine = chunk_add(table, S, run, ready, cur.l != 0,
+                                  iv_key(cur.x, cur.y), cur.l, &st->count);
+      // Only the table's count and the other warps can end the read's
+      // table; before its first use neither has moved.
+      ok = ready ? __all_sync(kFullMask,
+                              fine && *count <= a.cap && !*general)
+                 : fine;
+    }
+    cur = next;
+    next = after;
+  }
+  // The running entry goes to the table, unless it is the read's only
+  // entry and no table was needed (one warp a read).
+  if (ok && run.live && ready && lane == 0) {
+    ok = slot_add(table, S, run.key, run.w, run.l, &st->count);
+  }
+  nv = __reduce_add_sync(kFullMask, nv);
+  ok = __all_sync(kFullMask, ok);
+  if (lane == 0) {
+    if (nv) atomicAdd(&st->nvalid, nv);
+    if (!ok) *general = 1;
+  }
+  g.sync();
+
+  // 2. The read's packed entries and their score (the first warp).
+  if (wir == 0 && !st->general && st->count <= a.cap) {
+    const IvTable dense = iv_table(mine + 16 * static_cast<size_t>(S),
+                                   a.cap);
+    int n = 0;
+    if (!ready && run.live && lane == 0) {
+      dense.key[0] = run.key;
+      dense.mult[0] = run.w;
+      dense.maxl[0] = run.l;
+    }
+    if (!ready) n = run.live ? 1 : 0;
+    for (int s0 = 0; ready && s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool occ = table.key[s] != kEmptyKey;   // S is a multiple of 32
+      const unsigned bm = __ballot_sync(kFullMask, occ);
+      if (occ) {
+        const int d = n + __popc(bm & ((1u << lane) - 1u));
+        dense.key[d] = table.key[s];
+        dense.mult[d] = table.mult[s];
+        dense.maxl[d] = table.maxl[s];
+      }
+      n += __popc(bm);
+    }
+    __syncwarp();
+    table_score<Form::kRanked, kTaxon>(dense, n, st);
+  } else if (wir == 0 && lane == 0) {
+    st->general = 1;
+  }
+  g.sync();
+
+  // 3. The exact general branch, over the table's bytes.
+  if (st->general) {
+    Form::template general<kTaxon>(g, st, a, b, mine);
+    if (g.rank == 0) atomicAdd(a.general, 1);
+  }
+  score_tail<kTaxon, kDirect>(g, st, a, b);
+}
+
+// Checks a plan against the form's needs and launches score_kernel in the
+// form the lanes and T1 select. rpb reads a block of wpr warps each.
+template <class Form>
+int score_launch(const ScoreArgs& a, int taxon_lanes, int rpb,
+                 cudaStream_t s) {
+  const int wpr = a.wpr;
+  const bool pow2 = wpr >= 1 && wpr <= 32 && (wpr & (wpr - 1)) == 0;
+  if (!pow2 || rpb < 1 || rpb > kScoreMaxReads || (rpb > 1 && wpr > 1) ||
+      a.cap < 1 || a.cap > kScoreMaxCap || a.T1 < 0 ||
+      a.general == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t tables = 16 * static_cast<size_t>(score_slots(a.cap) + a.cap);
+  const size_t general =
+      Form::general_bytes(a.R, a.cap, a.rpad, a.scratch != nullptr);
+  const size_t need = tables > general ? tables : general;
+  if (a.per_read % 16 != 0 || static_cast<size_t>(a.per_read) < need) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.B == 0) return 0;
+  const size_t smem = static_cast<size_t>(rpb) * a.per_read;
+  const unsigned grid = blocks_for(a.B, rpb);
+  const unsigned threads = 32u * wpr * rpb;
+  void (*kernel)(const ScoreArgs) =
+      taxon_lanes ? (a.T1 > 0 ? score_kernel<true, true, Form>
+                              : score_kernel<true, false, Form>)
+                  : (a.T1 > 0 ? score_kernel<false, true, Form>
+                              : score_kernel<false, false, Form>);
+  // Past 48 KB a block (with its static per-read states) the kernel must
+  // opt in.
+  if (smem + sizeof(ReadState) * kScoreMaxReads > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The score launchers' arguments (pangea_score, pangea_score_ranked):
+// lanes/t_in/t_out int32 and valid bytes [B, R]; taxon_lanes selects the
+// taxon form. T1 > 0: the direct form, tin/tout/depth int32 [T1] and o0..o2
+// = taxon, best, nvalid int32 [B] (o3..o5 unused). T1 == 0: the winners
+// form, o0..o5 = u, v, tin_u, tin_v, best, nvalid int32 [B]. general: an
+// int32 the launch adds its general-branch reads to. wpr, rpb, cap,
+// per_read, rpad, scratch: kernels/score.py score_plan.
+inline ScoreArgs score_args(const void* lanes, const void* t_in,
+                            const void* t_out, const void* valid, int B,
+                            int R, const void* tin, const void* tout,
+                            const void* depth, int T1, float thr, void* o0,
+                            void* o1, void* o2, void* o3, void* o4, void* o5,
+                            void* general, int wpr, int cap, int per_read,
+                            int rpad, void* scratch) {
+  ScoreArgs a;
+  a.lanes = static_cast<const int32_t*>(lanes);
+  a.t_in = static_cast<const int32_t*>(t_in);
+  a.t_out = static_cast<const int32_t*>(t_out);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.B = B;
+  a.R = R;
+  a.wpr = wpr;
+  a.cap = cap;
+  a.per_read = per_read;
+  a.rpad = rpad;
+  a.scratch = static_cast<int32_t*>(scratch);
+  a.tin = static_cast<const int32_t*>(tin);
+  a.tout = static_cast<const int32_t*>(tout);
+  a.depth = static_cast<const int32_t*>(depth);
+  a.T1 = T1;
+  a.thr = thr;
+  void* o[6] = {o0, o1, o2, o3, o4, o5};
+  for (int i = 0; i < 6; ++i) a.o[i] = static_cast<int32_t*>(o[i]);
+  a.general = static_cast<int*>(general);
+  return a;
 }

@@ -4,41 +4,44 @@
 //   src/pangea_tpu/kernels/score.py:71  _pscore_ranked (B11)
 // as _score_impl :176 runs it for the long-read buckets (chosen at
 // :105-124), in both of K3's forms. The reference sorts [B, R] tin and tout
-// arrays with lax.sort and ranks every probe with two searchsorted calls;
-// here one block owns one read: it sorts the read's two arrays with a
-// hand-written bitonic sort, ranks each probe with two upper-bound binary
-// searches, and then runs K3's tail (score_finish in common.cuh), so K8
-// computes exactly what K3 computes (the rules in score_tin.cu) and writes
-// the same outputs: (taxon, best, nvalid), or the six winners arrays K5
-// lifts.
-//
+// arrays with lax.sort and ranks every probe with two searchsorted calls:
 // pscore_i = #{j hit : tin_j <= tin_i} - #{j hit : tout_j <= tin_i}, which
-// is K3's #{j hit : tin_j <= tin_i < tout_j} because every hit's tin_j <
-// tout_j. Misses, and the pad up to the next power of two Rpad, enter both
-// sorted arrays as INT_MAX, after every real tin. The sorted arrays live in
-// shared memory when 2 * Rpad * 4 bytes fit the opt-in limit (Rpad <=
-// 16,384: R up to the single-end 16,384-base bucket); beyond that, in a
-// global scratch [B, 2, Rpad] that the wrapper allocates.
+// is K3's #{j hit : tin_j <= tin_i < tout_j} wherever every hit's tin_j <
+// tout_j. Here the read's probes fold into the table of distinct (t_in,
+// t_out) intervals that K3 uses (score_kernel in common.cuh), each entry
+// counting both ranks' terms times its multiplicity, so K8 computes
+// exactly the reference's ranks and writes K3's outputs: (taxon, best,
+// nvalid), or the six winners arrays K5 lifts. A read gets a block of 32
+// warps (kernels/score.py score_plan), each warp folding its share of the
+// read's chunks.
 //
-// What bounds it on an H100: the sort, R log^2 R compare-exchanges a read
-// from shared memory (or L2), and 3 x 2 binary searches a hit; device
-// memory traffic is the [B, R] lanes about four times. The long-read
-// buckets hold few rows (64-75 at the 16,384 bucket), so only that many of
-// the 132 SMs work; each block sorts with 512 threads.
+// The general branch (Ranked), for a read with more distinct intervals than
+// the plan's cap: the block sorts the read's tins and touts (misses, and the
+// pad up to the next power of two Rpad, as INT_MAX after every real tin)
+// with a bitonic sort, ranks each probe once with two upper-bound searches
+// and keeps its pscore beside the sorted arrays, so the winners' passes
+// read it back and search nothing. The three [Rpad] arrays live in shared
+// memory when they fit the plan's limit (Rpad <= 16,384: R up to the
+// single-end 16,384-base bucket), beyond it in a device scratch [B, 3,
+// Rpad] that the wrapper allocates.
+//
+// What bounds it on an H100: at small U, the bytes of the [B, R] lanes
+// read once; at U = R, the general branch's sort, R log^2 R
+// compare-exchanges a read from shared memory (or L2).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kMinR = 2049;          // K3 scores R <= 2048
 constexpr int kMaxTaxa = 4096;       // direct LCA scan; K5 lifts beyond
 
 // Ascending bitonic sort of a[0, n) and c[0, n) together (n a power of
-// two), by the whole block; ends with a barrier.
-__device__ void bitonic_sort2(int32_t* a, int32_t* c, int n) {
+// two), by the group; ends with the group's barrier.
+__device__ void bitonic_sort2(const ScoreGroup& g, int32_t* a, int32_t* c,
+                              int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+      for (int i = g.rank; i < n / 2; i += g.size) {
         const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
         const int hi = lo + j;
         const bool up = (lo & k) == 0;
@@ -53,7 +56,7 @@ __device__ void bitonic_sort2(int32_t* a, int32_t* c, int n) {
           c[hi] = c0;
         }
       }
-      __syncthreads();
+      g.sync();
     }
   }
 }
@@ -73,116 +76,71 @@ __device__ __forceinline__ int upper_bound(const int32_t* s, int n, int x) {
   return lo;
 }
 
-template <bool kTaxon, bool kDirect>
-__global__ void __launch_bounds__(kThreads) score_ranked_kernel(
-    const int32_t* __restrict__ lanes, const int32_t* __restrict__ t_in,
-    const int32_t* __restrict__ t_out, const uint8_t* __restrict__ valid,
-    int R, int Rpad, int32_t* __restrict__ scratch,
-    const int32_t* __restrict__ tin, const int32_t* __restrict__ tout,
-    const int32_t* __restrict__ depth, int T1, float thr,
-    int32_t* __restrict__ o0, int32_t* __restrict__ o1,
-    int32_t* __restrict__ o2, int32_t* __restrict__ o3,
-    int32_t* __restrict__ o4, int32_t* __restrict__ o5) {
-  extern __shared__ int32_t smem[];
-  __shared__ ScoreState st;
-  const int b = blockIdx.x;
-  const size_t base = static_cast<size_t>(b) * R;
-  int32_t* s_in = scratch ? scratch + static_cast<size_t>(b) * 2 * Rpad
-                          : smem;
-  int32_t* s_out = s_in + Rpad;
+struct Ranked {
+  static constexpr bool kRanked = true;
 
-  score_state_init(&st);
-  int nv = 0;
-  for (int i = threadIdx.x; i < Rpad; i += blockDim.x) {
-    const bool hit = i < R && lanes[base + i] != 0;
-    s_in[i] = hit ? t_in[base + i] : INT_MAX;
-    s_out[i] = hit ? t_out[base + i] : INT_MAX;
-    if (i < R) nv += valid[base + i] != 0;
+  // Shared bytes a read's general branch takes: sorted tins and touts and
+  // the pscores, [Rpad] each; none when they go to the device scratch.
+  static size_t general_bytes(int, int, int rpad, bool scratch) {
+    return scratch ? 0 : 12 * static_cast<size_t>(rpad);
   }
-  __syncthreads();
-  if (nv) atomicAdd(&st.nvalid, nv);
-  bitonic_sort2(s_in, s_out, Rpad);
 
-  auto at = [&](int i) {
-    const int lane = lanes[base + i];
-    const int ti = t_in[base + i];
-    const int ps = lane != 0 ? upper_bound(s_in, Rpad, ti) -
-                                   upper_bound(s_out, Rpad, ti)
-                             : 0;
-    return ScorePos{lane, ti, ps};
-  };
-  int my_best = 0;
-  for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    my_best = max(my_best, at(i).ps);
+  template <bool kTaxon>
+  __device__ static void general(const ScoreGroup& g, ReadState* st,
+                                 const ScoreArgs& a, int b,
+                                 unsigned char* mine) {
+    const int R = a.R, Rpad = a.rpad;
+    const size_t base = static_cast<size_t>(b) * R;
+    int32_t* s_in = a.scratch ? a.scratch + static_cast<size_t>(b) * 3 * Rpad
+                              : reinterpret_cast<int32_t*>(mine);
+    int32_t* s_out = s_in + Rpad;
+    int32_t* s_ps = s_out + Rpad;
+    for (int i = g.rank; i < Rpad; i += g.size) {
+      const bool hit = i < R && a.lanes[base + i] != 0;
+      s_in[i] = hit ? a.t_in[base + i] : INT_MAX;
+      s_out[i] = hit ? a.t_out[base + i] : INT_MAX;
+    }
+    g.sync();
+    bitonic_sort2(g, s_in, s_out, Rpad);
+    int my_best = 0;
+    for (int i = g.rank; i < R; i += g.size) {
+      const int ti = a.t_in[base + i];
+      const int ps = a.lanes[base + i] != 0
+                         ? upper_bound(s_in, Rpad, ti) -
+                               upper_bound(s_out, Rpad, ti)
+                         : 0;
+      s_ps[i] = ps;
+      my_best = max(my_best, ps);
+    }
+    if (my_best) atomicMax(&st->best, my_best);
+    g.sync();
+    group_winners<kTaxon>(g, st, R, [&](int i) {
+      return ScorePos{a.lanes[base + i], a.t_in[base + i], s_ps[i]};
+    });
   }
-  if (my_best) atomicMax(&st.best, my_best);
-  __syncthreads();
-
-  score_finish<kTaxon, kDirect>(&st, b, R, at, tin, tout, depth, T1, thr,
-                                o0, o1, o2, o3, o4, o5);
-}
-
-template <bool kTaxon, bool kDirect>
-cudaError_t launch(int B, int R, int Rpad, void* scratch, cudaStream_t s,
-                   const void* lanes, const void* t_in, const void* t_out,
-                   const void* valid, const void* tin, const void* tout,
-                   const void* depth, int T1, float thr, void* o0, void* o1,
-                   void* o2, void* o3, void* o4, void* o5) {
-  const size_t smem =
-      scratch ? 0 : 2 * static_cast<size_t>(Rpad) * sizeof(int32_t);
-  auto kernel = score_ranked_kernel<kTaxon, kDirect>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<B, kThreads, smem, s>>>(
-      static_cast<const int32_t*>(lanes), static_cast<const int32_t*>(t_in),
-      static_cast<const int32_t*>(t_out), static_cast<const uint8_t*>(valid),
-      R, Rpad, static_cast<int32_t*>(scratch),
-      static_cast<const int32_t*>(tin), static_cast<const int32_t*>(tout),
-      static_cast<const int32_t*>(depth), T1, thr, static_cast<int32_t*>(o0),
-      static_cast<int32_t*>(o1), static_cast<int32_t*>(o2),
-      static_cast<int32_t*>(o3), static_cast<int32_t*>(o4),
-      static_cast<int32_t*>(o5));
-  return cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// K3's contract (pangea_score in score_tin.cu) for R > 2048, plus Rpad (a
-// power of two >= R) and scratch: null to sort in 2 * Rpad * 4 bytes of
-// shared memory, else int32 [B, 2, Rpad] in device memory.
+// K3's contract (pangea_score in score_tin.cu) for R > 2048, with rpad (a
+// power of two >= R) and scratch: null to sort in 12 * rpad bytes of shared
+// memory a read, else int32 [B, 3, rpad] in device memory.
 extern "C" int pangea_score_ranked(const void* lanes, const void* t_in,
                                    const void* t_out, const void* valid,
-                                   int B, int R, int Rpad, void* scratch,
-                                   int taxon_lanes, const void* tin,
-                                   const void* tout, const void* depth,
-                                   int T1, float thr, void* o0, void* o1,
-                                   void* o2, void* o3, void* o4, void* o5,
-                                   void* stream) {
-  if (R < kMinR || Rpad < R || (Rpad & (Rpad - 1)) != 0 || T1 < 0 ||
-      T1 > kMaxTaxa) {
+                                   int B, int R, int taxon_lanes,
+                                   const void* tin, const void* tout,
+                                   const void* depth, int T1, float thr,
+                                   void* o0, void* o1, void* o2, void* o3,
+                                   void* o4, void* o5, void* general,
+                                   int wpr, int rpb, int cap, int per_read,
+                                   int rpad, void* scratch, void* stream) {
+  if (R < kMinR || rpad < R || (rpad & (rpad - 1)) != 0 || T1 > kMaxTaxa) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (taxon_lanes && T1 > 0) {
-    err = launch<true, true>(B, R, Rpad, scratch, s, lanes, t_in, t_out,
-                             valid, tin, tout, depth, T1, thr, o0, o1, o2,
-                             o3, o4, o5);
-  } else if (taxon_lanes) {
-    err = launch<true, false>(B, R, Rpad, scratch, s, lanes, t_in, t_out,
-                              valid, tin, tout, depth, T1, thr, o0, o1, o2,
-                              o3, o4, o5);
-  } else if (T1 > 0) {
-    err = launch<false, true>(B, R, Rpad, scratch, s, lanes, t_in, t_out,
-                              valid, tin, tout, depth, T1, thr, o0, o1, o2,
-                              o3, o4, o5);
-  } else {
-    err = launch<false, false>(B, R, Rpad, scratch, s, lanes, t_in, t_out,
-                               valid, tin, tout, depth, T1, thr, o0, o1, o2,
-                               o3, o4, o5);
-  }
-  return static_cast<int>(err);
+  const ScoreArgs a =
+      score_args(lanes, t_in, t_out, valid, B, R, tin, tout, depth, T1, thr,
+                 o0, o1, o2, o3, o4, o5, general, wpr, cap, per_read, rpad,
+                 scratch);
+  return score_launch<Ranked>(a, taxon_lanes, rpb,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -17,10 +17,12 @@ from .route import (route_bin, route_bin_plain, route_restore,
                     route_restore_plain)
 from .rowprobe import (rowprobe_onehot, rowprobe_onehot_plain,
                        rowprobe_plain, rowprobe_smem)
-from .score import (lca_lift, lca_lift_plain, lca_pairs_plain,
-                    pscore_ranked_plain, score_ranked, score_reads_plain,
-                    score_reads_taxon, score_reads_taxon_plain,
-                    score_reads_tin, score_reads_tin_plain, score_winners,
+from .score import (general_reads, lca_lift, lca_lift_plain,
+                    lca_pairs_plain, pscore_ranked_plain,
+                    reset_general_reads, score_plan, score_ranked,
+                    score_reads_plain, score_reads_taxon,
+                    score_reads_taxon_plain, score_reads_tin,
+                    score_reads_tin_plain, score_winners,
                     score_winners_plain)
 
 # After the kernel modules: the merge's module imports them.
@@ -48,25 +50,30 @@ def kernel_launches() -> dict:
 
 
 def reset_kernel_launches() -> None:
+    """Set every launch count to 0, and the scorer's general-branch
+    counts (:func:`general_reads`) with them."""
     for fn in KERNELS.values():
         fn.launches = 0
+    reset_general_reads()
 
 
 __all__ = ["KERNELS", "block_copy", "bucket_sort", "bucket_sort_plain",
            "extract_kmers",
            "extract_kmers_packed", "extract_probes", "extract_probes_packed",
-           "extract_probes_plain", "fuse_stash", "fuse_table", "hash32",
+           "extract_probes_plain", "fuse_stash", "fuse_table", "general_reads",
+           "hash32",
            "kernel_launches", "lca_lift", "lca_lift_plain",
            "lca_pairs_plain", "lookup_q8", "lookup_q8_plain",
            "lookup_q8_sorted", "lookup_q8_sorted_plain", "lookup_q12",
            "lookup_q12_plain", "lookup_q12_sorted", "lookup_q12_sorted_plain",
            "lookup_std", "lookup_std_owned", "lookup_std_plain",
            "lookup_std_sorted", "lookup_std_sorted_plain", "mix32",
-           "pscore_ranked_plain", "reset_kernel_launches", "route_bin",
+           "pscore_ranked_plain", "reset_general_reads",
+           "reset_kernel_launches", "route_bin",
            "route_bin_plain", "route_restore", "route_restore_plain",
            "row_gather", "row_gather_direct", "row_gather_plain",
            "rowprobe_onehot", "rowprobe_onehot_plain", "rowprobe_plain",
-           "rowprobe_smem", "score_ranked",
+           "rowprobe_smem", "score_plan", "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",
            "score_reads_tin_plain", "score_winners", "score_winners_plain",

@@ -62,13 +62,14 @@ SIGNATURES = {
     # hi, lo, valid, N, log2 S, C, counts, records, inv, stream
     "pangea_route_bin": (_P, _P, _P, _I64, _I, _I, _P, _P, _P, _P),
     # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
-    # thr, o0..o5, stream
+    # thr, o0..o5, general, wpr, rpb, cap, per_read, rpad, scratch
+    # (score.score_plan), stream: K3 and K8 take the same arguments
     "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
-                     _P, _P, _P, _P, _P, _P, _P),
-    # lanes, t_in, t_out, valid, B, R, Rpad, scratch, taxon_lanes, tin,
-    # tout, depth, T1, thr, o0..o5, stream
-    "pangea_score_ranked": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
-                            _I, _F, _P, _P, _P, _P, _P, _P, _P),
+                     _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                     _P),
+    "pangea_score_ranked": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
+                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P, _P),
     # u, v, tin_u, tin_v, best, nvalid, B, tin2node, M, parent, depth, up,
     # levels, T1, thr, taxon, stream
     "pangea_lca_lift": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,

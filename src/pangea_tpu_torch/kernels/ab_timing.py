@@ -1,12 +1,15 @@
-"""Time K4's forms, K13's block copy and the q8 and std steps through the
-port's public entry points, so that one file times any checkout of it.
+"""Time K4's forms, K13's block copy, the scorer (K3, K8) and the q8, std
+and config-4 steps through the port's public entry points, so that one
+file times any checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
-        src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split]
+        src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
+        [--sections block_copy,k4,score,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
-A) in one call to compare them on one card. Each run prints one JSON line:
+A) in one call to compare them on one card. Each run prints one JSON line
+with the sections asked for (all by default):
 
 - ``k4``: K4 (``lookup_std``) on the wide std world of ``chip_smoke.py``
   phase 7 (16,384 pairs x 260 probes, 4,259,840, on the 131,072 x 192
@@ -18,8 +21,21 @@ A) in one call to compare them on one card. Each run prints one JSON line:
   65,536 reads, the deep index built once into DIR and loaded after;
 - ``block_copy``: K13's block copy and ``narrow().clone()`` on mb_gather4's
   array, static and dynamic (``experiments.mb_gather``'s gather4 starts);
-- ``steps``: the q8 headline and the std world's Classifier steps on
-  16,384 pairs, one step and back to back;
+- ``score``: the scorer through ``score_reads_tin``, ``score_winners``,
+  ``score_reads_taxon`` and ``score_ranked``, each held to its plain
+  version first, timed by CUDA events (``ms``) and by the profiler's
+  device time a call (``device_ms``): K3-q8 on the q8 headline's lookups
+  (16,384 pairs x 32, the direct LCA); K3's taxon form on the wide
+  world's lookups (16,384 x 260), winners, and direct over the bench's
+  67-taxon tree; K3 at the 1,180-probe bucket (64 reads) and K8 at 16,364
+  x 75 and 32,728 x 75, each read's hits from four taxa of the wide tree
+  (half of the probes misses, as ``chip_smoke.py`` phase 15 draws them);
+  and K3 (16,384 x 260, 64 x 1,180) and K8 (75 x 16,364, 75 x 32,728) at
+  U = R, every probe a hit of its own taxon (``distinct_lanes``, seeded
+  numpy);
+- ``steps``: the q8 headline, the std world and config 4's multi-k
+  Classifier steps on 16,384 pairs, one step and back to back, each with
+  the least and largest of its samples;
 - with ``--split``, ``split``: the block copy's host time a call in parts,
   by ``time.perf_counter_ns`` over SPLIT_CALLS calls: the whole call; the
   wrapper's checks, plan and ``torch.empty``; the device guard and stream
@@ -52,11 +68,25 @@ BATCH, READ_LEN = 16384, 150
 WIDE = {"k": 21, "w": 1, "tree": (512, 64)}
 PACKED = {"k": 31, "w": 8}
 HEADLINE = {"k": 21, "w": 8}
+MULTIK = {"genome_len": 64_000, "indexes": ((21, 8), (31, 1))}
+C4_THRESHOLD = 0.05
+# The scorer's inputs: (probes a read, reads) of the long-read shapes, the
+# taxa a read's hits come from there, and the seed of every draw.
+BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
+LINEAGE_TAXA, SCORE_SEED = 4, 15
+PROFILED = 20            # calls the profiler's device time is taken over
+SECTIONS = ("block_copy", "k4", "score", "steps")
 DEEP_READS = 65536
 SPLIT_CALLS = 10_000
 
 
 def time_ms(torch, fn, calls: int = PIPELINED, reps: int = REPS) -> float:
+    return time_stats(torch, fn, calls, reps)["median"]
+
+
+def time_stats(torch, fn, calls: int = PIPELINED, reps: int = REPS) -> dict:
+    """The median CUDA-event ms a call over ``reps`` samples of ``calls``
+    back-to-back calls, after WARMUP calls, and the least and largest."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -70,7 +100,36 @@ def time_ms(torch, fn, calls: int = PIPELINED, reps: int = REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+def device_ms(torch, fn, calls: int = PROFILED, tries: int = 3) -> float:
+    """Device ms a call of fn: the profiler's device time of every kernel
+    over ``calls`` calls, divided by ``calls``; taken again, up to
+    ``tries`` times, where the profiler recorded no device time at all."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(tries):
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA],
+                           acc_events=True)
+        except TypeError:           # a torch without acc_events
+            prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                us = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if us is None else us
+        if total:
+            break
+    return total / 1e3 / calls
 
 
 def host_ns(torch, fn, calls: int = SPLIT_CALLS) -> float:
@@ -193,14 +252,125 @@ def time_block_copy(torch, dev) -> dict:
     return out
 
 
+def lineage_lanes(np, torch, dev, tin, tout, B: int, R: int, seed: int):
+    """(taxon, t_in, t_out, valid) [B, R] on dev: each read's hits drawn
+    from LINEAGE_TAXA taxa of the taxonomy (tin, tout numpy [T + 1]), half
+    of the probes misses; read 0 has no hit and read 1 no valid probe."""
+    rng = np.random.default_rng(seed)
+    T = tin.shape[0] - 1
+    lineage = rng.integers(1, T + 1, (B, LINEAGE_TAXA))
+    taxa = np.take_along_axis(lineage,
+                              rng.integers(0, LINEAGE_TAXA, (B, R)), axis=1)
+    taxon = np.where(rng.random((B, R)) < 0.5, taxa, 0).astype(np.int32)
+    taxon[0] = 0
+    valid = (rng.random((B, R)) < 0.8) | (taxon != 0)
+    valid[1] = False
+    return _on(torch, dev, taxon, tin, tout, valid)
+
+
+def distinct_lanes(np, torch, dev, tin, tout, B: int, R: int, seed: int):
+    """(taxon, t_in, t_out, valid) [B, R] on dev at U = R: every probe a
+    valid hit, read b's taxa (o_b + j * s_b) mod T + 1 for j < R, with a
+    stride s_b prime to T, so that they are R distinct taxa."""
+    import math
+    rng = np.random.default_rng(seed)
+    T = tin.shape[0] - 1
+    if R > T:
+        raise ValueError(f"{R} distinct taxa of {T}")
+    strides = np.array([s for s in range(1, 4096) if math.gcd(s, T) == 1])
+    s = strides[rng.integers(0, strides.size, B)]
+    o = rng.integers(0, T, B)
+    j = rng.permutation(R)
+    taxon = ((o[:, None] + j[None, :] * s[:, None]) % T + 1).astype(np.int32)
+    return _on(torch, dev, taxon, tin, tout, np.ones((B, R), bool))
+
+
+def _on(torch, dev, taxon, tin, tout, valid):
+    import numpy as np
+    hit = taxon != 0
+    t_in = np.where(hit, tin[taxon], 0).astype(np.int32)
+    t_out = np.where(hit, tout[taxon], 0).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (taxon, t_in, t_out, valid))
+
+
+def time_score(torch, dev) -> dict:
+    import numpy as np
+    from pangea_tpu_torch.kernels import (lookup_q8, lookup_std,
+                                          score_ranked, score_reads_plain,
+                                          score_reads_taxon,
+                                          score_reads_tin, score_winners,
+                                          score_winners_plain)
+    out = {}
+
+    def check(name, want, got):
+        mism = sum(int((a != b).sum()) for a, b in zip(want, got))
+        if mism:
+            raise AssertionError(f"{name}: {mism} mismatches")
+
+    def entry(name, fn, want_fn):
+        check(name, want_fn(), fn())
+        out[name] = {"ms": time_ms(torch, fn),
+                     "device_ms": device_ms(torch, fn)}
+
+    qdi, b1, b2 = bench_world(torch, dev, BATCH, **HEADLINE)
+    hi, lo, valid = probes(torch, b1, b2, HEADLINE["k"], HEADLINE["w"])
+    B = b1.shape[0]
+    hits = [t.reshape(B, -1) for t in lookup_q8(hi, lo, valid, qdi.fused,
+                                                 qdi.stash, HEADLINE["k"])]
+    qargs = (*hits, valid.reshape(B, -1))
+    entry("k3_q8_headline",
+          lambda: score_reads_tin(*qargs, qdi.tax, 0.0),
+          lambda: score_reads_plain(*qargs, qdi.tax, 0.0, False))
+    di, _, _ = bench_world(torch, dev, 1, **WIDE)
+    hi, lo, valid = probes(torch, b1, b2, WIDE["k"], WIDE["w"])
+    lanes = [t.reshape(B, -1) for t in lookup_std(hi, lo, valid, di.fused,
+                                                  di.stash, di.cfg.ways)]
+    wargs = (*lanes, valid.reshape(B, -1))
+    entry("k3_taxon_wide_winners", lambda: score_winners(*wargs, True),
+          lambda: score_winners_plain(*wargs, True))
+    entry("k3_taxon_wide_direct",
+          lambda: score_reads_taxon(*wargs, qdi.tax, 0.0),
+          lambda: score_reads_plain(*wargs, qdi.tax, 0.0, True))
+    tin, tout = (di.tax[n].cpu().numpy() for n in ("tin", "tout"))
+    R, Bb = BUCKET
+    args = lineage_lanes(np, torch, dev, tin, tout, Bb, R, SCORE_SEED)
+    entry(f"k3_bucket_{R}x{Bb}", lambda: score_winners(*args, True),
+          lambda: score_winners_plain(*args, True))
+    for R, Bb in RANKED:
+        args = lineage_lanes(np, torch, dev, tin, tout, Bb, R, SCORE_SEED)
+        entry(f"k8_{R}x{Bb}",
+              lambda: score_ranked(*args, di.tax, 0.0, True),
+              lambda: score_reads_plain(*args, di.tax, 0.0, True))
+        entry(f"k8_{R}x{Bb}_winners", lambda: score_winners(*args, True),
+              lambda: score_winners_plain(*args, True))
+    for R, Bb in ((wargs[0].shape[1], B), BUCKET, *RANKED):
+        args = distinct_lanes(np, torch, dev, tin, tout, Bb, R, SCORE_SEED)
+        entry(f"{'k8' if R > 2048 else 'k3'}_{R}x{Bb}_u_r",
+              lambda: score_winners(*args, True),
+              lambda: score_winners_plain(*args, True))
+    return out
+
+
 def time_steps(torch, dev) -> dict:
-    from pangea_tpu_torch.classify import Classifier
+    from pangea_tpu_torch.bench import make_multik_world
+    from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
+                                           MultiKClassifier, pad_batch)
     out = {}
     for name, kw in (("q8", HEADLINE), ("std", WIDE)):
         di, b1, b2 = bench_world(torch, dev, BATCH, **kw)
         model = Classifier(di)
-        out[name] = {"one": time_ms(torch, lambda: model(b1, b2), 1),
-                     "back_to_back": time_ms(torch, lambda: model(b1, b2))}
+        out[name] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
+                     "back_to_back": time_stats(torch,
+                                                lambda: model(b1, b2))}
+    mw = make_multik_world(n_reads=BATCH, read_len=READ_LEN, **MULTIK)
+    model = MultiKClassifier([DeviceIndex.from_index(ix, dev, C4_THRESHOLD)
+                              for ix in mw.indexes])
+    b1, b2 = (torch.from_numpy(pad_batch(r, BATCH, READ_LEN)).to(dev)
+              for r in (mw.reads.seqs, mw.reads.mates))
+    out["config4"] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
+                      "back_to_back": time_stats(torch,
+                                                 lambda: model(b1, b2))}
     return out
 
 
@@ -314,19 +484,30 @@ def main(argv=None) -> int:
                     help="time K4 on the deep std table, its index in DIR")
     ap.add_argument("--split", action="store_true",
                     help="split the block copy's host time into parts")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="the sections to run, comma-separated, of "
+                         f"{', '.join(SECTIONS)}")
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"sections {sections}: not all of {SECTIONS}")
     if not torch.cuda.is_available():
         print("ab_timing: no CUDA device", file=sys.stderr)
         return 1
     import pangea_tpu_torch
     dev = torch.device("cuda", 0)
     line = {"checkout": str(Path(pangea_tpu_torch.__file__).parent),
-            "device": torch.cuda.get_device_name(dev),
-            "block_copy": time_block_copy(torch, dev)}
+            "device": torch.cuda.get_device_name(dev)}
+    if "block_copy" in sections:
+        line["block_copy"] = time_block_copy(torch, dev)
     if args.split:
         line["split"] = split(torch, dev)
-    line["k4"] = time_k4(torch, dev, args.deep)
-    line["steps"] = time_steps(torch, dev)
+    if "k4" in sections:
+        line["k4"] = time_k4(torch, dev, args.deep)
+    if "score" in sections:
+        line["score"] = time_score(torch, dev)
+    if "steps" in sections:
+        line["steps"] = time_steps(torch, dev)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -20,8 +20,21 @@ MAX_PROBES probes and K8 (``csrc/score_ranked.cu``, counted on
 :func:`score_ranked`) above, one launch with the direct scan, or the
 winners form followed by K5 (``csrc/lca_lift.cu``, :func:`lca_lift`); on
 CPU tensors they run :func:`score_reads_plain`.
+
+K3 and K8 score a read from the distinct (t_in, t_out) intervals among its
+hits (``csrc/common.cuh`` ``score_kernel``): a probe's pscore depends on
+its t_in alone, so U^2 compares over the U distinct intervals, each
+weighted by its multiplicity, give every probe's pscore. A read with more
+than the plan's ``cap`` distinct intervals takes its kernel's exact
+general branch in the same launch (K3: the quadratic count; K8: the sort),
+and the launch counts it (:func:`general_reads`). :func:`score_plan` sets
+the launch: warps a read, reads a block, the cap (:func:`score_cap`) and
+the shared memory.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,10 +44,111 @@ _I32_MAX = 2**31 - 1
 MAX_PROBES = 2048            # K3 up to here (the reference's _RANKED_MIN_P)
 DIRECT_LCA_MAX_TAXA = 4096   # the reference's _DIRECT_LCA_MAX_TAXA
 _PLAIN_PSCORE_ELEMS = 1 << 26   # [B, R, R] elements a plain pscore step
-# K8 sorts a read's two [Rpad] arrays in shared memory up to this many
-# bytes (the H100's 227 KB opt-in less room for the block's own state),
-# beyond it in a device scratch.
-RANKED_SMEM_MAX = 232448 - 1024
+# The scorer's launch (score_plan). SCORE_CAPS: the distinct intervals a
+# read's table holds before the read takes the general branch, by R (the
+# first entry whose bound is at least R): the largest U at which the table
+# beat the general branch in kernels.score_sweep on an NVIDIA H100 80GB
+# HBM3 at 700 W (16 at R = 32, 64 at R = 260, past 128 at R = 1,180 and
+# 16,364): the general branch's R^2 (or sort) work grows faster with R
+# than the table's. At most SCORE_MAX_CAP, the kernel's
+# kScoreMaxCap. One warp a read and SCORE_READS a block where reads are
+# many, more warps a read where B reads would give the card fewer than
+# SCORE_SM_WARPS warps an SM; K8 always a block of 32 warps a read.
+SCORE_CAPS = ((64, 16), (512, 64), (None, 128))
+SCORE_MAX_CAP = 128
+SCORE_READS = 8              # the kernel's kScoreMaxReads
+SCORE_SM_WARPS = 16
+RANKED_WARPS = 32
+# Dynamic shared bytes a scoring block may take: the H100's 227 KB opt-in
+# less the block's static per-read state (8 x 40 B) and a margin. K8 sorts
+# in shared memory when its three [Rpad] arrays fit, else in a device
+# scratch.
+SCORE_SMEM_MAX = 232448 - 4096
+# A block of one-warp reads takes at most this many of them, so that an SM
+# holds four such blocks.
+SCORE_BLOCK_SMEM = SCORE_SMEM_MAX // 4
+
+
+class ScorePlan(NamedTuple):
+    """The scorer's launch: ``grid`` blocks of ``reads`` reads of
+    ``warps`` warps each; a read's table holds ``cap`` distinct intervals;
+    ``per_read`` shared bytes a read (its table, or its general branch's
+    arrays, which reuse them), ``smem`` a block; K8's sort width
+    ``rpad`` (0 for K3) and whether it sorts in a device ``scratch``."""
+    grid: int
+    warps: int
+    reads: int
+    cap: int
+    per_read: int
+    smem: int
+    rpad: int
+    scratch: bool
+
+
+def score_slots(cap: int) -> int:
+    """Slots of a read's hash table (csrc/common.cuh score_slots): a power
+    of two, at least 32, with room for cap entries and one chunk's 32."""
+    slots = 32
+    while slots < cap + 32:
+        slots *= 2
+    return slots
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def score_cap(R: int) -> int:
+    """The table capacity SCORE_CAPS gives reads of R probes."""
+    return next(cap for bound, cap in SCORE_CAPS if bound is None
+                or R <= bound)
+
+
+@functools.lru_cache(maxsize=256)
+def score_plan(B: int, R: int, sms: int, cap: int | None = None
+               ) -> ScorePlan:
+    """The scorer's launch for B reads of R probes on a card of ``sms``
+    SMs, with a table of ``cap`` distinct intervals (None: score_cap(R)).
+    K3 (R <= MAX_PROBES) gives a read one warp and a block SCORE_READS
+    reads where B fills the card with SCORE_SM_WARPS warps an SM, else
+    enough warps a read (a power of two, at most one a 32-probe chunk and
+    32) and one read a block; K8 gives a read a block of RANKED_WARPS. A
+    read's shared bytes hold its hash table of score_slots(cap) slots and
+    its cap packed entries, 16 bytes each, or its general branch's
+    arrays: K3's 16 bytes a probe where R > cap (no table can overflow
+    otherwise), K8's three [Rpad] int32 arrays where they fit
+    SCORE_SMEM_MAX (else a device scratch). A block of one-warp reads
+    holds no more of them than SCORE_BLOCK_SMEM bytes take."""
+    if cap is None and R >= 1:
+        cap = score_cap(R)
+    if B < 0 or R < 1 or sms < 1 or not 1 <= cap <= SCORE_MAX_CAP:
+        raise ValueError(f"B={B}, R={R}, sms={sms}, cap={cap}")
+    chunks = -(-R // 32)
+    ranked = R > MAX_PROBES
+    if ranked:
+        warps = RANKED_WARPS
+    else:
+        want = -(-(sms * SCORE_SM_WARPS) // max(B, 1))
+        warps = min(32, _pow2(chunks), _pow2(want))
+    tables = 16 * (score_slots(cap) + cap)
+    rpad, scratch = 0, False
+    if ranked:
+        rpad = _pow2(R)
+        general = 12 * rpad
+        scratch = max(general, tables) > SCORE_SMEM_MAX
+        if scratch:
+            general = 0
+    else:
+        general = 16 * R if R > cap else 0
+    per_read = -(-max(tables, general) // 16) * 16
+    if per_read > SCORE_SMEM_MAX:
+        raise ValueError(f"a read of {R} probes needs {per_read} shared "
+                         f"bytes, more than {SCORE_SMEM_MAX}")
+    reads = 1 if warps > 1 else max(1, min(SCORE_READS,
+                                           SCORE_BLOCK_SMEM // per_read))
+    return ScorePlan(-(-B // reads), warps, reads, cap, per_read,
+                     reads * per_read, rpad, scratch)
 
 
 def _pscore_plain(t_in, t_out, hit):
@@ -218,34 +332,48 @@ def _check_lanes(lanes, t_in, t_out, valid):
     return B, R
 
 
+def _general_counter(fn, dev) -> torch.Tensor:
+    """The int32 [1] on ``dev`` that ``fn``'s launches add their
+    general-branch reads to (made, zeroed, at its first launch there)."""
+    counter = fn.general.get(dev.index)
+    if counter is None:
+        counter = fn.general[dev.index] = torch.zeros(1, dtype=torch.int32,
+                                                      device=dev)
+    return counter
+
+
 def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
-                  tax: dict | None = None, thr: float = 0.0):
+                  tax: dict | None = None, thr: float = 0.0,
+                  plan: ScorePlan | None = None):
     """One launch of K3 (R <= MAX_PROBES) or K8: with ``tax`` the direct
     form (taxon, best, nvalid), without it the winners form (u, v, tin_u,
-    tin_v, best, nvalid). The launch counts on :func:`score_ranked` (K8),
-    else on :func:`score_reads_taxon` or :func:`score_reads_tin`."""
+    tin_v, best, nvalid). ``plan`` overrides :func:`score_plan`
+    (kernels.score_sweep). The launch counts on :func:`score_ranked` (K8),
+    else on :func:`score_reads_taxon` or :func:`score_reads_tin`, and adds
+    its general-branch reads to the same wrapper's counter."""
     B, R = _check_lanes(lanes, t_in, t_out, valid)
     if tax is None:
         T1, tax_ptrs = 0, (0, 0, 0)
     else:
         T1 = _check_tax(tax, ("tin", "tout", "depth"))
         tax_ptrs = tuple(tax[n].data_ptr() for n in ("tin", "tout", "depth"))
+    if plan is None:
+        plan = score_plan(B, R, _build.sm_count(dev.index))
     out = torch.empty((6 if tax is None else 3, B), dtype=torch.int32,
                       device=dev)
     ptrs = [o.data_ptr() for o in out] + [0] * (6 - out.shape[0])
-    head = (lanes.data_ptr(), t_in.data_ptr(), t_out.data_ptr(),
-            valid.data_ptr(), B, R)
-    tail = (int(taxon_lanes), *tax_ptrs, T1, float(thr), *ptrs)
-    if R <= MAX_PROBES:
-        _build.launch("pangea_score", dev, *head, *tail)
-        (score_reads_taxon if taxon_lanes else score_reads_tin).launches += 1
-    else:
-        rpad = 1 << (R - 1).bit_length()
-        scratch = (None if 2 * rpad * 4 <= RANKED_SMEM_MAX else
-                   torch.empty((B, 2, rpad), dtype=torch.int32, device=dev))
-        _build.launch("pangea_score_ranked", dev, *head, rpad,
-                      0 if scratch is None else scratch.data_ptr(), *tail)
-        score_ranked.launches += 1
+    ranked = R > MAX_PROBES
+    fn = score_ranked if ranked else (score_reads_taxon if taxon_lanes
+                                      else score_reads_tin)
+    scratch = (torch.empty((B, 3, plan.rpad), dtype=torch.int32, device=dev)
+               if plan.scratch else None)
+    _build.launch("pangea_score_ranked" if ranked else "pangea_score", dev,
+                  lanes.data_ptr(), t_in.data_ptr(), t_out.data_ptr(),
+                  valid.data_ptr(), B, R, int(taxon_lanes), *tax_ptrs, T1,
+                  float(thr), *ptrs, _general_counter(fn, dev).data_ptr(),
+                  plan.warps, plan.reads, plan.cap, plan.per_read, plan.rpad,
+                  0 if scratch is None else scratch.data_ptr())
+    fn.launches += 1
     return tuple(out)
 
 
@@ -349,7 +477,24 @@ def lca_lift(u, v, tin_u, tin_v, best, nvalid, tax: dict,
     return taxon
 
 
+def general_reads() -> dict:
+    """Reads that took the general branch in the scorer's launches since
+    the counters were last cleared (:func:`reset_general_reads`), by
+    kernel name; reading them waits for those launches."""
+    return {name: sum(int(c.item()) for c in fn.general.values())
+            for name, fn in SCORERS.items()}
+
+
+def reset_general_reads() -> None:
+    for fn in SCORERS.values():
+        fn.general = {}
+
+
 score_reads_tin.launches = 0
 score_reads_taxon.launches = 0
 score_ranked.launches = 0
 lca_lift.launches = 0
+# The wrappers whose launches count general-branch reads, by kernel name.
+SCORERS = {"score_tin": score_reads_tin, "score_taxon": score_reads_taxon,
+           "score_ranked": score_ranked}
+reset_general_reads()

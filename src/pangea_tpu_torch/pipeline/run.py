@@ -165,9 +165,9 @@ def _check_supported(c: RunConfig) -> None:
     if c.trim.min_qual > 0 or c.trim.min_len or c.trim.max_len \
             or c.demux.barcodes:
         raise NotImplementedError(
-            "trim and demux are not ported yet (ROADMAP A5)")
+            "trim and demux are not ported yet (ROADMAP A3)")
     if c.classify.resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP A5)")
+        raise NotImplementedError("--resume is not ported yet (ROADMAP A3)")
 
 
 def bucket_batch(seqs, mate_seqs, B: int, L: int, max_long: int):

@@ -17,7 +17,8 @@ from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
 from pangea_tpu.utils import datagen as ref_datagen
-from pangea_tpu_torch.bench import make_bench_world
+from pangea_tpu_torch.bench import (chain_taxonomy, make_bench_world,
+                                    score_world)
 from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
@@ -39,7 +40,11 @@ from pangea_tpu_torch.kernels import (KERNELS, extract_probes,
                                       reset_kernel_launches,
                                       score_reads_taxon,
                                       score_reads_taxon_plain,
-                                      score_reads_tin, score_reads_tin_plain)
+                                      score_reads_tin, score_reads_tin_plain,
+                                      general_reads, score_plan,
+                                      score_reads_plain)
+from pangea_tpu_torch.kernels.score import (MAX_PROBES, _launch_score,
+                                            score_cap)
 from pangea_tpu_torch.taxonomy import Taxonomy
 
 from .helpers import small_world
@@ -529,6 +534,91 @@ def test_score_ranked_kernel_matches_plain(cuda, tree, B, R):
             for a, b in zip(want, got):
                 assert torch.equal(a, b.cpu())
             assert (want[0] != 0).any()
+
+
+def _u_cases():
+    """(R, B, U, nested) of the scorer worlds: U None is every hit its own
+    interval (no misses); U past score_cap(R) sends reads to the general
+    branch in every form; R = 2048 is K3's last width and 2049 K8's
+    first."""
+    for R, B in ((32, 300), (260, 200), (1180, 40), (2048, 12), (2049, 12),
+                 (16364, 4)):
+        for U in (1, 8, 64, None):
+            for nested in (False, True):
+                if U is not None and U > R // 2:
+                    continue
+                yield R, B, U, nested
+
+
+def _u_tax(R, U, nested):
+    if nested:
+        return chain_taxonomy(max(R if U is None else U, 64) + 2)
+    if U is None and R > 5000:
+        return ref_datagen.make_taxonomy(2, 512, 64, seed=0)
+    return ref_datagen.make_taxonomy(2, *((8, 3) if U and U <= 8
+                                          else (64, 40)), seed=0)
+
+
+@pytest.mark.parametrize("R,B,U,nested", list(_u_cases()),
+                         ids=[f"R{r}-U{'all' if u is None else u}-"
+                              f"{'nested' if n else 'unrel'}"
+                              for r, _, u, n in _u_cases()])
+def test_scorer_kernels_match_plain_on_chosen_u(cuda, R, B, U, nested):
+    """K3 (both forms) or K8 on scorer worlds of chosen U against the plain
+    scorer: winners, and the direct or lifted LCA at two thresholds; the
+    reads past score_cap(R) distinct intervals take the general branch, and
+    only they."""
+    tax = _u_tax(R, U, nested)
+    world = score_world(tax, B, R, U, nested, 0.0 if U is None else 0.5,
+                        seed=R + (U or 7))
+    tax_c, tax_h = _tax(tax, cuda), _tax(tax, "cpu")
+    hits = R if U is None else R - round(0.5 * R)
+    distinct = hits if U is None else U
+    for taxon_lanes in (True, False):
+        lanes = world[0] if taxon_lanes else (world[0] != 0).astype(np.int32)
+        args = [torch.from_numpy(a) for a in (lanes, *world[1:])]
+        cargs = [a.to(cuda) for a in args]
+        reset_kernel_launches()
+        got = score_winners(*cargs, taxon_lanes)
+        for a, b in zip(score_winners_plain(*args, taxon_lanes), got):
+            assert torch.equal(a, b.cpu())
+        for thr in (0.0, 0.3):
+            want = score_reads_plain(*args, tax_h, thr, taxon_lanes)
+            if R > MAX_PROBES:
+                got = score_ranked(*cargs, tax_c, thr, taxon_lanes)
+            else:
+                fn = score_reads_taxon if taxon_lanes else score_reads_tin
+                got = fn(*cargs, tax_c, thr)
+            for a, b in zip(want, got):
+                assert torch.equal(a, b.cpu())
+        name = ("score_ranked" if R > MAX_PROBES else
+                "score_taxon" if taxon_lanes else "score_tin")
+        assert general_reads()[name] == (
+            3 * (B - 1) if distinct > score_cap(R) else 0)
+
+
+@pytest.mark.parametrize("R,B", [(32, 300), (260, 100), (2048, 8),
+                                 (2049, 8), (16364, 3)])
+@pytest.mark.parametrize("cap", [1, 4])
+def test_scorer_general_branch_at_a_small_cap(cuda, R, B, cap):
+    """A plan whose table holds 1 or 4 intervals sends the reads of U = 8
+    down the general branch, in both forms of K3 and K8."""
+    tax = chain_taxonomy(64)
+    for nested in (False, True):
+        world = score_world(tax, B, R, 8, nested, 0.5, seed=R + cap)
+        plan = score_plan(B, R, torch.cuda.get_device_properties(
+            cuda).multi_processor_count, cap)
+        for taxon_lanes in (True, False):
+            lanes = (world[0] if taxon_lanes
+                     else (world[0] != 0).astype(np.int32))
+            args = [torch.from_numpy(a) for a in (lanes, *world[1:])]
+            reset_kernel_launches()
+            cargs = [a.to(cuda) for a in args]
+            got = _launch_score(cargs[0].device, *cargs, taxon_lanes,
+                                plan=plan)
+            assert sum(general_reads().values()) == B - 1
+            for a, b in zip(score_winners_plain(*args, taxon_lanes), got):
+                assert torch.equal(a, b.cpu())
 
 
 def test_long_reads_on_the_card_match_golden(cuda):
