@@ -29,7 +29,11 @@ general path:
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
      then one link;
   3. K1-K3 against their plain PyTorch versions, bit for bit, at the bench
-     shapes (16384 pairs of 150 bp reads), plus K2 on a table with a forced
+     shapes (16384 pairs of 150 bp reads), plus K1 and its packed form on
+     their edge worlds (bench.k1_edge_world: k in {1, 21, 31}, w in {1, 3,
+     8, 32}, reads of k, 31 + k, 32 + k, 33 + k and 16,384 bases, N and bad
+     flags at positions 31, 32, 63 and 64, codes below 0, col0 > 0, the wire
+     rows a column slice of a wider batch), K2 on a table with a forced
      stash and K3 at two thresholds, on the lookups and on scorer worlds
      of chosen U (bench.score_world: U = 1, 8 and R, nested along a
      lineage and from unrelated taxa), each world's mean and largest U and
@@ -44,9 +48,10 @@ general path:
   6. torch.profiler over back-to-back q8 steps: the device time of each
      kernel (and a JSON line of it by kernel) and the device's busy share
      of the wall;
-  7. K4, K3's taxon form and K5 against their plain versions, bit for bit:
-     K4 on the wide table with 16384 pairs x 260 probes, on the k=31
-     packed table and on a table with a forced stash, the wide and packed
+  7. K1 at w=1 on the std world's pairs, timed beside its bound (its
+     `variants` entry w1_std); K4, K3's taxon form and K5 against their
+     plain versions, bit for bit: K4 on the wide table with 16384 pairs x
+     260 probes, on the k=31 packed table and on a table with a forced stash, the wide and packed
      tables timed beside their bounds, each with its launch plan
      (kernels.lookup.std_plan) in K4's `variants` map; K3-taxon and K5 at
      two thresholds, K3-taxon also on scorer worlds of U = 1, 8, 64 and R
@@ -78,7 +83,7 @@ general path:
      thresholds, and on scorer worlds of U = 1, 8, 64 and R at each shape;
      K1's packed form on the headline pairs as the native
      reader packs them (w=8 and w=1), held to its plain version and to K1
-     on the codes;
+     on the codes, and timed at both w beside its bound;
  16. the long-read step on the std world: one FASTQ of the bench's first
      8,192 first mates and 2,048 single-end genome slices of 1,000-20,000
      bases (log-uniform), each of the CLI's launches (the bucket shapes)
@@ -161,7 +166,14 @@ pangea_tpu_torch.
 Bounds: a kernel's bound_ms is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its 32-bit integer
 operations, counted from this run's inputs, over 67 T/s (the H100 SXM's
-non-tensor 32-bit peak, an optimistic rate for integer work). A table
+non-tensor 32-bit peak, an optimistic rate for integer work). K1 reads its
+codes (1 B a base) or wire rows (4 B a word) once and writes 9 B a
+probe; its least operations are, at each of the NW x w positions its
+windows cover, one k-mer and its validity test (12: five 64-bit
+operations, the shift out of the stream, its mask, the complement, the
+pair reversal and the min, and a 64-bit mask test, two 32-bit operations
+each) and, where w > 1, one hash32 (18: two fmix32 and two xors), plus w
+- 1 compares a window (kernels.minimize.k1_cost). A table
 counts only what this run's probes need: the key lanes of the buckets they
 reach, the payload lanes of the keys they hit and the stash (K2, K2-q12,
 K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
@@ -184,8 +196,12 @@ operations a query; K12's one-hot product is also logged against the
 1,979 T/s dense int8 tensor-core peak. K13 reads and writes each row once
 and reads 4 B an index. library_ms is one PyTorch call of the same
 function, timed and used nowhere in the port: torch.index_select for K13's
-gathers, narrow().clone() for its block copy, and null for the kernels
-that no one PyTorch call computes.
+gathers, narrow().clone() for its block copy, index_select of the 16-byte
+records by inv for K9's restore (out[i] = record[inv[i]], the three
+outputs left interleaved; on the routed answers the -1 slots of invalid
+probes are clamped to row 0 outside the timed call, so that call reads
+row 0 where the restore writes zeros), and null for the kernels that no
+one PyTorch call computes.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}. Any failed phase raises and the exit
@@ -531,6 +547,57 @@ def probes(torch, world, k: int, w: int, fn=None):
     return out
 
 
+def check_k1_edges(torch, cuda, res: Results) -> None:
+    """K1 and its packed form against their plain versions on K1's edge
+    worlds, bit for bit (see phase 3)."""
+    from pangea_tpu_torch.bench import k1_edge_world
+    from pangea_tpu_torch.kernels import (extract_probes,
+                                          extract_probes_plain, wire_width)
+    n = 0
+    for k in (1, 21, 31):
+        for w in (1, 3, 8, 32):
+            for L in (k, 31 + k, 32 + k, 33 + k, MAX_LONG):
+                nw = (L - k + 1) // w
+                if nw == 0:
+                    continue
+                B = 40 if L < MAX_LONG else 8
+                codes, rows = k1_edge_world(B, L, seed=L + k + w)
+                W = wire_width(L)
+                wide = torch.full((B, 2 * W + 3), 0x5A5A5A5A,
+                                  dtype=torch.int32, device=cuda)
+                part = wide[:, W + 2:2 * W + 2]
+                part.copy_(torch.from_numpy(rows.view("int32")))
+                c = torch.from_numpy(codes).to(cuda)
+
+                def run(fn, src, packed):
+                    out = (torch.full((B, nw + 9), 7, dtype=torch.int32,
+                                      device=cuda),
+                           torch.full((B, nw + 9), 7, dtype=torch.int32,
+                                      device=cuda),
+                           torch.zeros((B, nw + 9), dtype=torch.bool,
+                                       device=cuda))
+                    if packed:
+                        fn(src, k, w, out, 4, packed_len=L)
+                    else:
+                        fn(src, k, w, out, 4)
+                    return out
+                want = run(extract_probes_plain, c, False)
+                for name, fn, src, packed in (
+                        ("extract_probes", extract_probes, c, False),
+                        ("extract_packed", extract_probes, part, True)):
+                    mism, err = compare(want, run(fn, src, packed))
+                    r = res.k[name]
+                    r["mismatches"] += mism
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    if mism:
+                        log(f"[3 K1 edge k={k} w={w} L={L}] {name}: "
+                            f"mismatches {mism}")
+                n += 1
+    log(f"[3] K1 and its packed form on {n} edge worlds (k, w, L): "
+        f"mismatches {res.k['extract_probes']['mismatches']} / "
+        f"{res.k['extract_packed']['mismatches']}")
+
+
 def table_bytes(di) -> int:
     return (di.fused.numel() + di.stash.numel()) * 4
 
@@ -666,6 +733,7 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
                                           score_reads_tin,
                                           score_reads_tin_plain)
     from pangea_tpu_torch.kernels.lookup import _q8_geometry, _q8_split, widen
+    from pangea_tpu_torch.kernels.minimize import k1_cost
     k, w = HEADLINE["k"], HEADLINE["w"]
     idx, di = world["idx"], world["di"]
     hi, lo, valid = probes(torch, world, k, w)
@@ -673,12 +741,12 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     res.check("extract_probes", "3",
               probes(torch, world, k, w, extract_probes_plain),
               (hi, lo, valid))
-    windows = BATCH * R
+    nbytes, ops = k1_cost(2 * BATCH, READ_LEN, k, w, READ_LEN)
     res.time(torch, "extract_probes", "3",
              lambda: probes(torch, world, k, w),
              lambda: probes(torch, world, k, w, extract_probes_plain),
-             nbytes=2 * BATCH * READ_LEN + windows * 9,
-             ops=windows * ((w + k - 1) * 8 + w * 18))
+             nbytes=nbytes, ops=ops, variant="w8_headline")
+    check_k1_edges(torch, cuda, res)
 
     hi, lo, valid = (t.reshape(-1) for t in (hi, lo, valid))
     fused, stash = di.fused, di.stash
@@ -733,7 +801,8 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
                                            di.tax, 0.0),
              nbytes=BATCH * R * 13 + 12 * T1 + 12 * BATCH,
              ops=score_ops(hit, t_in, t_out) + BATCH * T1 * 6)
-    res.assert_clean(("extract_probes", "lookup_q8", "score_tin"))
+    res.assert_clean(("extract_probes", "extract_packed", "lookup_q8",
+                      "score_tin"))
 
 
 def phase_step(torch, world, card: str, tag: str, want_launches: dict,
@@ -920,8 +989,8 @@ def chain_tax(torch, cuda) -> dict:
 def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import extract_pairs
     from pangea_tpu_torch.index.build import layout_table
-    from pangea_tpu_torch.kernels import (fuse_stash, fuse_table, hash32,
-                                          lca_lift,
+    from pangea_tpu_torch.kernels import (extract_probes_plain, fuse_stash,
+                                          fuse_table, hash32, lca_lift,
                                           lca_lift_plain, lookup_q8,
                                           lookup_std, lookup_std_plain,
                                           score_reads_taxon,
@@ -930,14 +999,23 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
                                           score_reads_tin_plain,
                                           score_winners,
                                           score_winners_plain)
+    from pangea_tpu_torch.kernels.minimize import k1_cost
     wide, packed, q8l = worlds["wide"], worlds["packed"], worlds["q8_lift"]
     di = wide["di"]
     hi, lo, valid = probes(torch, wide, WIDE["k"], WIDE["w"])
     B, R = hi.shape
-    k1_ms = time_ms(torch, lambda: probes(torch, wide, WIDE["k"], WIDE["w"]),
-                    PIPELINED)
+    res.check("extract_probes", "7 w=1",
+              probes(torch, wide, WIDE["k"], WIDE["w"], extract_probes_plain),
+              (hi, lo, valid))
+    nbytes, ops = k1_cost(2 * B, READ_LEN, WIDE["k"], WIDE["w"], READ_LEN)
+    res.time(torch, "extract_probes", "7 w=1",
+             lambda: probes(torch, wide, WIDE["k"], WIDE["w"]),
+             lambda: probes(torch, wide, WIDE["k"], WIDE["w"],
+                            extract_probes_plain),
+             nbytes=nbytes, ops=ops, plain_calls=1, plain_reps=PLAIN_REPS,
+             primary=False, variant="w1_std")
     log(f"[7] extract_probes at k={WIDE['k']}, w={WIDE['w']}, both mates -> "
-        f"[{B}, {R}]: kernel {k1_ms} ms a call")
+        f"[{B}, {R}]")
     flat = [t.reshape(-1) for t in (hi, lo, valid)]
     N = flat[0].numel()
     ways = di.cfg.ways
@@ -1247,7 +1325,7 @@ def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
     from pangea_tpu_torch.io.native import NativeFastxReader
     from pangea_tpu_torch.kernels import (extract_probes,
                                           extract_probes_plain, wire_width)
-    from pangea_tpu_torch.kernels.minimize import probe_width
+    from pangea_tpu_torch.kernels.minimize import k1_cost, probe_width
     rows = []
     for path in fastq:
         reader = NativeFastxReader(path, BATCH, READ_LEN)
@@ -1278,17 +1356,14 @@ def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
                   run(extract_probes_plain), packed)
         res.check("extract_packed", f"15 w={w} vs K1 on the codes",
                   probes(torch, wide, k, w), packed)
-        if w == HEADLINE["w"]:
-            windows = BATCH * 2 * nw
-            res.time(torch, "extract_packed", "15 w=8",
-                     lambda: run(extract_probes),
-                     lambda: run(extract_probes_plain),
-                     nbytes=BATCH * 2 * W * 4 + windows * 9,
-                     ops=windows * ((w + k - 1) * 8 + w * 18))
-        else:
-            log(f"[15] extract_packed w={w}: kernel "
-                f"{time_ms(torch, lambda: run(extract_probes), PIPELINED)} "
-                f"ms a call for both mates of {BATCH} pairs")
+        nbytes, ops = k1_cost(2 * BATCH, READ_LEN, k, w, 4 * W)
+        head = w == HEADLINE["w"]
+        res.time(torch, "extract_packed", f"15 w={w}",
+                 lambda: run(extract_probes),
+                 lambda: run(extract_probes_plain), nbytes=nbytes, ops=ops,
+                 plain_calls=PIPELINED if head else 1,
+                 plain_reps=REPS if head else PLAIN_REPS, primary=head,
+                 variant="w8_headline" if head else "w1_std")
     res.assert_clean(("extract_packed",))
 
 
@@ -1598,7 +1673,8 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
                                           lookup_q12_plain, lookup_q12_sorted,
                                           lookup_q12_sorted_plain, lookup_std,
                                           lookup_std_plain, lookup_std_sorted,
-                                          lookup_std_sorted_plain)
+                                          lookup_std_sorted_plain,
+                                          route_restore, route_restore_plain)
     from pangea_tpu_torch.kernels.lookup import _q8_split, key_shift, widen
     k = DEEP_K
     flat16, flat64 = ([t.reshape(-1) for t in probes(
@@ -1653,6 +1729,21 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
             log_bound(res, name, "deep_std", "20")
         sort_args = (*flat, nb, qk)
         if layout == "q8":
+            # K9's restore alone on the deep q8 probes' records (a
+            # permutation), beside one index_select of the records.
+            records, inv = order
+            res.check("route_restore", f"{what} restore",
+                      route_restore_plain(inv, records),
+                      route_restore(inv, records))
+            res.time(torch, "route_restore", f"{what} restore",
+                     lambda: route_restore(inv, records),
+                     lambda: route_restore_plain(inv, records),
+                     nbytes=N * (4 + 16 + 12), ops=N, plain_calls=1,
+                     plain_reps=PLAIN_REPS, primary=False,
+                     library=lambda: records.index_select(0, inv),
+                     variant="deep_q8")
+            log_ratio(res, "route_restore", "deep_q8",
+                      "index_select of the records", "20")
             res.time(torch, "bucket_sort", what,
                      lambda: bucket_sort(*sort_args),
                      lambda: bucket_sort_plain(*sort_args),
@@ -1709,7 +1800,7 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
         f"ms, K9 and the sorted form {both_ms} ms")
     res.assert_clean(("bucket_sort", "lookup_q8_sorted", "lookup_q12_sorted",
                       "lookup_std_sorted", "lookup_q8", "lookup_q12",
-                      "lookup_std"))
+                      "lookup_std", "route_restore"))
 
 
 def phase_deep_steps(torch, deep, card: str) -> dict:
@@ -1924,11 +2015,18 @@ def phase_route_kernels(torch, deep, wide, res: Results, card: str) -> None:
                      lambda: route_bin_plain(*flat, S, cap), nbytes=nbytes,
                      ops=N * 16, plain_calls=1, plain_reps=PLAIN_REPS)
             answers = records[:, [1, 2, 0, 3]].contiguous()
+            # The library call gathers whole records, interleaved, and
+            # reads row 0 where inv is -1 (clamped here, outside the call).
+            inv0 = inv.clamp(min=0)
             res.time(torch, "route_restore", "25 restore S=4",
                      lambda: route_restore(inv, answers),
                      lambda: route_restore_plain(inv, answers),
                      nbytes=N * (4 + 16 + 12), ops=N, plain_calls=1,
-                     plain_reps=PLAIN_REPS)
+                     plain_reps=PLAIN_REPS,
+                     library=lambda: answers.index_select(0, inv0),
+                     variant="routed_S4")
+            log_ratio(res, "route_restore", "routed_S4",
+                      "index_select of the records", "25")
     cap = route_capacity(N, 4, 0.01)
     _, inv, counts = check_route(torch, res, "25 K10 overflow", flat, 4, cap)
     log(f"[25] K10 forced overflow (cap_frac 0.01: {cap} slots an owner): "
@@ -2343,11 +2441,12 @@ def log_bound(res: Results, name: str, variant: str, tag: str) -> None:
         f"bound ({v['bound_ms']} ms); plan {v.get('plan')}")
 
 
-def log_ratio(res: Results, name: str, variant: str, library: str) -> None:
-    """One line: a K13 variant's time over its library call's, and over its
-    bound."""
+def log_ratio(res: Results, name: str, variant: str, library: str,
+              tag: str = "30") -> None:
+    """One line: a kernel variant's time over its library call's, and over
+    its bound."""
     v = res.k[name]["variants"][variant]
-    log(f"[30] {variant}: {v['ms'] / v['library_ms']} x {library} "
+    log(f"[{tag}] {name} {variant}: {v['ms'] / v['library_ms']} x {library} "
         f"({v['ms']} / {v['library_ms']} ms), {v['ms'] / v['bound_ms']} x "
         f"its bound ({v['bound_ms']} ms)")
 

@@ -31,6 +31,10 @@ fast regime holds, so ``pick_layout`` gives it q12; the k=21 index is q8.
 unrelated taxa; ``chain_taxonomy`` is a lineage deep enough for nested
 worlds of any U.
 
+``k1_edge_world`` makes K1's edge reads: codes with N at the stream's
+block edges (positions 31, 32, 63, 64), codes below 0, and the same reads
+as wire rows (``pack_wire``) whose bad bases and tails carry junk.
+
 ``make_deep_world`` is the reference bench's deep cell
 (``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
 genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
@@ -246,6 +250,54 @@ def score_world(tax: Taxonomy, B: int, R: int, U: int | None, nested: bool,
     if B > 1:
         valid[1] = False
     return lanes, t_in, t_out, valid
+
+
+# K1's edge worlds: the positions where a pass's blocks of 32 bases meet.
+EDGE_POSITIONS = (31, 32, 63, 64)
+
+
+def pack_wire(codes: np.ndarray, junk_seed: int | None = None) -> np.ndarray:
+    """The native reader's wire rows (uint32 [B, ceil(L/16) + ceil(L/32)])
+    of int8 codes [B, L]: base j's 2-bit code at bits [2(j%16), +2) of word
+    j//16, its bad flag (code < 0 or > 3) at bit j%32 of word ceil(L/16) +
+    j//32, bases past L bad. With ``junk_seed``, the 2-bit codes of the bad
+    bases and of the tail, and the tail's bad flags, are random: every
+    k-mer over them is invalid or past the read either way."""
+    B, L = codes.shape
+    w16, w32 = (L + 15) // 16, (L + 31) // 32
+    bad = np.ones((B, w32 * 32), bool)
+    bad[:, :L] = (codes < 0) | (codes > 3)
+    c2 = np.zeros((B, w16 * 16), np.uint64)
+    c2[:, :L] = codes.astype(np.uint8) & 3
+    if junk_seed is not None:
+        rng = np.random.default_rng(junk_seed)
+        junk = rng.integers(0, 4, c2.shape).astype(np.uint64)
+        c2 = np.where(bad[:, :w16 * 16], junk, c2)
+        bad[:, L:] = rng.random((B, w32 * 32 - L)) < 0.5
+    words = (c2.reshape(B, w16, 16)
+             << (2 * np.arange(16, dtype=np.uint64))).sum(axis=2)
+    bwords = (bad.reshape(B, w32, 32).astype(np.uint64)
+              << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return np.concatenate([words, bwords], axis=1).astype(np.uint32)
+
+
+def k1_edge_world(B: int, L: int, seed: int = 0):
+    """K1's edge reads: (codes int8 [B, L], wire rows uint32 [B, W]).
+    Random bases with 1 % N; read 1 + i has N at EDGE_POSITIONS[i] (where
+    it lies in the read) and read 5 at all four; read 6 has code -1 at 0
+    and L // 2, read 7 code -128 at L - 1 (the last read where B is
+    smaller); read 0 is clean. The rows are
+    ``pack_wire`` of the codes, with junk where it cannot matter."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L)).astype(np.int8)
+    codes[1:][rng.random((B - 1, L)) < 0.01] = 4
+    for i, p in enumerate(EDGE_POSITIONS):
+        if p < L:
+            codes[min(1 + i, B - 1), p] = 4
+            codes[min(5, B - 1), p] = 4
+    codes[min(6, B - 1), [0, L // 2]] = -1
+    codes[min(7, B - 1), L - 1] = -128
+    return codes, pack_wire(codes, junk_seed=seed + 1)
 
 
 def distinct_intervals(lanes, t_in, t_out) -> np.ndarray:

@@ -35,9 +35,10 @@ _F = ctypes.c_float
 # C signature of every exported launcher: (argtypes), all return cudaError_t.
 # :func:`launch` passes the stream, the last argument, itself.
 SIGNATURES = {
-    # codes, B, L, k, w, hi, lo, valid, R, col0, packed, pitch, stream
+    # codes, B, L, k, w, hi, lo, valid, R, col0, packed, pitch, grid,
+    # warps, tiles, tile_windows (minimize.k1_plan), stream
     "pangea_extract_probes": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                              _I64, _P),
+                              _I64, _I, _I, _I, _I, _P),
     # hi, lo, valid, N, NB, k (0: the std bucket), key shift, counts, order,
     # inv, stream
     "pangea_bucket_sort": (_P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P),

@@ -1,16 +1,25 @@
-"""Time K4's forms, K13's block copy, the scorer (K3, K8) and the q8, std
-and config-4 steps through the port's public entry points, so that one
+"""Time K1, K4's forms, K13's block copy, the scorer (K3, K8) and the q8,
+std and config-4 steps through the port's public entry points, so that one
 file times any checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections block_copy,k4,score,steps]
+        [--sections k1,block_copy,k4,score,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
 A) in one call to compare them on one card. Each run prints one JSON line
 with the sections asked for (all by default):
 
+- ``k1``: K1 (``extract_probes``) and its packed form, one launch a call
+  (one mate's batch), each held to its plain version first, timed by CUDA
+  events (``ms``) and by the profiler's device time a call
+  (``device_ms``): the bench's first mates (16,384 reads of 150 bases,
+  ``bench._bench_reads``) at k=21, w=1 (the std world) and w=8 (the q8
+  headline), both as codes and as wire rows (packed here by ``_pack``, as
+  the native reader packs them), at k=31, w=1 (config 4's q12 index), and
+  a long-read bucket of 75 reads of 16,384 bases (genome slices, seed
+  K1_SEED) at k=21, w=1;
 - ``k4``: K4 (``lookup_std``) on the wide std world of ``chip_smoke.py``
   phase 7 (16,384 pairs x 260 probes, 4,259,840, on the 131,072 x 192
   table, W = 32) and on the k=31 packed world (the same pairs at k=31,
@@ -75,7 +84,13 @@ C4_THRESHOLD = 0.05
 BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
-SECTIONS = ("block_copy", "k4", "score", "steps")
+SECTIONS = ("k1", "block_copy", "k4", "score", "steps")
+# K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
+# the long-read bucket's reads, length and seed.
+K1_CASES = (("w1_std", 21, 1, False), ("w8_headline", 21, 8, False),
+            ("w1_std_packed", 21, 1, True),
+            ("w8_headline_packed", 21, 8, True), ("k31_w1", 31, 1, False))
+K1_BUCKET, K1_LONG, K1_SEED = 75, 16384, 12
 DEEP_READS = 65536
 SPLIT_CALLS = 10_000
 
@@ -185,6 +200,75 @@ def deep_std(torch, dev, cache: Path):
     reads = deep_reads(genomes, DEEP_READS, READ_LEN)
     b = torch.from_numpy(pad_batch(reads.seqs, DEEP_READS, READ_LEN)).to(dev)
     return di, probes(torch, b, None, 21, 1)
+
+
+def _pack(np, codes):
+    """Wire rows (uint32 [B, ceil(L/16) + ceil(L/32)]) of int8 codes
+    [B, L], as the native reader packs them: 2-bit codes, bad flags for
+    codes above 3 and past the read. A copy of ``bench.pack_wire`` without
+    its junk, so that checkouts that lack it can be timed too."""
+    B, L = codes.shape
+    w16, w32 = (L + 15) // 16, (L + 31) // 32
+    c2 = np.zeros((B, w16 * 16), np.uint64)
+    c2[:, :L] = codes.astype(np.uint8) & 3
+    bad = np.ones((B, w32 * 32), np.uint64)
+    bad[:, :L] = codes.astype(np.uint8) > 3
+    words = (c2.reshape(B, w16, 16)
+             << (2 * np.arange(16, dtype=np.uint64))).sum(axis=2)
+    bwords = (bad.reshape(B, w32, 32)
+              << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return np.concatenate([words, bwords], axis=1).astype(np.uint32)
+
+
+def k1_reads():
+    """(int8 codes [BATCH, READ_LEN], [K1_BUCKET, K1_LONG]): the bench's
+    first mates, and genome slices of the bench's genomes (seed
+    K1_SEED)."""
+    import numpy as np
+    from pangea_tpu_torch.bench import _bench_genomes, _bench_reads
+    from pangea_tpu_torch.classify import pad_batch
+    _, genomes = _bench_genomes(48, 50_000, 0, None)
+    mates = pad_batch(_bench_reads(genomes, BATCH, READ_LEN, 0).seqs, BATCH,
+                      READ_LEN)
+    rng = np.random.default_rng(K1_SEED)
+    long = np.empty((K1_BUCKET, K1_LONG), np.int8)
+    for i in range(K1_BUCKET):
+        codes = genomes[rng.integers(0, len(genomes))][0]
+        s = int(rng.integers(0, len(codes) - K1_LONG + 1))
+        long[i] = codes[s:s + K1_LONG]
+    return mates, long
+
+
+def time_k1(torch, dev) -> dict:
+    import numpy as np
+    from pangea_tpu_torch.kernels import (extract_probes,
+                                          extract_probes_plain)
+    from pangea_tpu_torch.kernels.minimize import probe_width
+    mates, long = k1_reads()
+    cases = [(*c, mates) for c in K1_CASES]
+    cases.append((f"bucket_{K1_BUCKET}x{K1_LONG}", 21, 1, False, long))
+    out = {}
+    for name, k, w, packed, codes in cases:
+        B, L = codes.shape
+        src = torch.from_numpy(_pack(np, codes).view(np.int32) if packed
+                               else codes).to(dev)
+        nw = probe_width(L, k, w)
+        res = [(torch.empty((B, nw), dtype=torch.int32, device=dev),
+                torch.empty((B, nw), dtype=torch.int32, device=dev),
+                torch.empty((B, nw), dtype=torch.bool, device=dev))
+               for _ in range(2)]
+        kw = {"packed_len": L} if packed else {}
+        extract_probes_plain(src, k, w, res[0], 0, **kw)
+
+        def run():
+            extract_probes(src, k, w, res[1], 0, **kw)
+        run()
+        mism = sum(int((a != b).sum()) for a, b in zip(*res))
+        if mism:
+            raise AssertionError(f"k1 {name}: {mism} mismatches")
+        out[name] = {"probes": B * nw, "ms": time_ms(torch, run),
+                     "device_ms": device_ms(torch, run)}
+    return out
 
 
 def time_k4(torch, dev, deep: Path | None) -> dict:
@@ -498,6 +582,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     line = {"checkout": str(Path(pangea_tpu_torch.__file__).parent),
             "device": torch.cuda.get_device_name(dev)}
+    if "k1" in sections:
+        line["k1"] = time_k1(torch, dev)
     if "block_copy" in sections:
         line["block_copy"] = time_block_copy(torch, dev)
     if args.split:

@@ -7,9 +7,13 @@ and of the extract/minimize part of ``classify/engine.py``
 (``csrc/extract_probes.cu``) on CUDA tensors and the plain composition of
 :func:`extract_kmers` and :func:`select_minimizers` on CPU tensors. With
 ``packed_len=L`` the input is packed wire rows (B7) and the launch is K1's
-packed form, counted on :func:`extract_probes_packed`.
+packed form, counted on :func:`extract_probes_packed`. :func:`k1_plan`
+sizes K1's launch to the card.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,12 +68,78 @@ def extract_probes_plain(codes, k: int, w: int, out, col0: int,
         dst[:, col0:col0 + NW] = src
 
 
+# K1's launch (kernels.extract_sweep times the choices on an H100: the
+# block size moves nothing; 64 warps an SM before a read is cut beat 32 on
+# a 75 x 16,384-base bucket at w = 8 by about 13 %):
+K1_WARPS = 8             # warps a block (csrc/extract_probes.cu kMaxWarps)
+K1_SM_WARPS = 64         # warps an SM the grid should hold before reads
+#                          are cut into tiles of fewer windows
+
+
+class K1Plan(NamedTuple):
+    """K1's launch: ``grid`` blocks of ``warps`` warps, a warp a (read,
+    tile); a read is ``tiles`` tiles of ``tile_windows`` windows (a
+    multiple of 32, the last tile cut at NW)."""
+    grid: int
+    warps: int
+    tiles: int
+    tile_windows: int
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(B: int, L: int, k: int, w: int, sms: int,
+            warps: int = K1_WARPS, sm_warps: int = K1_SM_WARPS) -> K1Plan:
+    """The launch of K1 for B reads of L bases at (k, w) on a card of
+    ``sms`` SMs, in blocks of ``warps`` warps. A warp walks its tile in
+    rounds of 32 windows; a read is one tile unless the B reads give the
+    card fewer than ``sm_warps`` warps an SM, and then it is cut into as
+    many tiles of whole rounds as make up that many (a long-read bucket:
+    75 reads of 16,384 bases at w = 1 take 103 tiles of 160 windows).
+    Raises where the read has no window or an argument is out of
+    range."""
+    if not 1 <= k <= 31 or w < 1 or B < 0 or sms < 1 or not (
+            1 <= warps <= K1_WARPS) or sm_warps < 1:
+        raise ValueError(f"k={k} outside 1..31, w={w} < 1, B={B}, "
+                         f"sms={sms}, warps={warps} or sm_warps={sm_warps}")
+    NW = probe_width(L, k, w)
+    rounds = -(-NW // 32)
+    tiles = min(rounds, -(-sms * sm_warps // max(B, 1)))
+    tile_windows = 32 * -(-rounds // tiles)
+    tiles = -(-NW // tile_windows)
+    items = B * tiles
+    if items >= 1 << 31 or 32 * (L + 128) >= 1 << 31:
+        raise ValueError(f"{B} reads of {L} bases: past K1's int32 walk")
+    warps = max(1, min(warps, items))
+    return K1Plan(-(-items // warps), warps, tiles, tile_windows)
+
+
+# K1's least 32-bit operations at a position its windows cover: the k-mer
+# and its validity test (five 64-bit operations, the shift out of the
+# stream, its mask, the complement, the pair reversal and the min, and a
+# 64-bit mask test, two 32-bit operations each), and where w > 1 its
+# hash32 (two fmix32 of eight operations and two xors).
+K1_KMER_OPS, K1_HASH_OPS = 12, 18
+
+
+def k1_cost(reads: int, L: int, k: int, w: int,
+            in_bytes: int) -> tuple[int, int]:
+    """(bytes, operations) K1 must move and do for ``reads`` reads of L
+    bases at (k, w), each read's input ``in_bytes`` bytes (L codes, or 4
+    bytes a wire word): the input read once and 9 bytes a probe written
+    once; K1_KMER_OPS (+ K1_HASH_OPS where w > 1) at each of the NW x w
+    positions its windows cover and w - 1 compares a window."""
+    nw = probe_width(L, k, w)
+    per_pos = K1_KMER_OPS + (K1_HASH_OPS if w > 1 else 0)
+    return (reads * (in_bytes + 9 * nw),
+            reads * nw * (w * per_pos + w - 1))
+
+
 def _launch_k1(dev, codes, L: int, pitch: int, packed: bool, k: int,
-               w: int, out, col0: int) -> None:
+               w: int, out, col0: int, plan: K1Plan | None = None) -> None:
     B = codes.shape[0]
     NW = probe_width(L, k, w)
-    if not 1 <= k <= 31 or w < 1:
-        raise ValueError(f"k={k} outside 1..31 or w={w} < 1")
+    if plan is None:
+        plan = k1_plan(B, L, k, w, _build.sm_count(dev.index))
     hi, lo, valid = out
     _build.check(hi, torch.int32, ndim=2, name="hi")
     R = hi.shape[1]
@@ -80,7 +150,7 @@ def _launch_k1(dev, codes, L: int, pitch: int, packed: bool, k: int,
                          f"outputs of shape {tuple(hi.shape)} for {B} reads")
     _build.launch("pangea_extract_probes", dev, codes.data_ptr(), B, L, k,
                   w, hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), R, col0,
-                  int(packed), pitch)
+                  int(packed), pitch, *plan)
 
 
 def extract_probes(codes, k: int, w: int, out, col0: int,

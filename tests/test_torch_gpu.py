@@ -17,8 +17,8 @@ from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
 from pangea_tpu.utils import datagen as ref_datagen
-from pangea_tpu_torch.bench import (chain_taxonomy, make_bench_world,
-                                    score_world)
+from pangea_tpu_torch.bench import (chain_taxonomy, k1_edge_world,
+                                    make_bench_world, score_world)
 from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
@@ -97,6 +97,44 @@ def test_extract_probes_kernel_matches_plain(cuda, k, w, L):
         outs.append([t.cpu() for t in out])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+_K1_EDGE = [(k, w, L) for k in (1, 21, 31) for w in (1, 3, 8, 32)
+            for L in (k, 31 + k, 32 + k, 33 + k, 16384)
+            if (L - k + 1) // w > 0]
+
+
+@pytest.mark.parametrize("k,w,L", _K1_EDGE)
+def test_k1_matches_plain_on_edge_worlds(cuda, k, w, L):
+    """K1, codes and packed form, against its plain version on K1's edge
+    worlds (bench.k1_edge_world: N at positions 31, 32, 63, 64, codes
+    below 0, junk under bad flags and past the read), at col0 > 0, the
+    wire rows a column slice of a wider batch."""
+    from pangea_tpu_torch.kernels import extract_probes_packed
+    B = 40 if L < 16384 else 8
+    codes, rows = k1_edge_world(B, L, seed=L + k + w)
+    NW = (L - k + 1) // w
+    W = wire_width(L)
+    wide = np.full((B, 2 * W + 3), 0x5A5A5A5A, np.uint32)
+    wide[:, W + 2:2 * W + 2] = rows
+    outs = []
+    for fn, dev in ((extract_probes_plain, "cpu"), (extract_probes, cuda),
+                    (extract_probes_packed, cuda)):
+        out = (torch.full((B, NW + 9), 7, dtype=torch.int32, device=dev),
+               torch.full((B, NW + 9), 7, dtype=torch.int32, device=dev),
+               torch.zeros((B, NW + 9), dtype=torch.bool, device=dev))
+        if fn is extract_probes_packed:
+            part = torch.from_numpy(wide.view(np.int32)).to(dev)[
+                :, W + 2:2 * W + 2]
+            reset_kernel_launches()
+            fn(part, L, k, w, out, 4)
+            assert kernel_launches()["extract_packed"] == 1
+        else:
+            fn(torch.from_numpy(codes).to(dev), k, w, out, 4)
+        torch.cuda.synchronize()
+        outs.append([t.cpu() for t in out])
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def _probes(world):

@@ -208,10 +208,15 @@ def _std_inputs():
 
 def _call_sites():
     """name -> (a wrapper call on CPU tensors, the launchers it reaches)."""
-    from pangea_tpu_torch.kernels import (block_copy, lookup_std,
+    from pangea_tpu_torch.kernels import (block_copy, extract_probes,
+                                          extract_probes_packed, lookup_std,
                                           lookup_std_owned, lookup_std_sorted,
                                           row_gather)
     x = torch.zeros((16, 128), dtype=torch.float32)
+    out = (torch.zeros((3, 300), dtype=torch.int32),
+           torch.zeros((3, 300), dtype=torch.int32),
+           torch.zeros((3, 300), dtype=torch.bool))
+    rows = torch.zeros((3, 40), dtype=torch.int32)
     idx = torch.tensor([0, 5, -1], dtype=torch.int32)
     start = torch.tensor([4], dtype=torch.int32)
     return {
@@ -224,6 +229,13 @@ def _call_sites():
             lambda: lookup_std_sorted(*_std_inputs(), 32),
             ["pangea_bucket_sort", "pangea_lookup_std",
              "pangea_bucket_restore"]),
+        "extract_probes": (
+            lambda: extract_probes(torch.zeros((3, 150), dtype=torch.int8),
+                                   21, 1, out, 130),
+            ["pangea_extract_probes"]),
+        "extract_packed": (
+            lambda: extract_probes_packed(rows[:, 5:20], 150, 21, 8, out, 7),
+            ["pangea_extract_probes"]),
         "block_copy": (lambda: block_copy(x, start, 8),
                        ["pangea_block_copy"]),
         "row_gather": (lambda: row_gather(x, idx, depth=4, chunk=8),
@@ -271,3 +283,27 @@ def test_k4_launch_passes_std_plan(fake, monkeypatch):
     lookup_std(hi, lo, valid, shifted, stash, 32)
     assert lib.calls[-1][1][-7:-1] == (plan.grid, plan.warps, plan.batch,
                                        0, plan.l2, plan.smem)
+
+
+def test_k1_launch_passes_k1_plan(fake, monkeypatch):
+    """K1's tail arguments are k1_plan's; the packed form passes its rows'
+    pitch in words, the codes form its row length."""
+    from pangea_tpu_torch.kernels import extract_probes, extract_probes_packed
+    from pangea_tpu_torch.kernels.minimize import k1_plan
+    lib, _ = fake
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(_build, "dispatch_device", lambda *t: cpu)
+    monkeypatch.setattr(_build, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: None,
+                        raising=False)
+    out = tuple(torch.zeros((75, 16364), dtype=dt)
+                for dt in (torch.int32, torch.int32, torch.bool))
+    extract_probes(torch.zeros((75, 16384), dtype=torch.int8), 21, 1, out, 0)
+    args = lib.calls[-1][1]
+    assert args[11] == 16384
+    assert args[12:16] == tuple(k1_plan(75, 16384, 21, 1, SMS))
+    rows = torch.zeros((75, 2 * 1536 + 3), dtype=torch.int32)
+    extract_probes_packed(rows[:, 1536:], 16384, 21, 8, out, 3)
+    args = lib.calls[-1][1]
+    assert args[10:12] == (1, 2 * 1536 + 3)
+    assert args[12:16] == tuple(k1_plan(75, 16384, 21, 8, SMS))
