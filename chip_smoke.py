@@ -34,7 +34,13 @@ general path:
      8, 32}, reads of k, 31 + k, 32 + k, 33 + k and 16,384 bases, N and bad
      flags at positions 31, 32, 63 and 64, codes below 0, col0 > 0, the wire
      rows a column slice of a wider batch), K2 on a table with a forced
-     stash and K3 at two thresholds, on the lookups and on scorer worlds
+     stash, on K2's q8 edge tables (bench.k2_edge_world: r = 0 and 22-25,
+     a repeated key in a row, W = 4 with a forced stash, a 3,000-column
+     stash past the shared-memory cap; every probe, N = 0, 1, 33 and past
+     three steps of the persistent grid) and on the headline's probes at
+     every plan kernels.lookup_sweep sweeps, timed with its plan
+     (kernels.lookup.quot_plan) in its `variants` map, and K3 at two
+     thresholds, on the lookups and on scorer worlds
      of chosen U (bench.score_world: U = 1, 8 and R, nested along a
      lineage and from unrelated taxa), each world's mean and largest U and
      its reads that took the general branch logged; mismatches and times;
@@ -66,9 +72,13 @@ general path:
  11. K2's q12 form and K7 against their plain versions, bit for bit: K2-q12
      on the 67.1 MB table with 16384 pairs x 240 probes, on a table with a
      forced stash, on absent 62-bit keys and on a forced-q12 table at k=21
-     (remainder below 32 bits); K7 on the full-width calls at thresholds 0
-     and 0.05, on the int32 extreme cases, on conflicting pairs of the
-     66,563-taxon tree and of the 5,000-node chain;
+     (remainder below 32 bits), on K2's q12 edge tables (r = 0, 20, 32, 54
+     and 62, slots sharing a rem_lo, W = 4 with a forced stash, a
+     3,000-column stash; the sizes of phase 3) and on the full-width
+     probes at every swept plan, timed with its plan; K7 on the
+     full-width calls at thresholds 0 and 0.05, on the int32 extreme
+     cases, on conflicting pairs of the 66,563-taxon tree and of the
+     5,000-node chain;
  12. the multi-k step at full width: launch counts (K1 four times, K2 and
      its q12 form, K3 twice, K7), the outputs against the plain path and
      the planted truth, step times;
@@ -105,7 +115,10 @@ general path:
      reads, the std form with the 8,519,680 probes of 65,536 reads (and the
      unsorted K2, K2-q12 and K4 on the same probes, timed in the same
      call), K4's sorted form on the wide std world's table; K2-q12's sorted
-     form also on config 4's k=31 table (phase 11); the unsorted and sorted
+     form also on config 4's k=31 table (phase 11); both forms of K2 on the
+     deep probes at every swept plan, and the sorted forms on K2's edge
+     tables at the sizes of phase 3; each sorted form timed with its plan;
+     the unsorted and sorted
      K4 on the deep std table and the sorted K4 on the wide one logged with
      their plans, bounds and ratios in the kernels' `variants` maps;
  21. the deep steps through the Classifier: q8 and q12 on 16,384 reads, std
@@ -605,8 +618,9 @@ def table_bytes(di) -> int:
 def touched_bytes(torch, bucket, valid, hit, hi, lo, key_lanes: int,
                   payload_lanes: int, stash) -> int:
     """Bytes of a hash table that these probes need: the key lanes of every
-    bucket a valid probe reaches, the payload lanes of every distinct key
-    that hits, and the whole stash (every valid probe scans it)."""
+    bucket a valid probe reaches, the lanes past them that every distinct
+    key that hits reads (its payload; q12's rem_hi too), and the whole
+    stash (every valid probe scans it)."""
     rows = torch.unique(bucket[valid]).numel()
     keys = (hi[hit].long() << 32) | (lo[hit].long() & 0xFFFFFFFF)
     return 4 * (rows * key_lanes + torch.unique(keys).numel() * payload_lanes
@@ -726,6 +740,88 @@ def check_u_worlds(torch, res: Results, name: str, tag: str, B: int,
                             3 * (B - 1) if distinct > score_cap(R) else 0)
 
 
+def k2_plan(n: int, fused, stash, q12: bool,
+            sorted_form: bool = False) -> dict:
+    """K2's launch plan (kernels.lookup.quot_plan) for n probes of a q8 or
+    q12 table, as its wrapper takes it."""
+    from pangea_tpu_torch.index.quot import Q12_WAYS
+    from pangea_tpu_torch.kernels import _build
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    ways = Q12_WAYS if q12 else fused.shape[1] // 2
+    return quot_plan(n, ways, stash.shape[1], q12, sorted_form,
+                     _build.sm_count(fused.device.index))._asdict()
+
+
+def check_k2_edges(torch, cuda, res: Results, q12: bool, sorted_form: bool,
+                   tag: str) -> None:
+    """K2's q8 or q12 form, unsorted or sorted, against its plain version
+    on each of K2's edge tables of that form (bench.k2_edge_world: q12 at
+    r = 0, 20, 32, 54 and 62, q8 at r = 0 and 22-25, rows with a shared
+    rem_lo and a repeated key, W = 4 with a forced stash, 3,000-column
+    stashes past the shared-memory cap): every probe, N = 0, 1, 33 and
+    past three steps of the persistent grid, not a multiple of 32."""
+    from pangea_tpu_torch.bench import K2_EDGE, k2_edge_world
+    from pangea_tpu_torch.kernels import (_build, lookup_q8, lookup_q8_plain,
+                                          lookup_q8_sorted, lookup_q12,
+                                          lookup_q12_plain, lookup_q12_sorted)
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    fn = {(False, False): lookup_q8, (False, True): lookup_q8_sorted,
+          (True, False): lookup_q12, (True, True): lookup_q12_sorted}[
+              q12, sorted_form]
+    plain = lookup_q12_plain if q12 else lookup_q8_plain
+    name = fn.__name__
+    full = quot_plan(1 << 30, 42, 0, True, False, _build.sm_count(cuda.index))
+    steps = 3 * full.grid * full.warps * 32 + 17
+    worlds = 0
+    for world, spec in K2_EDGE.items():
+        if spec[0] != q12:
+            continue
+        worlds += 1
+        w = k2_edge_world(world)
+        probes = [torch.from_numpy(w[key] if key == "valid"
+                                   else w[key].view("int32")).to(cuda)
+                  for key in ("hi", "lo", "valid")]
+        tab = [torch.from_numpy(w[key].view("int32")).to(cuda)
+               for key in ("fused", "stash")]
+        extra = (w["k"], w["ways"]) if q12 else (w["k"],)
+        want, got = [], []
+        for n in (probes[0].numel(), 0, 1, 33, steps):
+            reps = -(-n // probes[0].numel()) if n else 0
+            flat = [t.repeat(reps)[:n] for t in probes]
+            want += plain(*flat, *tab, *extra)
+            got += fn(*flat, *tab, *extra)
+        res.check(name, f"{tag} K2 edge {world}, N = {probes[0].numel()}, "
+                  f"0, 1, 33, {steps}", want, got)
+    log(f"[{tag}] {name} on {worlds} K2 edge tables")
+
+
+def check_k2_plans(torch, res: Results, name: str, tag: str, flat, fused,
+                   stash, k: int, q12: bool, order=None, want=None) -> None:
+    """K2 (the sorted form given K9's ``order``) at every plan
+    kernels.lookup_sweep sweeps (batch, warps, blocks an SM, L2 mode)
+    against the plain version on the same probes."""
+    from pangea_tpu_torch.index.quot import Q12_WAYS
+    from pangea_tpu_torch.kernels import (_build, lookup_q8_plain,
+                                          lookup_q12_plain)
+    from pangea_tpu_torch.kernels.lookup import _q8_kernel, _q12_kernel
+    from pangea_tpu_torch.kernels.lookup_sweep import quot_plans
+    ways = Q12_WAYS if q12 else fused.shape[1] // 2
+    if want is None:
+        want = (lookup_q12_plain(*flat, fused, stash, k, ways) if q12 else
+                lookup_q8_plain(*flat, fused, stash, k))
+    plans = [p for _, p in quot_plans(flat[0].numel(), ways, stash.shape[1],
+                                      q12, _build.sm_count(
+                                          fused.device.index))]
+    got = []
+    for plan in plans:
+        got += (_q12_kernel(fused.device, *flat, fused, stash, k, ways,
+                            order, plan=plan) if q12 else
+                _q8_kernel(fused.device, *flat, fused, stash, k, order,
+                           plan=plan))
+    res.check(name, f"{tag} {len(plans)} swept plans", list(want) *
+              len(plans), got)
+
+
 def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import relayout_q8
     from pangea_tpu_torch.kernels import (extract_probes_plain, fuse_stash,
@@ -775,6 +871,9 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
         f"{s4.shape[1]}, {stash_hits} stash keys hit")
     if stash_hits != s4.shape[1]:
         raise AssertionError("a stash key missed its own stash")
+    check_k2_edges(torch, cuda, res, False, False, "3")
+    check_k2_plans(torch, res, "lookup_q8", "3 headline", (hi, lo, valid),
+                   fused, stash, k, False, want=want)
     N = hi.numel()
     log2nb, W = _q8_geometry(fused, k)
     bucket, _ = _q8_split(widen(hi), widen(lo), k, log2nb)
@@ -784,7 +883,9 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     res.time(torch, "lookup_q8", "3",
              lambda: lookup_q8(hi, lo, valid, fused, stash, k),
              lambda: lookup_q8_plain(hi, lo, valid, fused, stash, k),
-             nbytes=N * 21 + need, ops=N * (2 * W + 10))
+             nbytes=N * 21 + need, ops=N * (2 * W + 10),
+             variant="headline", plan=k2_plan(N, fused, stash, False))
+    log_bound(res, "lookup_q8", "headline", "3")
 
     hit, t_in, t_out = (t.reshape(BATCH, R) for t in want)
     valid2 = valid.reshape(BATCH, R)
@@ -1243,6 +1344,9 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
                         (*h21, f21, s21), k21, W)
     log(f"[11] lookup_q12 at k={k21}: {tuple(f21.shape)}, r={r21}, "
         f"{h21[0].numel()} probes, hits {int((want21[0] != 0).sum())}")
+    check_k2_edges(torch, cuda, res, True, False, "11")
+    check_k2_plans(torch, res, "lookup_q12", "11 full width", flat, fused,
+                   stash, k31, True, want=want)
     # K9 and K2-q12's sorted form on the same probes (r >= 32), called
     # directly: the table has 131,072 rows, at the deep-table gate.
     res.check("lookup_q12_sorted", "11 full width (r >= 32)", want,
@@ -1250,15 +1354,17 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
     log2nb = _q12_geometry(fused, k31, W)
     bucket, _ = _q8_split(widen(flat[0]), widen(flat[1]), k31, log2nb)
     need = touched_bytes(torch, bucket, flat[2], want[0] != 0, flat[0],
-                         flat[1], 2 * W, 1, stash)
+                         flat[1], W, 2, stash)
     log(f"[11] lookup_q12 touches {need} B of its {table_bytes(di31)} B "
-        "table (rem_lo and rem_hi lanes of the rows reached; the payload "
-        "lane of the keys hit)")
+        "table (rem_lo lanes of the rows reached; the rem_hi and payload "
+        "lanes of the keys hit)")
     res.time(torch, "lookup_q12", "11",
              lambda: lookup_q12(*flat, fused, stash, k31, W),
              lambda: lookup_q12_plain(*flat, fused, stash, k31, W),
              nbytes=N * 21 + need, ops=N * (3 * W + 10),
-             plain_calls=1, plain_reps=PLAIN_REPS)
+             plain_calls=1, plain_reps=PLAIN_REPS, variant="c4_full_width",
+             plan=k2_plan(N, fused, stash, True))
+    log_bound(res, "lookup_q12", "c4_full_width", "11")
 
     # K7 on the full-width calls of both indexes, at two thresholds.
     b1, b2 = world["b1"], world["b2"]
@@ -1699,6 +1805,11 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
         name = f"lookup_{layout}_sorted"
         res.check(name, what, want, srt(*flat, *tab))
         res.check(f"lookup_{layout}", what, want, unsorted(*flat, *tab))
+        if layout != "std":
+            for o, n in ((None, f"lookup_{layout}"), (order, name)):
+                check_k2_plans(torch, res, n, what, flat, di.fused,
+                               di.stash, k, layout == "q12", order=o,
+                               want=want)
         hit = want[0] != 0
         if layout == "std":
             W = args[0]
@@ -1711,8 +1822,8 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
             bucket, _ = _q8_split(widen(flat[0]), widen(flat[1]), k,
                                   nb.bit_length() - 1)
             need = touched_bytes(torch, bucket, flat[2], hit, flat[0],
-                                 flat[1], (2 if layout == "q12" else 1) * W,
-                                 1, di.stash)
+                                 flat[1], W, 2 if layout == "q12" else 1,
+                                 di.stash)
             ops = N * ((3 if layout == "q12" else 2) * W + 10)
         rows = int(torch.unique(bucket[flat[2]]).numel())
         log(f"[20] deep {layout}: {N} probes on {tuple(di.fused.shape)} "
@@ -1723,10 +1834,10 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
                  lambda: srt(*flat, *tab, order=order),
                  lambda: srt_plain(*flat, *tab, order=order_plain),
                  nbytes=N * 32 + need, ops=ops, plain_calls=1,
-                 plain_reps=PLAIN_REPS, variant="deep_std" if k4 else None,
-                 plan=k4_plan(N, di, True) if k4 else None)
-        if k4:
-            log_bound(res, name, "deep_std", "20")
+                 plain_reps=PLAIN_REPS, variant=f"deep_{layout}",
+                 plan=k4_plan(N, di, True) if k4 else k2_plan(
+                     N, di.fused, di.stash, layout == "q12", True))
+        log_bound(res, name, f"deep_{layout}", "20")
         sort_args = (*flat, nb, qk)
         if layout == "q8":
             # K9's restore alone on the deep q8 probes' records (a
@@ -1768,6 +1879,9 @@ def phase_deep_kernels(torch, deep, wide, res: Results, card: str) -> None:
             f"{unsorted_ms} ms; K9 {k9_ms} ms + sorted form "
             f"{res.k[name]['ms']} ms; K9 and the sorted form in one call "
             f"{both_ms} ms ({unsorted_ms / both_ms} x the unsorted speed)")
+
+    for q12 in (False, True):
+        check_k2_edges(torch, wide["di"].fused.device, res, q12, True, "20")
 
     # K4's sorted form on the wide std world's table (wide rows): the
     # phase-7 probes, 16384 pairs x 260.

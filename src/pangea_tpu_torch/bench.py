@@ -35,6 +35,12 @@ worlds of any U.
 block edges (positions 31, 32, 63, 64), codes below 0, and the same reads
 as wire rows (``pack_wire``) whose bad bases and tails carry junk.
 
+``k2_edge_world`` makes K2's edge tables, q8 and q12, laid out by hand
+at chosen remainder widths (q12 at r = 0, 20, 32, 54 and 62, q8 at r = 0
+and 22-25), with rows where several slots share a rem_lo or a whole key,
+forced stashes (W = 4) and stashes past the kernel's shared-memory cap,
+and the probes that reach them: every key, near misses and absent keys.
+
 ``make_deep_world`` is the reference bench's deep cell
 (``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
 genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
@@ -49,6 +55,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .index import Index, build_index
+from .index.container import EMPTY_HI
+from .index.quot import Q8_A, Q8_WAYS, Q12_WAYS
 from .taxonomy import Taxonomy
 from .utils import datagen
 
@@ -298,6 +306,101 @@ def k1_edge_world(B: int, L: int, seed: int = 0):
     codes[min(6, B - 1), [0, L // 2]] = -1
     codes[min(7, B - 1), L - 1] = -128
     return codes, pack_wire(codes, junk_seed=seed + 1)
+
+
+# K2's edge tables: name -> (q12, k, log2 NB, ways, keys, stash columns
+# added past the overflow). r = 2k - log2 NB.
+K2_EDGE = {
+    "q12_r0": (True, 5, 10, Q12_WAYS, 300, 0),
+    "q12_r20": (True, 13, 6, Q12_WAYS, 1500, 0),
+    "q12_r32": (True, 17, 2, Q12_WAYS, 120, 0),
+    "q12_r54": (True, 31, 8, Q12_WAYS, 5000, 0),
+    "q12_r62": (True, 31, 0, Q12_WAYS, 40, 0),
+    "q12_w4_stash": (True, 21, 6, 4, 400, 0),
+    "q12_stash_3000": (True, 31, 6, Q12_WAYS, 1500, 3000),
+    "q8_r0": (False, 5, 10, Q8_WAYS, 300, 0),
+    "q8_r22": (False, 15, 8, Q8_WAYS, 6000, 0),
+    "q8_w4_stash": (False, 15, 5, 4, 300, 0),
+    "q8_stash_3000": (False, 15, 6, Q8_WAYS, 2000, 3000),
+}
+NEAR_ROWS = 40            # rows given a shared rem_lo and a repeated key
+
+
+def k2_edge_world(name: str, seed: int = 0) -> dict:
+    """K2's edge table ``name`` of K2_EDGE, all uint32 arrays but valid:
+    ``hi``, ``lo`` and ``valid`` (bool) of the probes, ``fused`` [NB, 2W]
+    (q8) or [NB, 3W padded to a power of two] (q12) and ``stash`` [5, S],
+    with ``k``, ``ways`` and ``q12``.
+
+    The keys are placed in their buckets' slots in order, the overflow
+    going to the stash; empty slots hold the layouts' sentinels (q8 rem
+    EMPTY_HI; q12 rem_lo 0, rem_hi EMPTY_HI). In NEAR_ROWS rows with free
+    slots, one free slot repeats slot 0's whole key with another payload
+    (two slots match: the payload sum wraps) and, q12, another repeats its
+    rem_lo with another rem_hi. Payloads and the stash's rows 2-4 are
+    random 32-bit words. The extra stash columns are half keys of the
+    rows, half fresh keys. The probes are every key, the fresh stash keys,
+    a near miss of each of the first 2,000 keys (the mix's bit 32 flipped
+    where r > 32, else bit 0) and 500 random keys, shuffled, 9 in 10
+    valid."""
+    q12, k, log2nb, ways, n_keys, extra = K2_EDGE[name]
+    rng = np.random.default_rng(seed + sum(map(ord, name)))
+    m, nb = 2 * k, 1 << log2nb
+    r = m - log2nb
+    mask = np.uint64((1 << m) - 1)
+    inv = np.uint64(pow(int(Q8_A), -1, 1 << m))
+
+    def unmix(h):
+        return (h * inv) & mask
+
+    keys = rng.choice(1 << m, n_keys, replace=False).astype(np.uint64)
+    h = (keys * Q8_A) & mask
+    bucket = (h >> np.uint64(r)).astype(np.int64)
+    rem = h & np.uint64((1 << r) - 1)
+    order = np.argsort(bucket, kind="stable")
+    b = bucket[order]
+    rank = np.arange(n_keys) - np.searchsorted(b, b)
+    placed = rank < ways
+    lanes = 1 << (3 * ways - 1).bit_length() if q12 else 2 * ways
+    fused = np.zeros((nb, lanes), np.uint32)
+    if q12:
+        fused[:, ways:2 * ways] = EMPTY_HI
+    else:
+        fused[:, :ways] = EMPTY_HI
+    pay = (2 if q12 else 1) * ways
+    rows, slots = b[placed], rank[placed]
+    prem = rem[order][placed]
+    fused[rows, slots] = (prem & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    if q12:
+        fused[rows, ways + slots] = (prem >> np.uint64(32)).astype(np.uint32)
+    fused[rows, pay + slots] = rng.integers(0, 1 << 32, rows.size,
+                                            dtype=np.uint64)
+    count = np.bincount(rows, minlength=nb)
+    for row in np.flatnonzero((count > 0) & (count <= ways - 2))[:NEAR_ROWS]:
+        free = count[row]
+        fused[row, free] = fused[row, 0]
+        if q12:
+            fused[row, ways + free] = fused[row, ways]
+            fused[row, free + 1] = fused[row, 0]
+            fused[row, ways + free + 1] = fused[row, ways] ^ np.uint32(1)
+        fused[row, pay + free] = rng.integers(0, 1 << 32, dtype=np.uint64)
+    over = keys[order][~placed]
+    take = rng.choice(n_keys, extra // 2, replace=False)
+    fresh = rng.choice(1 << m, extra - take.size).astype(np.uint64)
+    skeys = np.concatenate([over, keys[take], fresh])
+    stash = np.concatenate([
+        (skeys >> np.uint64(32)).astype(np.uint32)[None],
+        (skeys & np.uint64(0xFFFFFFFF)).astype(np.uint32)[None],
+        rng.integers(0, 1 << 32, (3, skeys.size), dtype=np.uint64)
+        .astype(np.uint32)])
+    flip = np.uint64(1 << 32) if r > 32 else np.uint64(1)
+    probes = rng.permutation(np.concatenate([
+        keys, fresh, unmix(h[:2000] ^ flip),
+        rng.integers(0, 1 << m, 500, dtype=np.uint64)]))
+    return {"hi": (probes >> np.uint64(32)).astype(np.uint32),
+            "lo": (probes & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            "valid": rng.random(probes.size) < 0.9, "fused": fused,
+            "stash": stash, "k": k, "ways": ways, "q12": q12}
 
 
 def distinct_intervals(lanes, t_in, t_out) -> np.ndarray:

@@ -62,11 +62,10 @@ inline int log2_exact(long long NB) {
   return (1ll << log2nb) == NB ? log2nb : -1;
 }
 
-// The table probes (K2, K4): a group of kProbeLanes lanes owns one probe, so
-// a warp serves 32 / kProbeLanes probes at once, and the group's partial
-// sums reduce in log2(kProbeLanes) shuffles.
+// The row probes (K2, K4, K12): a group of kProbeLanes lanes reads one row
+// together, and the group's partial sums reduce in log2(kProbeLanes)
+// shuffles.
 constexpr int kProbeLanes = 8;
-constexpr int kProbesPerBlock = 32;   // 8 warps of 4 probes
 
 __device__ __forceinline__ uint32_t group_sum(uint32_t v) {
   for (int off = kProbeLanes / 2; off > 0; off >>= 1) {
@@ -81,6 +80,139 @@ struct __align__(16) SortedProbe {
   int32_t index;
   uint32_t hi, lo, valid;
 };
+
+// ---------------------------------------------------------------------------
+// The table lookups, K2 (lookup_q8.cu) and K4 (lookup_std.cu): a persistent
+// grid of blocks of at most kLookupWarps warps, kLookupBlocks of them an SM
+// (the launch bounds hold a thread to 64 registers), a lane a probe; the
+// stash [kStashRows, S] staged in shared memory up to kStashSmemMax bytes;
+// kNoRow the row of a probe that reads none.
+constexpr int kLookupWarps = 8;
+constexpr int kLookupBlocks = 4;
+constexpr int kStashRows = 5;
+constexpr int kStashSmemMax = 48 * 1024;
+constexpr uint32_t kNoRow = 0xFFFFFFFFu;
+
+enum L2Priority { kNormal, kLast, kFirst };
+
+__device__ __forceinline__ uint64_t l2_policy(int priority) {
+  uint64_t p;
+  if (priority == kLast) {
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  } else if (priority == kFirst) {
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  } else {
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
+  }
+  return p;
+}
+
+// The L2 policies of the key lanes, the payload lanes and the streams (the
+// probes' inputs and the outputs) by mode: 0 all evict-normal; 1 keys
+// evict-last, the rest evict-first; 2 keys evict-last, payload
+// evict-normal, streams evict-first.
+struct Policies {
+  uint64_t keys, payload, streams;
+
+  __device__ explicit Policies(int mode)
+      : keys(l2_policy(mode == 0 ? kNormal : kLast)),
+        payload(l2_policy(mode == 1 ? kFirst : kNormal)),
+        streams(l2_policy(mode == 0 ? kNormal : kFirst)) {}
+};
+
+__device__ __forceinline__ uint32_t ld(const uint32_t* p, uint64_t pol) {
+  uint32_t v;
+  asm volatile("ld.global.L2::cache_hint.u32 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_u8(const uint8_t* p, uint64_t pol) {
+  uint32_t v;
+  asm volatile("ld.global.L2::cache_hint.u8 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// K = 2 or 4 consecutive words from an address aligned to 4K bytes.
+template <int K>
+__device__ __forceinline__ void ld_vec(const uint32_t* p, uint64_t pol,
+                                       uint32_t (&v)[K]) {
+  static_assert(K == 2 || K == 4, "2 or 4 words a load");
+  if constexpr (K == 4) {
+    asm volatile(
+        "ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+        : "l"(p), "l"(pol));
+  } else {
+    asm volatile("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+                 : "=r"(v[0]), "=r"(v[1]) : "l"(p), "l"(pol));
+  }
+}
+
+__device__ __forceinline__ void st(int32_t* p, uint32_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u32 [%0], %1, %2;"
+               :: "l"(p), "r"(v), "l"(pol) : "memory");
+}
+
+__device__ __forceinline__ void st_v4(int4* p, uint32_t a, uint32_t b,
+                                      uint32_t c, uint64_t pol) {
+  asm volatile(
+      "st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
+      :: "l"(p), "r"(a), "r"(b), "r"(c), "r"(0u), "l"(pol) : "memory");
+}
+
+// A lane's probe: its lanes and valid flag, from hi/lo/valid or, sorted,
+// from K9's record w; invalid past N.
+struct TableProbe {
+  uint32_t hi, lo;
+  bool ok;
+};
+
+template <bool kSorted>
+__device__ __forceinline__ TableProbe load_probe(
+    const uint32_t* hi, const uint32_t* lo, const uint8_t* valid,
+    const SortedProbe* order, long long N, long long w, uint64_t pol) {
+  TableProbe p{0u, 0u, false};
+  if (w < N) {
+    if (kSorted) {
+      uint32_t r[4];
+      ld_vec<4>(reinterpret_cast<const uint32_t*>(order + w), pol, r);
+      p.hi = r[1];
+      p.lo = r[2];
+      p.ok = r[3] != 0;
+    } else {
+      p.hi = ld(hi + w, pol);
+      p.lo = ld(lo + w, pol);
+      p.ok = ld_u8(valid + w, pol) != 0;
+    }
+  }
+  return p;
+}
+
+// Reduce-scatter over a group of 8 lanes: lane g of the group gets the sum
+// over the group's lanes of v[g] (7 shuffles for 8 probes, where a sum a
+// probe takes 3).
+__device__ __forceinline__ uint32_t reduce_scatter(const uint32_t (&v)[8],
+                                                   int g) {
+  uint32_t h[4], q[2];
+  const bool b4 = g & 4, b2 = g & 2, b1 = g & 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t keep = b4 ? v[4 + i] : v[i];
+    const uint32_t send = b4 ? v[i] : v[4 + i];
+    h[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t keep = b2 ? h[2 + i] : h[i];
+    const uint32_t send = b2 ? h[i] : h[2 + i];
+    q[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 2);
+  }
+  const uint32_t keep = b1 ? q[1] : q[0];
+  const uint32_t send = b1 ? q[0] : q[1];
+  return keep + __shfl_xor_sync(0xFFFFFFFFu, send, 1);
+}
 
 // Row of a table of NB rows that index i names, as NumPy-style indexing
 // under XLA takes it: below 0 it counts from the end, then it is clamped

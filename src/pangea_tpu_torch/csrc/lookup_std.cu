@@ -63,12 +63,6 @@
 
 namespace {
 
-constexpr int kMaxWarps = 8;            // warps a block at most
-constexpr int kMinBlocks = 4;           // blocks of kMaxWarps an SM holds
-constexpr int kStashRows = 5;
-constexpr int kStashSmemMax = 48 * 1024;
-constexpr uint32_t kNoRow = 0xFFFFFFFFu;  // the bucket of a dropped probe
-
 struct StdArgs {
   const uint32_t* hi;
   const uint32_t* lo;
@@ -90,104 +84,10 @@ struct StdArgs {
   int32_t* t_out;
 };
 
-struct Probe {
-  uint32_t hi, lo;
-  bool ok;
-};
-
-enum Priority { kNormal, kLast, kFirst };
-
-__device__ __forceinline__ uint64_t policy(int priority) {
-  uint64_t p;
-  if (priority == kLast) {
-    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
-  } else if (priority == kFirst) {
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  } else {
-    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
-  }
-  return p;
-}
-
-// The L2 policies of the key lanes, the payload lanes and the streams (the
-// probes' inputs and the outputs) by mode: 0 all evict-normal; 1 keys
-// evict-last, the rest evict-first; 2 keys evict-last, payload
-// evict-normal, streams evict-first.
-struct Policies {
-  uint64_t keys, payload, streams;
-
-  __device__ explicit Policies(int mode)
-      : keys(policy(mode == 0 ? kNormal : kLast)),
-        payload(policy(mode == 1 ? kFirst : kNormal)),
-        streams(policy(mode == 0 ? kNormal : kFirst)) {}
-};
-
-__device__ __forceinline__ uint32_t ld(const uint32_t* p, uint64_t pol) {
-  uint32_t v;
-  asm volatile("ld.global.L2::cache_hint.u32 %0, [%1], %2;"
-               : "=r"(v) : "l"(p), "l"(pol));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ld_u8(const uint8_t* p, uint64_t pol) {
-  uint32_t v;
-  asm volatile("ld.global.L2::cache_hint.u8 %0, [%1], %2;"
-               : "=r"(v) : "l"(p), "l"(pol));
-  return v;
-}
-
-// K = 2 or 4 consecutive words from an address aligned to 4K bytes.
-template <int K>
-__device__ __forceinline__ void ld_vec(const uint32_t* p, uint64_t pol,
-                                       uint32_t (&v)[K]) {
-  static_assert(K == 2 || K == 4, "K4 reads 2 or 4 key lanes a load");
-  if constexpr (K == 4) {
-    asm volatile(
-        "ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-        : "l"(p), "l"(pol));
-  } else {
-    asm volatile("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
-                 : "=r"(v[0]), "=r"(v[1]) : "l"(p), "l"(pol));
-  }
-}
-
-__device__ __forceinline__ void st(int32_t* p, uint32_t v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.u32 [%0], %1, %2;"
-               :: "l"(p), "r"(v), "l"(pol) : "memory");
-}
-
-__device__ __forceinline__ void st_v4(int4* p, uint32_t a, uint32_t b,
-                                      uint32_t c, uint64_t pol) {
-  asm volatile(
-      "st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
-      :: "l"(p), "r"(a), "r"(b), "r"(c), "r"(0u), "l"(pol) : "memory");
-}
-
-template <bool kSorted>
-__device__ __forceinline__ Probe load_probe(const StdArgs& a, long long w,
-                                            uint64_t pol) {
-  Probe p{0u, 0u, false};
-  if (w < a.N) {
-    if (kSorted) {
-      uint32_t r[4];
-      ld_vec<4>(reinterpret_cast<const uint32_t*>(a.order + w), pol, r);
-      p.hi = r[1];
-      p.lo = r[2];
-      p.ok = r[3] != 0;
-    } else {
-      p.hi = ld(a.hi + w, pol);
-      p.lo = ld(a.lo + w, pol);
-      p.ok = ld_u8(a.valid + w, pol) != 0;
-    }
-  }
-  return p;
-}
-
 // The probe's bucket, or kNoRow for an invalid probe or one the owner mask
 // drops.
 __device__ __forceinline__ uint32_t bucket_of(const StdArgs& a,
-                                              const Probe& p) {
+                                              const TableProbe& p) {
   const uint32_t h = hash32(p.hi, p.lo);
   const bool mine = a.owner_shift == 0 || (h >> a.owner_shift) == a.shard_id;
   return p.ok && mine ? h & a.nb_mask : kNoRow;
@@ -204,30 +104,6 @@ __device__ __forceinline__ void add_payload(const uint32_t* row, int W,
   if (!kPacked) y += ld(row + 4 * W + j, pol);
 }
 
-// Reduce-scatter over a group of 8 lanes: lane g of the group gets the sum
-// over the group's lanes of v[g] (7 shuffles for 8 probes, where a sum a
-// probe takes 3).
-__device__ __forceinline__ uint32_t reduce_scatter(const uint32_t (&v)[8],
-                                                   int g) {
-  uint32_t h[4], q[2];
-  const bool b4 = g & 4, b2 = g & 2, b1 = g & 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t keep = b4 ? v[4 + i] : v[i];
-    const uint32_t send = b4 ? v[i] : v[4 + i];
-    h[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 4);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint32_t keep = b2 ? h[2 + i] : h[i];
-    const uint32_t send = b2 ? h[i] : h[2 + i];
-    q[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, 2);
-  }
-  const uint32_t keep = b1 ? q[1] : q[0];
-  const uint32_t send = b1 ? q[0] : q[1];
-  return keep + __shfl_xor_sync(0xFFFFFFFFu, send, 1);
-}
-
 // Each lane owns one probe of the warp's 32 consecutive probes a step: it
 // loads the probe's inputs (one coalesced load a warp), hashes it, scans
 // the stash for it and writes its outputs (one coalesced store a warp).
@@ -241,7 +117,7 @@ __device__ __forceinline__ uint32_t reduce_scatter(const uint32_t (&v)[8],
 // current step is probed. The launch bounds hold a thread to 64 registers,
 // so that the plan's 4 blocks of 8 warps fit an SM.
 template <int kW, bool kPacked, bool kSorted, int kR>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+__global__ void __launch_bounds__(kLookupWarps * 32, kLookupBlocks)
     lookup_std_kernel(const StdArgs a) {
   extern __shared__ uint32_t staged[];  // the stash, [5, S], when a.staged
   const uint32_t* stash = a.stash;
@@ -264,10 +140,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
   const long long first = (static_cast<long long>(blockIdx.x) *
                            blockDim.x / 32 + threadIdx.x / 32) * 32;
 
-  Probe me = load_probe<kSorted>(a, first + lane, pol.streams);
+  TableProbe me = load_probe<kSorted>(a.hi, a.lo, a.valid, a.order, a.N,
+                                      first + lane, pol.streams);
   for (long long base = first; base < a.N; base += step) {
-    const Probe next = load_probe<kSorted>(a, base + step + lane,
-                                           pol.streams);
+    const TableProbe next = load_probe<kSorted>(
+        a.hi, a.lo, a.valid, a.order, a.N, base + step + lane, pol.streams);
     const uint32_t my_bucket = bucket_of(a, me);
     uint32_t tax[8], x[8], y[8];
 #pragma unroll
@@ -410,7 +287,7 @@ extern "C" int pangea_lookup_std(const void* hi, const void* lo,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
-  if (grid < 1 || warps < 1 || warps > kMaxWarps || l2 < 0 || l2 > 2 ||
+  if (grid < 1 || warps < 1 || warps > kLookupWarps || l2 < 0 || l2 > 2 ||
       (spec != 0 && (spec != W ||
                      reinterpret_cast<uintptr_t>(fused) % 16 != 0)) ||
       (smem != 0 && (smem != 4 * kStashRows * S || smem > kStashSmemMax))) {

@@ -47,13 +47,15 @@ SIGNATURES = {
     # The lookups take K9's order and a sorted_out (both NULL: unsorted)
     # before their outputs.
     # hi, lo, valid, N, fused, NB, W, stash, S, k, order, sorted_out, hit,
-    # t_in, t_out, stream
+    # t_in, t_out, grid, warps, batch, spec, l2, smem (lookup.quot_plan),
+    # stream
     "pangea_lookup_q8": (_P, _P, _P, _I64, _P, _I64, _I, _P, _I, _I,
-                         _P, _P, _P, _P, _P, _P),
+                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # hi, lo, valid, N, fused, NB, W, row_lanes, stash, S, k, order,
-    # sorted_out, hit, t_in, t_out, stream
+    # sorted_out, hit, t_in, t_out, grid, warps, batch, spec, l2, smem
+    # (lookup.quot_plan), stream
     "pangea_lookup_q12": (_P, _P, _P, _I64, _P, _I64, _I, _I, _P, _I, _I,
-                          _P, _P, _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # hi, lo, valid, N, fused, NB, W, packed, stash, S, owner_shift,
     # shard_id, order, sorted_out, taxon, t_in, t_out, grid, warps, batch,
     # spec, l2, smem (lookup.std_plan), stream

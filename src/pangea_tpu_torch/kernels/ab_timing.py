@@ -1,10 +1,10 @@
-"""Time K1, K4's forms, K13's block copy, the scorer (K3, K8) and the q8,
-std and config-4 steps through the port's public entry points, so that one
-file times any checkout of it.
+"""Time K1, K2's and K4's forms, K13's block copy, the scorer (K3, K8) and
+the q8, std and config-4 steps through the port's public entry points, so
+that one file times any checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections k1,block_copy,k4,score,steps]
+        [--sections k1,block_copy,k2,k4,score,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
@@ -20,10 +20,19 @@ with the sections asked for (all by default):
   the native reader packs them), at k=31, w=1 (config 4's q12 index), and
   a long-read bucket of 75 reads of 16,384 bases (genome slices, seed
   K1_SEED) at k=21, w=1;
-- ``k4``: K4 (``lookup_std``) on the wide std world of ``chip_smoke.py``
-  phase 7 (16,384 pairs x 260 probes, 4,259,840, on the 131,072 x 192
-  table, W = 32) and on the k=31 packed world (the same pairs at k=31,
-  w=8, W = 16); its owner mask (``lookup_std_owned``) at 4 shards, shard
+- ``k2``: K2 (``lookup_q8``, ``lookup_q12``), each held to its plain
+  version first, timed by CUDA events (``ms``) and by the profiler's
+  device time a call (``device_ms``): the q8 probe on the headline (16,384
+  pairs x 32, 524,288 probes, on the 16,384 x 128 table); config 4's q12
+  probe (its 3,932,160 k=31, w=1 probes on the 131,072 x 128 table) and
+  its k=21 q8 index (524,288 probes); with ``--deep DIR``, on the deep
+  world's q8 and q12 tables (2,129,920 probes of its first 16,384 reads),
+  unsorted and, given K9's order, the sorted forms with K9's restore
+  (``lookup_q8_sorted``, ``lookup_q12_sorted``);
+- ``k4``: K4 (``lookup_std``), CUDA-event and profiler device ms, on the
+  wide std world of ``chip_smoke.py`` phase 7 (16,384 pairs x 260
+  probes, 4,259,840, on the 131,072 x 192 table, W = 32) and on the k=31
+  packed world (the same pairs at k=31, w=8, W = 16); its owner mask (``lookup_std_owned``) at 4 shards, shard
   0; its sorted form (``lookup_std_sorted``) on the wide world given K9's
   order; with ``--deep DIR``, unsorted and sorted on the deep world's std
   table (4,194,304 packed rows, 1.07 GB) with the 8,519,680 probes of
@@ -84,14 +93,14 @@ C4_THRESHOLD = 0.05
 BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
-SECTIONS = ("k1", "block_copy", "k4", "score", "steps")
+SECTIONS = ("k1", "block_copy", "k2", "k4", "score", "steps")
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
 K1_CASES = (("w1_std", 21, 1, False), ("w8_headline", 21, 8, False),
             ("w1_std_packed", 21, 1, True),
             ("w8_headline_packed", 21, 8, True), ("k31_w1", 31, 1, False))
 K1_BUCKET, K1_LONG, K1_SEED = 75, 16384, 12
-DEEP_READS = 65536
+DEEP_READS, DEEP_QUOT_READS = 65536, 16384
 SPLIT_CALLS = 10_000
 
 
@@ -185,9 +194,11 @@ def bench_world(torch, dev, n_reads: int, **kw):
                  for r in (bw.reads.seqs, bw.reads.mates))
 
 
-def deep_std(torch, dev, cache: Path):
-    """(std device index, flat probes) of the deep world: its index built
-    into ``cache`` once, its 65,536 reads at k=21, w=1."""
+def deep_index(torch, dev, cache: Path, layout: str):
+    """(device index, flat probes) of the deep world at ``layout``: its
+    index built into ``cache`` once; the probes at k=21, w=1 of its first
+    DEEP_QUOT_READS reads (q8, q12) or all DEEP_READS (std), as
+    ``chip_smoke.py`` phase 20 takes them."""
     from pangea_tpu_torch.bench import deep_genomes, deep_reads
     from pangea_tpu_torch.classify import DeviceIndex, pad_batch
     from pangea_tpu_torch.index import build_index, load_index_any
@@ -196,10 +207,22 @@ def deep_std(torch, dev, cache: Path):
         cache.mkdir(parents=True, exist_ok=True)
         build_index(genomes, tax, k=21, w=1).save(str(cache))
     di = DeviceIndex.from_index(load_index_any(str(cache)), dev, 0.0,
-                                layout="std")
-    reads = deep_reads(genomes, DEEP_READS, READ_LEN)
-    b = torch.from_numpy(pad_batch(reads.seqs, DEEP_READS, READ_LEN)).to(dev)
+                                layout=layout)
+    n = DEEP_READS if layout == "std" else DEEP_QUOT_READS
+    reads = deep_reads(genomes, DEEP_READS, READ_LEN).seqs[:n]
+    b = torch.from_numpy(pad_batch(reads, n, READ_LEN)).to(dev)
     return di, probes(torch, b, None, 21, 1)
+
+
+def multik_world(torch, dev):
+    """((k=21 q8, k=31 q12 device indexes), b1, b2): config 4's world."""
+    from pangea_tpu_torch.bench import make_multik_world
+    from pangea_tpu_torch.classify import DeviceIndex, pad_batch
+    mw = make_multik_world(n_reads=BATCH, read_len=READ_LEN, **MULTIK)
+    dis = [DeviceIndex.from_index(ix, dev, C4_THRESHOLD)
+           for ix in mw.indexes]
+    return dis, *(torch.from_numpy(pad_batch(r, BATCH, READ_LEN)).to(dev)
+                  for r in (mw.reads.seqs, mw.reads.mates))
 
 
 def _pack(np, codes):
@@ -271,7 +294,52 @@ def time_k1(torch, dev) -> dict:
     return out
 
 
+def time_k2(torch, dev, deep: Path | None) -> dict:
+    """K2's forms, each held to its plain version first: CUDA-event ms and
+    profiler device ms a call, and the probes."""
+    from pangea_tpu_torch.kernels import (bucket_sort, lookup_q8,
+                                          lookup_q8_plain, lookup_q8_sorted,
+                                          lookup_q12, lookup_q12_plain,
+                                          lookup_q12_sorted)
+    out = {}
+
+    def entry(name, flat, di, order=None):
+        q12 = di.cfg.layout == "q12"
+        args = (*flat, di.fused, di.stash, di.cfg.k,
+                *((di.cfg.ways,) if q12 else ()))
+        plain = lookup_q12_plain if q12 else lookup_q8_plain
+        if order is None:
+            fn = lookup_q12 if q12 else lookup_q8
+            kw = {}
+        else:
+            fn = lookup_q12_sorted if q12 else lookup_q8_sorted
+            kw = {"order": order}
+        mism = sum(int((a != b).sum())
+                   for a, b in zip(plain(*args), fn(*args, **kw)))
+        if mism:
+            raise AssertionError(f"k2 {name}: {mism} mismatches")
+        out[name] = {"probes": flat[0].numel(),
+                     "ms": time_ms(torch, lambda: fn(*args, **kw)),
+                     "device_ms": device_ms(torch, lambda: fn(*args, **kw))}
+
+    hdi, b1, b2 = bench_world(torch, dev, BATCH, **HEADLINE)
+    entry("q8_headline", probes(torch, b1, b2, HEADLINE["k"], HEADLINE["w"]),
+          hdi)
+    (di21, di31), c1, c2 = multik_world(torch, dev)
+    entry("c4_q12", probes(torch, c1, c2, 31, 1), di31)
+    entry("c4_q8", probes(torch, c1, c2, 21, 8), di21)
+    if deep is not None:
+        for layout in ("q8", "q12"):
+            ddi, dflat = deep_index(torch, dev, deep, layout)
+            entry(f"deep_{layout}", dflat, ddi)
+            order = bucket_sort(*dflat, ddi.fused.shape[0], ddi.cfg.k)
+            entry(f"deep_{layout}_sorted", dflat, ddi, order)
+    return out
+
+
 def time_k4(torch, dev, deep: Path | None) -> dict:
+    """K4's forms, each held to its plain version first: CUDA-event ms and
+    profiler device ms a call."""
     from pangea_tpu_torch.kernels import (bucket_sort, lookup_std,
                                           lookup_std_owned, lookup_std_plain,
                                           lookup_std_sorted)
@@ -282,38 +350,40 @@ def time_k4(torch, dev, deep: Path | None) -> dict:
         if mism:
             raise AssertionError(f"{name}: {mism} mismatches")
 
+    def timed(name, fn):
+        out[name] = {"ms": time_ms(torch, fn),
+                     "device_ms": device_ms(torch, fn)}
+
     di, b1, b2 = bench_world(torch, dev, BATCH, **WIDE)
     flat = probes(torch, b1, b2, WIDE["k"], WIDE["w"])
     tab = (di.fused, di.stash, di.cfg.ways)
     check("wide", lookup_std_plain(*flat, *tab), lookup_std(*flat, *tab))
-    out["wide"] = time_ms(torch, lambda: lookup_std(*flat, *tab))
+    timed("wide", lambda: lookup_std(*flat, *tab))
     check("owned", lookup_std_plain(*flat, *tab, (4, 0)),
           lookup_std_owned(*flat, *tab, (4, 0)))
-    out["owned_4_0"] = time_ms(
-        torch, lambda: lookup_std_owned(*flat, *tab, (4, 0)))
+    timed("owned_4_0", lambda: lookup_std_owned(*flat, *tab, (4, 0)))
     order = bucket_sort(*flat, di.fused.shape[0])
     check("sorted wide", lookup_std_plain(*flat, *tab),
           lookup_std_sorted(*flat, *tab, order=order))
-    out["sorted_wide"] = time_ms(
-        torch, lambda: lookup_std_sorted(*flat, *tab, order=order))
+    timed("sorted_wide", lambda: lookup_std_sorted(*flat, *tab, order=order))
     out["n_wide"] = flat[0].numel()
     pdi, _, _ = bench_world(torch, dev, 1, **PACKED)
     pflat = probes(torch, b1, b2, PACKED["k"], PACKED["w"])
     ptab = (pdi.fused, pdi.stash, pdi.cfg.ways)
     check("packed", lookup_std_plain(*pflat, *ptab),
           lookup_std(*pflat, *ptab))
-    out["packed"] = time_ms(torch, lambda: lookup_std(*pflat, *ptab))
+    timed("packed", lambda: lookup_std(*pflat, *ptab))
     if deep is not None:
-        ddi, dflat = deep_std(torch, dev, deep)
+        ddi, dflat = deep_index(torch, dev, deep, "std")
         dtab = (ddi.fused, ddi.stash, ddi.cfg.ways)
         want = lookup_std_plain(*dflat, *dtab)
         check("deep", want, lookup_std(*dflat, *dtab))
-        out["deep"] = time_ms(torch, lambda: lookup_std(*dflat, *dtab))
+        timed("deep", lambda: lookup_std(*dflat, *dtab))
         dorder = bucket_sort(*dflat, ddi.fused.shape[0])
         check("sorted deep", want,
               lookup_std_sorted(*dflat, *dtab, order=dorder))
-        out["sorted_deep"] = time_ms(
-            torch, lambda: lookup_std_sorted(*dflat, *dtab, order=dorder))
+        timed("sorted_deep",
+              lambda: lookup_std_sorted(*dflat, *dtab, order=dorder))
         out["n_deep"] = dflat[0].numel()
     return out
 
@@ -437,9 +507,7 @@ def time_score(torch, dev) -> dict:
 
 
 def time_steps(torch, dev) -> dict:
-    from pangea_tpu_torch.bench import make_multik_world
-    from pangea_tpu_torch.classify import (Classifier, DeviceIndex,
-                                           MultiKClassifier, pad_batch)
+    from pangea_tpu_torch.classify import Classifier, MultiKClassifier
     out = {}
     for name, kw in (("q8", HEADLINE), ("std", WIDE)):
         di, b1, b2 = bench_world(torch, dev, BATCH, **kw)
@@ -447,11 +515,8 @@ def time_steps(torch, dev) -> dict:
         out[name] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
                      "back_to_back": time_stats(torch,
                                                 lambda: model(b1, b2))}
-    mw = make_multik_world(n_reads=BATCH, read_len=READ_LEN, **MULTIK)
-    model = MultiKClassifier([DeviceIndex.from_index(ix, dev, C4_THRESHOLD)
-                              for ix in mw.indexes])
-    b1, b2 = (torch.from_numpy(pad_batch(r, BATCH, READ_LEN)).to(dev)
-              for r in (mw.reads.seqs, mw.reads.mates))
+    dis, b1, b2 = multik_world(torch, dev)
+    model = MultiKClassifier(dis)
     out["config4"] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
                       "back_to_back": time_stats(torch,
                                                  lambda: model(b1, b2))}
@@ -565,7 +630,8 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--deep", type=Path, default=None,
-                    help="time K4 on the deep std table, its index in DIR")
+                    help="time K2 and K4 on the deep tables, their index "
+                         "in DIR")
     ap.add_argument("--split", action="store_true",
                     help="split the block copy's host time into parts")
     ap.add_argument("--sections", default=",".join(SECTIONS),
@@ -588,6 +654,8 @@ def main(argv=None) -> int:
         line["block_copy"] = time_block_copy(torch, dev)
     if args.split:
         line["split"] = split(torch, dev)
+    if "k2" in sections:
+        line["k2"] = time_k2(torch, dev, args.deep)
     if "k4" in sections:
         line["k4"] = time_k4(torch, dev, args.deep)
     if "score" in sections:

@@ -319,8 +319,10 @@ def _check_quot(hi, lo, valid, fused, stash, k: int) -> None:
         raise ValueError(f"stash {tuple(stash.shape)} is not [5, S]")
 
 
-def _q8_kernel(dev, hi, lo, valid, fused, stash, k: int, order):
-    """K2 on CUDA tensors; K9's order selects its sorted form."""
+def _q8_kernel(dev, hi, lo, valid, fused, stash, k: int, order,
+               plan: LookupPlan | None = None):
+    """K2 on CUDA tensors; K9's order selects its sorted form, and ``plan``
+    overrides :func:`quot_plan` (kernels.lookup_sweep)."""
     _check_quot(hi, lo, valid, fused, stash, k)
     _, W = _q8_geometry(fused, k)
     if fused.shape[1] != 2 * W:
@@ -328,7 +330,8 @@ def _q8_kernel(dev, hi, lo, valid, fused, stash, k: int, order):
     return _launch_lookup(
         "pangea_lookup_q8", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
         valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], W,
-        stash.data_ptr(), stash.shape[1], k)
+        stash.data_ptr(), stash.shape[1], k,
+        tail=_quot_tail(dev, hi, fused, stash, W, False, order, plan))
 
 
 def lookup_q8(hi, lo, valid, fused, stash, k: int):
@@ -388,14 +391,16 @@ def lookup_q12_plain(hi, lo, valid, fused, stash, k: int,
 
 
 def _q12_kernel(dev, hi, lo, valid, fused, stash, k: int, ways: int,
-                order):
-    """K2's q12 form on CUDA tensors; K9's order selects its sorted form."""
+                order, plan: LookupPlan | None = None):
+    """K2's q12 form on CUDA tensors; K9's order selects its sorted form,
+    and ``plan`` overrides :func:`quot_plan` (kernels.lookup_sweep)."""
     _check_quot(hi, lo, valid, fused, stash, k)
     _q12_geometry(fused, k, ways)
     return _launch_lookup(
         "pangea_lookup_q12", dev, hi, order, hi.data_ptr(), lo.data_ptr(),
         valid.data_ptr(), hi.numel(), fused.data_ptr(), fused.shape[0], ways,
-        fused.shape[1], stash.data_ptr(), stash.shape[1], k)
+        fused.shape[1], stash.data_ptr(), stash.shape[1], k,
+        tail=_quot_tail(dev, hi, fused, stash, ways, True, order, plan))
 
 
 def lookup_q12(hi, lo, valid, fused, stash, k: int, ways: int = Q12_WAYS):
@@ -612,31 +617,33 @@ def lookup_std_sorted(hi, lo, valid, fused, stash, ways: int, order=None,
 lookup_std_sorted.launches = 0
 
 
-# K4's launch (std_plan), from kernels.lookup_sweep on an NVIDIA H100 80GB
-# HBM3: warps a block and blocks an SM (64 registers a thread fit 1,024
-# threads an SM); the probes whose key loads a group issues together, by
-# W; the L2 policy mode of the unsorted and the sorted form; the W K4 is
-# specialised for (auto_ways' choices); the stash staged in shared memory
-# up to STASH_SMEM_MAX bytes.
-STD_WARPS = 8
-STD_BLOCKS_PER_SM = 4
-STD_BATCH = {16: 4, 32: 2}
-STD_BATCH_GENERIC = 2
-STD_L2 = {False: 1, True: 2}          # by sorted form
-STD_SPECS = (16, 32)
+# K2's and K4's launch (lookup_plan), from kernels.lookup_sweep on an
+# NVIDIA H100 80GB HBM3: warps a block and blocks an SM (64 registers a
+# thread fit 1,024 threads an SM); the L2 policy mode of the unsorted and
+# the sorted form; the stash staged in shared memory up to STASH_SMEM_MAX
+# bytes. K4: the probes whose key loads a group issues together, by W, and
+# the W it is specialised for (auto_ways' choices). K2: the W it is
+# specialised for, by form (index/quot.py Q8_WAYS, Q12_WAYS).
+LOOKUP_WARPS = 8
+LOOKUP_BLOCKS_PER_SM = 4
+LOOKUP_L2 = {False: 1, True: 2}       # by sorted form
 STASH_ROWS = 5
 STASH_SMEM_MAX = 48 * 1024
+STD_BATCH = {16: 4, 32: 2}
+STD_BATCH_GENERIC = 2
+STD_SPECS = (16, 32)
+QUOT_SPECS = {False: 64, True: 42}    # by q12
 
 
-class StdPlan(NamedTuple):
-    """K4's launch: ``grid`` blocks of ``warps`` warps, each warp taking 32
-    consecutive probes a step, one a lane; a group of 8 lanes probes its
-    lanes' rows ``batch`` at a time (2 or 4), their key loads issued
+class LookupPlan(NamedTuple):
+    """K2's or K4's launch: ``grid`` blocks of ``warps`` warps, each warp
+    taking 32 consecutive probes a step, one a lane; a group of 8 lanes
+    probes its lanes' rows ``batch`` at a time, their key loads issued
     together; ``spec`` the W of the specialised body (0: the generic one);
     ``l2`` the L2 policy mode (0: all evict-normal; 1: keys evict-last,
-    the rest evict-first; 2: keys evict-last, payload evict-normal,
-    streams evict-first); ``smem`` the shared bytes that stage the stash
-    (0: read from device memory)."""
+    the rest evict-first; 2: keys evict-last, payload (and K2's rem_hi)
+    evict-normal, streams evict-first); ``smem`` the shared bytes that
+    stage the stash (0: read from device memory)."""
     grid: int
     warps: int
     batch: int
@@ -645,27 +652,62 @@ class StdPlan(NamedTuple):
     smem: int
 
 
+def lookup_plan(n: int, spec: int, batch: int, stash_cols: int,
+                sorted_form: bool, sms: int) -> LookupPlan:
+    """The launch for n probes of the body ``spec`` at ``batch``, with a
+    stash of ``stash_cols`` columns, unsorted or ``sorted_form``, on a
+    card of ``sms`` SMs: a persistent grid of LOOKUP_BLOCKS_PER_SM blocks
+    an SM, capped by the work; the stash staged where it fits
+    STASH_SMEM_MAX bytes."""
+    if n < 0 or stash_cols < 0 or sms < 1:
+        raise ValueError(f"n={n}, stash_cols={stash_cols}, sms={sms}")
+    grid = min(sms * LOOKUP_BLOCKS_PER_SM, -(-n // (LOOKUP_WARPS * 32)))
+    smem = STASH_ROWS * 4 * stash_cols
+    return LookupPlan(grid, LOOKUP_WARPS, batch, spec,
+                      LOOKUP_L2[bool(sorted_form)],
+                      smem if smem <= STASH_SMEM_MAX else 0)
+
+
 @functools.lru_cache(maxsize=256)
 def std_plan(n: int, ways: int, stash_cols: int, sorted_form: bool,
-             sms: int) -> StdPlan:
-    """K4's launch for n probes of a table of ``ways`` slots a row and a
-    stash of ``stash_cols`` columns, unsorted or ``sorted_form``, on a
-    card of ``sms`` SMs: a persistent grid of STD_BLOCKS_PER_SM blocks an
-    SM, capped by the work; the stash staged where it fits STASH_SMEM_MAX
-    bytes."""
-    if n < 0 or ways < 1 or stash_cols < 0 or sms < 1:
-        raise ValueError(f"n={n}, ways={ways}, stash_cols={stash_cols}, "
-                         f"sms={sms}")
-    grid = min(sms * STD_BLOCKS_PER_SM, -(-n // (STD_WARPS * 32)))
+             sms: int) -> LookupPlan:
+    """K4's launch for n probes of a table of ``ways`` slots a row
+    (:func:`lookup_plan`)."""
+    if ways < 1:
+        raise ValueError(f"ways={ways}")
     spec = ways if ways in STD_SPECS else 0
-    smem = STASH_ROWS * 4 * stash_cols
-    return StdPlan(grid, STD_WARPS, STD_BATCH.get(spec, STD_BATCH_GENERIC),
-                   spec, STD_L2[bool(sorted_form)],
-                   smem if smem <= STASH_SMEM_MAX else 0)
+    return lookup_plan(n, spec, STD_BATCH.get(spec, STD_BATCH_GENERIC),
+                       stash_cols, sorted_form, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def quot_plan(n: int, ways: int, stash_cols: int, q12: bool,
+              sorted_form: bool, sms: int) -> LookupPlan:
+    """K2's launch for n probes of a q8 (or ``q12``) table of ``ways``
+    slots a row (:func:`lookup_plan`); the key lanes of the specialised
+    body are read as 16-byte words, a group's loads of 2 rows issued
+    together (the kernel's kBatch: 4 rows spilled and ran slower on every
+    shape swept)."""
+    if ways < 1:
+        raise ValueError(f"ways={ways}")
+    spec = ways if ways == QUOT_SPECS[bool(q12)] else 0
+    return lookup_plan(n, spec, 2, stash_cols, sorted_form, sms)
+
+
+def _quot_tail(dev, hi, fused, stash, ways: int, q12: bool, order,
+               plan: LookupPlan | None) -> tuple:
+    """K2's plan arguments: ``plan``, else :func:`quot_plan`'s, with the
+    specialised body only where the table's rows start on 16 bytes."""
+    if plan is None:
+        plan = quot_plan(hi.numel(), ways, stash.shape[1], q12,
+                         order is not None, _build.sm_count(dev.index))
+    aligned = fused.data_ptr() % 16 == 0 and fused.shape[1] % 4 == 0
+    return (plan.grid, plan.warps, plan.batch, plan.spec if aligned else 0,
+            plan.l2, plan.smem)
 
 
 def _std_kernel(dev, hi, lo, valid, fused, stash, ways: int, order, owner,
-                plan: StdPlan | None = None):
+                plan: LookupPlan | None = None):
     """K4 on CUDA tensors; K9's order selects its sorted form, owner
     (n_shards, shard_id) its owner mask, and ``plan`` overrides
     :func:`std_plan` (kernels.lookup_sweep)."""

@@ -1283,3 +1283,130 @@ def test_kernels_launch_on_the_callers_stream(cuda, monkeypatch):
     s.synchronize()
     for a, b in zip(lookup_std_plain(*args, 32), got):
         assert torch.equal(a, b.cpu())
+
+
+# K2 (csrc/lookup_q8.cu) on its edge tables (bench.k2_edge_world): q12 at
+# r = 0, 20, 32, 54 and 62, q8 at r = 0 and 22-25, rows with a shared
+# rem_lo and a repeated key, W = 4 with a forced stash, stashes of 3,000
+# columns (60,000 bytes, past the shared-memory cap), both forms, and N =
+# 0, 1, 33 and past three steps of the persistent grid.
+def _k2_world(name, n=None):
+    """(args on the CPU, k, ways, q12) of a K2 edge table, its probes
+    repeated to n (all of them for None)."""
+    from pangea_tpu_torch.bench import k2_edge_world
+    w = k2_edge_world(name)
+    hi, lo, valid = (torch.from_numpy(np.ascontiguousarray(
+        w[key].view(np.int32) if key != "valid" else w[key]))
+        for key in ("hi", "lo", "valid"))
+    if n is not None:
+        reps = -(-n // hi.numel()) if n else 0
+        hi, lo, valid = (t.repeat(reps)[:n] for t in (hi, lo, valid))
+    args = (hi, lo, valid, torch.from_numpy(w["fused"].view(np.int32)),
+            torch.from_numpy(w["stash"].view(np.int32)))
+    return args, w["k"], w["ways"], w["q12"]
+
+
+def _k2_forms(args, k, ways, q12, cuda, plan=None):
+    """(plain, unsorted kernel, sorted kernel) outputs of a K2 table;
+    ``plan`` launches both forms past the wrappers."""
+    from pangea_tpu_torch.kernels import lookup_q8_sorted, lookup_q12_sorted
+    from pangea_tpu_torch.kernels.lookup import (_q8_kernel, _q12_kernel,
+                                                 bucket_sort)
+    on = [a.to(cuda) for a in args]
+    extra = (ways,) if q12 else ()
+    want = (lookup_q12_plain if q12 else lookup_q8_plain)(*args, k, *extra)
+    if plan is None:
+        got = (lookup_q12 if q12 else lookup_q8)(*on, k, *extra)
+        srt = (lookup_q12_sorted if q12 else lookup_q8_sorted)(*on, k,
+                                                               *extra)
+        return want, got, srt
+    order = bucket_sort(*on[:3], on[3].shape[0], k)
+    dev = on[0].device                  # with its index, as a wrapper's
+    if q12:
+        return want, *(_q12_kernel(dev, *on, k, ways, o, plan=plan)
+                       for o in (None, order))
+    return want, *(_q8_kernel(dev, *on, k, o, plan=plan)
+                   for o in (None, order))
+
+
+def _k2_steps():
+    """Three steps of quot_plan's persistent grid (32 probes a warp), plus
+    17."""
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    plan = quot_plan(1 << 30, Q12_WAYS, 0, True, False,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    return 3 * plan.grid * plan.warps * 32 + 17
+
+
+def _k2_names():
+    from pangea_tpu_torch.bench import K2_EDGE
+    return list(K2_EDGE)
+
+
+@pytest.mark.parametrize("n", [None, 0, 1, 33, "steps"],
+                         ids=["all", "0", "1", "33", "steps"])
+@pytest.mark.parametrize("name", _k2_names())
+def test_k2_matches_plain_on_edge_tables(cuda, name, n):
+    """K2 and its sorted form equal the plain version bit for bit."""
+    if n == "steps":
+        n = _k2_steps()
+    args, k, ways, q12 = _k2_world(name, n)
+    reset_kernel_launches()
+    want, got, srt = _k2_forms(args, k, ways, q12, cuda)
+    launches = kernel_launches()
+    form = "lookup_q12" if q12 else "lookup_q8"
+    assert launches[form] == 1 and launches[f"{form}_sorted"] == 1
+    for a, b, c in zip(want, got, srt):
+        assert b.shape == a.shape and torch.equal(a, b.cpu()), name
+        assert torch.equal(a, c.cpu()), name
+
+
+@pytest.mark.parametrize("name", ["q8_r22", "q12_r54", "q12_w4_stash",
+                                  "q8_stash_3000"])
+def test_k2_every_swept_plan_matches_plain(cuda, name):
+    """Every plan kernels.lookup_sweep sweeps (warps, blocks an SM, L2
+    mode), on the specialised and generic bodies, unsorted and sorted."""
+    from pangea_tpu_torch.kernels.lookup_sweep import quot_plans
+    args, k, ways, q12 = _k2_world(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [p for _, p in quot_plans(args[0].numel(), ways,
+                                      args[4].shape[1], q12, sms)]
+    assert len(plans) == 18
+    for plan in plans:
+        want, got, srt = _k2_forms(args, k, ways, q12, cuda, plan)
+        for a, b, c in zip(want, got, srt):
+            assert torch.equal(a, b.cpu()), plan
+            assert torch.equal(a, c.cpu()), plan
+
+
+@pytest.mark.parametrize("name", ["q8_r22", "q12_r54"])
+def test_k2_generic_body_off_16_bytes(cuda, name):
+    """A table that does not start on 16 bytes takes the generic body and
+    gives the same outputs; the launcher refuses the specialised one
+    there."""
+    from pangea_tpu_torch.kernels import _build
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    args, k, ways, q12 = _k2_world(name)
+    want = _k2_forms(args, k, ways, q12, cuda)[0]
+    f = args[3]
+    shifted = torch.zeros(f.numel() + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(f.shape)
+    shifted.copy_(f)
+    assert shifted.data_ptr() % 16
+    on = [a.to(cuda) for a in args[:3]] + [shifted, args[4].to(cuda)]
+    extra = (ways,) if q12 else ()
+    got = (lookup_q12 if q12 else lookup_q8)(*on, k, *extra)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    plan = quot_plan(args[0].numel(), ways, args[4].shape[1], q12, False,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.spec == ways
+    launcher = "pangea_lookup_q12" if q12 else "pangea_lookup_q8"
+    outs = [torch.empty_like(on[0]) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch(launcher, on[0].device,
+                      *(t.data_ptr() for t in on[:3]),
+                      on[0].numel(), shifted.data_ptr(), f.shape[0], ways,
+                      *((f.shape[1],) if q12 else ()), on[4].data_ptr(),
+                      on[4].shape[1], k, None, None,
+                      *(o.data_ptr() for o in outs), *plan)

@@ -19,9 +19,9 @@ import torch
 
 from pangea_tpu_torch.kernels import _build
 from pangea_tpu_torch.kernels.gather import SMEM_OPTIN, gather_plan
-from pangea_tpu_torch.kernels.lookup import (STASH_ROWS, STASH_SMEM_MAX,
+from pangea_tpu_torch.kernels.lookup import (LOOKUP_BLOCKS_PER_SM, LOOKUP_L2,
+                                             STASH_ROWS, STASH_SMEM_MAX,
                                              STD_BATCH, STD_BATCH_GENERIC,
-                                             STD_BLOCKS_PER_SM, STD_L2,
                                              std_plan)
 
 SMS = 132                 # an H100 SXM's SMs
@@ -52,8 +52,8 @@ def test_std_plan_fits_and_covers_every_probe(n, ways, stash_cols,
     assert plan.spec == (ways if ways in (16, 32) else 0)
     assert plan.batch == STD_BATCH.get(plan.spec, STD_BATCH_GENERIC)
     assert 1 <= plan.warps <= MAX_WARPS and plan.batch in (2, 4)
-    assert plan.l2 == STD_L2[sorted_form] and 0 <= plan.l2 <= 2
-    assert plan.grid <= min(SMS * STD_BLOCKS_PER_SM,
+    assert plan.l2 == LOOKUP_L2[sorted_form] and 0 <= plan.l2 <= 2
+    assert plan.grid <= min(SMS * LOOKUP_BLOCKS_PER_SM,
                             -(-n // (plan.warps * 32)))
     assert (plan.grid >= 1) == (n > 0)
     stash_bytes = STASH_ROWS * 4 * stash_cols
@@ -67,7 +67,7 @@ def test_std_plan_fills_the_card_at_the_main_paths_shapes():
     """At the wide and deep std steps' probes every SM gets its blocks."""
     for n in (4_259_840, 8_519_680):
         assert std_plan(n, 32, 3, False, SMS).grid == \
-            SMS * STD_BLOCKS_PER_SM
+            SMS * LOOKUP_BLOCKS_PER_SM
 
 
 def test_std_plan_refuses_bad_shapes():
