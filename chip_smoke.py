@@ -39,7 +39,13 @@ general path:
      stash past the shared-memory cap; every probe, N = 0, 1, 33 and past
      three steps of the persistent grid) and on the headline's probes at
      every plan kernels.lookup_sweep sweeps, timed with its plan
-     (kernels.lookup.quot_plan) in its `variants` map, and K3 at two
+     (kernels.lookup.quot_plan) in its `variants` map, K9 and K10 on their
+     edge cases (bench.k9_edge_world: 0, 1, 33 probes, a tile and one
+     either side, past three tiles, every valid probe on one key or owner,
+     every probe invalid, K9 at NB = 2^9 and 2^22 and the k = 31 q12 and
+     std rules, K10 at 1-4,096 owners and one slot an owner; each K10 case
+     again on a grid filled with -1 first, bench.route_bin_dirty, so that
+     an unused slot left unwritten shows), and K3 at two
      thresholds, on the lookups and on scorer worlds
      of chosen U (bench.score_world: U = 1, 8 and R, nested along a
      lineage and from unrelated taxa), each world's mean and largest U and
@@ -795,6 +801,31 @@ def check_k2_edges(torch, cuda, res: Results, q12: bool, sorted_form: bool,
     log(f"[{tag}] {name} on {worlds} K2 edge tables")
 
 
+def check_bin_edges(torch, cuda, res: Results) -> None:
+    """K9 and K10 against their plain versions on their edge cases
+    (bench.k9_edge_world, see phase 3), as check_sort and check_route hold
+    them; K10 through its wrapper and again on a grid filled with -1 first
+    (bench.route_bin_dirty), where a slot left unwritten shows."""
+    from pangea_tpu_torch.bench import (K9_EDGE, k9_edge_world,
+                                        route_bin_dirty)
+    from pangea_tpu_torch.kernels.route import route_capacity
+    for name in K9_EDGE:
+        w = k9_edge_world(name)
+        flat = [torch.from_numpy(w[key] if key == "valid"
+                                 else w[key].view("int32")).to(cuda)
+                for key in ("hi", "lo", "valid")]
+        what = f"3 K9/K10 edge {name}"
+        if w["kind"] == "sort":
+            check_sort(torch, res, what, flat, w["nb"], w["k"])
+            continue
+        S = w["n_shards"]
+        cap = w["cap"] or route_capacity(flat[0].numel(), S)
+        check_route(torch, res, what, flat, S, cap)
+        check_route(torch, res, what + " dirty", flat, S, cap,
+                    route_bin_dirty)
+    log(f"[3] K9 and K10 on {len(K9_EDGE)} edge cases")
+
+
 def check_k2_plans(torch, res: Results, name: str, tag: str, flat, fused,
                    stash, k: int, q12: bool, order=None, want=None) -> None:
     """K2 (the sorted form given K9's ``order``) at every plan
@@ -872,6 +903,7 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
     if stash_hits != s4.shape[1]:
         raise AssertionError("a stash key missed its own stash")
     check_k2_edges(torch, cuda, res, False, False, "3")
+    check_bin_edges(torch, cuda, res)
     check_k2_plans(torch, res, "lookup_q8", "3 headline", (hi, lo, valid),
                    fused, stash, k, False, want=want)
     N = hi.numel()
@@ -903,7 +935,8 @@ def phase_q8_kernels(torch, world, cuda, res: Results) -> None:
              nbytes=BATCH * R * 13 + 12 * T1 + 12 * BATCH,
              ops=score_ops(hit, t_in, t_out) + BATCH * T1 * 6)
     res.assert_clean(("extract_probes", "extract_packed", "lookup_q8",
-                      "score_tin"))
+                      "score_tin", "bucket_sort", "route_bin",
+                      "route_restore"))
 
 
 def phase_step(torch, world, card: str, tag: str, want_launches: dict,
@@ -2065,17 +2098,19 @@ def phase_sharded_build(torch, deep) -> None:
 
 
 def check_route(torch, res: Results, what: str, flat, n_shards: int,
-                cap: int):
-    """K10 against its plain version: every valid probe in its owner's
-    bin once with its own record, the plain version's per-owner counts and
-    count of overflowing probes, zeros in the unused slots; then K9's
+                cap: int, binned=None):
+    """K10 (``route_bin``, or ``binned`` called as it) against its plain
+    version: every valid probe in its owner's bin once with its own
+    record, the plain version's per-owner counts and count of overflowing
+    probes, -1 in every other inv, zeros in the unused slots; then K9's
     restore on the records against the plain restore. Returns K10's
     output."""
     from pangea_tpu_torch.kernels import (route_bin, route_bin_plain,
                                           route_restore, route_restore_plain)
     from pangea_tpu_torch.kernels.route import owner_of
     hi, lo, valid = flat
-    records, inv, counts = route_bin(hi, lo, valid, n_shards, cap)
+    records, inv, counts = (binned or route_bin)(hi, lo, valid, n_shards,
+                                                 cap)
     _, pinv, pcounts = route_bin_plain(hi, lo, valid, n_shards, cap)
     fits = inv >= 0
     n = hi.numel()
@@ -2090,10 +2125,12 @@ def check_route(torch, res: Results, what: str, flat, n_shards: int,
                owner_of(hi, lo, n_shards)[fits], every[fits], hi[fits],
                lo[fits], torch.ones_like(rec[:, 3]),
                torch.zeros(1, dtype=torch.int64, device=hi.device),
+               torch.zeros(1, dtype=torch.int64, device=hi.device),
                torch.zeros(1, dtype=torch.int64, device=hi.device)],
               [counts, fits.sum().reshape(1), slots // cap, rec[:, 0],
                rec[:, 1], rec[:, 2], rec[:, 3],
                (fits & ~valid).sum().reshape(1),
+               (inv < -1).sum().reshape(1),
                records[~used].abs().sum().reshape(1)])
     answers = records[:, [1, 2, 0, 3]].contiguous()
     res.check("route_restore", what, route_restore_plain(inv, answers),

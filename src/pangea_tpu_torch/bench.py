@@ -41,6 +41,14 @@ and 22-25), with rows where several slots share a rem_lo or a whole key,
 forced stashes (W = 4) and stashes past the kernel's shared-memory cap,
 and the probes that reach them: every key, near misses and absent keys.
 
+``k9_edge_world`` makes K9's and K10's edge cases: probe counts around
+their tiles (0, 1, 33, a tile and one either side, past three tiles), every
+valid probe on one key or one owner, every probe invalid, K9's keys at
+NB = 2^9 (shift 0) and 2^22 (shift 12) and the k = 31 q12 and std rules,
+K10 at 1 to 4,096 owners and at one slot an owner; ``route_bin_dirty``
+runs K10 on a grid filled with -1 first, so that a slot it leaves
+unwritten shows.
+
 ``make_deep_world`` is the reference bench's deep cell
 (``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
 genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
@@ -56,7 +64,9 @@ import numpy as np
 
 from .index import Index, build_index
 from .index.container import EMPTY_HI
+from .core.semantics import hash32_np
 from .index.quot import Q8_A, Q8_WAYS, Q12_WAYS
+from .kernels.lookup import BIN_TILE, KEY_BITS
 from .taxonomy import Taxonomy
 from .utils import datagen
 
@@ -401,6 +411,93 @@ def k2_edge_world(name: str, seed: int = 0) -> dict:
             "lo": (probes & np.uint64(0xFFFFFFFF)).astype(np.uint32),
             "valid": rng.random(probes.size) < 0.9, "fused": fused,
             "stash": stash, "k": k, "ways": ways, "q12": q12}
+
+
+# K9's and K10's edge cases: name -> (probes, rule, size, valid share,
+# skew). K9 ("sort"): size (NB, k), k None for the std rule; K10
+# ("route"): size (S, C), C None for route_capacity's. skew: every valid
+# probe on one key (K9, the q8/q12 rule) or one owner (K10).
+_DEEP = (1 << 19, 21)
+_PAST = 3 * BIN_TILE + 33
+K9_EDGE = {
+    "sort_n0": (0, "sort", _DEEP, 0.9, False),
+    "sort_n1": (1, "sort", _DEEP, 0.9, False),
+    "sort_n33": (33, "sort", _DEEP, 0.9, False),
+    "sort_tile_less_1": (BIN_TILE - 1, "sort", _DEEP, 0.9, False),
+    "sort_tile": (BIN_TILE, "sort", _DEEP, 0.9, False),
+    "sort_tile_plus_1": (BIN_TILE + 1, "sort", _DEEP, 0.9, False),
+    "sort_past_3_tiles": (_PAST, "sort", _DEEP, 0.9, False),
+    "sort_one_key": (_PAST, "sort", _DEEP, 1.0, True),
+    "sort_invalid": (_PAST, "sort", _DEEP, 0.0, False),
+    "sort_nb_2_9": (_PAST, "sort", (1 << 9, 21), 0.9, False),
+    "sort_nb_2_22": (_PAST, "sort", (1 << 22, 21), 0.9, False),
+    "sort_q12_k31": (_PAST, "sort", (1 << 20, 31), 0.9, False),
+    "sort_std": (_PAST, "sort", (1 << 20, None), 0.9, False),
+    "route_n0": (0, "route", (4, 16), 0.9, False),
+    "route_s1": (_PAST, "route", (1, None), 0.9, False),
+    "route_s2": (_PAST, "route", (2, None), 0.9, False),
+    "route_s4": (_PAST, "route", (4, None), 0.9, False),
+    "route_s8": (_PAST, "route", (8, None), 0.9, False),
+    "route_s4096": (_PAST, "route", (4096, None), 0.9, False),
+    "route_c1": (_PAST, "route", (4, 1), 0.9, False),
+    "route_one_owner": (_PAST, "route", (4, None), 0.9, True),
+    "route_invalid": (_PAST, "route", (4, None), 0.0, False),
+}
+
+
+def k9_edge_world(name: str, seed: int = 0) -> dict:
+    """K9's or K10's edge case ``name`` of K9_EDGE: ``hi``, ``lo`` (uint32)
+    and ``valid`` (bool) of the probes, with ``kind`` ("sort" or
+    "route"), and ``nb`` and ``k`` (K9) or ``n_shards`` and ``cap`` (K10;
+    cap None: the caller's route_capacity). The probes are random 2k-bit
+    k-mers (k = 21 for K10), each valid at the case's share. K9's skew
+    draws the mixes h of one key's buckets and unmixes them (K = h / A mod
+    2^2k); K10's keeps the random k-mers that hash32 sends to owner 1."""
+    n, kind, (size, arg), share, skew = K9_EDGE[name]
+    rng = np.random.default_rng(seed + sum(map(ord, name)))
+    k = arg if kind == "sort" and arg is not None else 21
+    m = 2 * k
+    if kind == "sort" and skew:
+        log2nb = size.bit_length() - 1
+        low = m - min(log2nb, KEY_BITS)      # bits below the key
+        h = ((np.uint64((1 << min(log2nb, KEY_BITS)) // 3) << np.uint64(low))
+             | rng.integers(0, 1 << low, n, dtype=np.uint64))
+        kmers = (h * np.uint64(pow(int(Q8_A), -1, 1 << m))) & np.uint64(
+            (1 << m) - 1)
+    elif kind == "route" and skew:
+        log2s = size.bit_length() - 1
+        cand = rng.integers(0, 1 << m, 8 * n + 64, dtype=np.uint64)
+        owner = hash32_np(cand) >> np.uint32(32 - log2s)
+        kmers = cand[owner == 1][:n]
+    else:
+        kmers = rng.integers(0, 1 << m, n, dtype=np.uint64)
+    out = {"hi": (kmers >> np.uint64(32)).astype(np.uint32),
+           "lo": (kmers & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+           "valid": rng.random(n) < share, "kind": kind}
+    if kind == "sort":
+        out.update(nb=size, k=arg)
+    else:
+        out.update(n_shards=size, cap=arg)
+    return out
+
+
+def route_bin_dirty(hi, lo, valid, n_shards: int, cap: int):
+    """K10 on CUDA tensors through its C entry, as ``route_bin`` launches
+    it, on outputs filled first with -1 (every slot of the grid) and -2
+    (inv): a slot or an inv the kernel leaves unwritten shows. Returns
+    (records, inv, counts) as ``route_bin`` does; the launch is not
+    counted."""
+    import torch
+    from .kernels import _build
+    dev = hi.device
+    counts = torch.empty(n_shards, dtype=torch.int32, device=dev)
+    records = torch.full((n_shards * cap, 4), -1, dtype=torch.int32,
+                         device=dev)
+    inv = torch.full((hi.numel(),), -2, dtype=torch.int32, device=dev)
+    _build.launch("pangea_route_bin", dev, hi.data_ptr(), lo.data_ptr(),
+                  valid.data_ptr(), hi.numel(), n_shards.bit_length() - 1,
+                  cap, counts.data_ptr(), records.data_ptr(), inv.data_ptr())
+    return records, inv, counts
 
 
 def distinct_intervals(lanes, t_in, t_out) -> np.ndarray:

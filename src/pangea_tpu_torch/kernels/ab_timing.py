@@ -1,10 +1,10 @@
-"""Time K1, K2's and K4's forms, K13's block copy, the scorer (K3, K8) and
-the q8, std and config-4 steps through the port's public entry points, so
-that one file times any checkout of it.
+"""Time K1, K2's and K4's forms, K9 and K10, K13's block copy, the scorer
+(K3, K8) and the q8, std and config-4 steps through the port's public
+entry points, so that one file times any checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections k1,block_copy,k2,k4,score,steps]
+        [--sections k1,block_copy,k2,k4,sort,score,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
@@ -37,6 +37,15 @@ with the sections asked for (all by default):
   order; with ``--deep DIR``, unsorted and sorted on the deep world's std
   table (4,194,304 packed rows, 1.07 GB) with the 8,519,680 probes of
   65,536 reads, the deep index built once into DIR and loaded after;
+- ``sort``: with ``--deep DIR``, K9 (``bucket_sort``) on the deep world's
+  probes at its q8, q12 and std tables (2,129,920, 2,129,920 and 8,519,680
+  probes; 1,024 keys each), K10 (``route_bin``) on the q8 probes at 1, 2,
+  4 and 8 owners of ``route_capacity`` slots, and each deep layout's sorted
+  pair in one call (K9, the sorted form and K9's restore), each held to
+  its plain version first (K9 by its keys, records and inverse; K10 by its
+  counts, slots and records), timed by CUDA events (``ms``) and by the
+  profiler's device time a call (``device_ms``), summed over every launch
+  and memset of the call;
 - ``block_copy``: K13's block copy and ``narrow().clone()`` on mb_gather4's
   array, static and dynamic (``experiments.mb_gather``'s gather4 starts);
 - ``score``: the scorer through ``score_reads_tin``, ``score_winners``,
@@ -53,7 +62,9 @@ with the sections asked for (all by default):
   numpy);
 - ``steps``: the q8 headline, the std world and config 4's multi-k
   Classifier steps on 16,384 pairs, one step and back to back, each with
-  the least and largest of its samples;
+  the least and largest of its samples; with ``--deep DIR``, also the deep
+  q8 and q12 steps on 16,384 single-end reads and the std step on 65,536,
+  sorted (the reference's gate) and with ``PANGEA_DEEP_SORT=0``;
 - with ``--split``, ``split``: the block copy's host time a call in parts,
   by ``time.perf_counter_ns`` over SPLIT_CALLS calls: the whole call; the
   wrapper's checks, plan and ``torch.empty``; the device guard and stream
@@ -93,7 +104,7 @@ C4_THRESHOLD = 0.05
 BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
-SECTIONS = ("k1", "block_copy", "k2", "k4", "score", "steps")
+SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "score", "steps")
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
 K1_CASES = (("w1_std", 21, 1, False), ("w8_headline", 21, 8, False),
@@ -101,6 +112,7 @@ K1_CASES = (("w1_std", 21, 1, False), ("w8_headline", 21, 8, False),
             ("w8_headline_packed", 21, 8, True), ("k31_w1", 31, 1, False))
 K1_BUCKET, K1_LONG, K1_SEED = 75, 16384, 12
 DEEP_READS, DEEP_QUOT_READS = 65536, 16384
+ROUTE_SHARDS = (1, 2, 4, 8)
 SPLIT_CALLS = 10_000
 
 
@@ -132,11 +144,18 @@ def device_ms(torch, fn, calls: int = PROFILED, tries: int = 3) -> float:
     """Device ms a call of fn: the profiler's device time of every kernel
     over ``calls`` calls, divided by ``calls``; taken again, up to
     ``tries`` times, where the profiler recorded no device time at all."""
+    return sum(device_split(torch, fn, calls, tries).values())
+
+
+def device_split(torch, fn, calls: int = PROFILED,
+                 tries: int = 3) -> dict:
+    """Device ms a call of fn by kernel (and memset) name, as
+    :func:`device_ms` takes them."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
+    split = {}
     for _ in range(tries):
         try:
             prof = profile(activities=[ProfilerActivity.CUDA],
@@ -150,10 +169,12 @@ def device_ms(torch, fn, calls: int = PROFILED, tries: int = 3) -> float:
         for e in prof.key_averages():
             if str(e.device_type).endswith("CUDA"):
                 us = getattr(e, "self_device_time_total", None)
-                total += e.self_cuda_time_total if us is None else us
-        if total:
+                us = e.self_cuda_time_total if us is None else us
+                if us:
+                    split[e.key] = split.get(e.key, 0.0) + us / 1e3 / calls
+        if split:
             break
-    return total / 1e3 / calls
+    return split
 
 
 def host_ns(torch, fn, calls: int = SPLIT_CALLS) -> float:
@@ -194,14 +215,20 @@ def bench_world(torch, dev, n_reads: int, **kw):
                  for r in (bw.reads.seqs, bw.reads.mates))
 
 
+_deep: dict = {}
+
+
 def deep_index(torch, dev, cache: Path, layout: str):
-    """(device index, flat probes) of the deep world at ``layout``: its
-    index built into ``cache`` once; the probes at k=21, w=1 of its first
-    DEEP_QUOT_READS reads (q8, q12) or all DEEP_READS (std), as
-    ``chip_smoke.py`` phase 20 takes them."""
+    """(device index, flat probes, reads) of the deep world at ``layout``:
+    its index built into ``cache`` once and laid out once a run; the
+    probes at k=21, w=1 of its first DEEP_QUOT_READS reads (q8, q12) or
+    all DEEP_READS (std), as ``chip_smoke.py`` phase 20 takes them, and
+    those reads' int8 codes on the card."""
     from pangea_tpu_torch.bench import deep_genomes, deep_reads
     from pangea_tpu_torch.classify import DeviceIndex, pad_batch
     from pangea_tpu_torch.index import build_index, load_index_any
+    if layout in _deep:
+        return _deep[layout]
     tax, genomes = deep_genomes()
     if not (cache / "taxonomy.npz").exists():     # written last
         cache.mkdir(parents=True, exist_ok=True)
@@ -211,7 +238,8 @@ def deep_index(torch, dev, cache: Path, layout: str):
     n = DEEP_READS if layout == "std" else DEEP_QUOT_READS
     reads = deep_reads(genomes, DEEP_READS, READ_LEN).seqs[:n]
     b = torch.from_numpy(pad_batch(reads, n, READ_LEN)).to(dev)
-    return di, probes(torch, b, None, 21, 1)
+    _deep[layout] = di, probes(torch, b, None, 21, 1), b
+    return _deep[layout]
 
 
 def multik_world(torch, dev):
@@ -330,7 +358,7 @@ def time_k2(torch, dev, deep: Path | None) -> dict:
     entry("c4_q8", probes(torch, c1, c2, 21, 8), di21)
     if deep is not None:
         for layout in ("q8", "q12"):
-            ddi, dflat = deep_index(torch, dev, deep, layout)
+            ddi, dflat, _ = deep_index(torch, dev, deep, layout)
             entry(f"deep_{layout}", dflat, ddi)
             order = bucket_sort(*dflat, ddi.fused.shape[0], ddi.cfg.k)
             entry(f"deep_{layout}_sorted", dflat, ddi, order)
@@ -374,7 +402,7 @@ def time_k4(torch, dev, deep: Path | None) -> dict:
           lookup_std(*pflat, *ptab))
     timed("packed", lambda: lookup_std(*pflat, *ptab))
     if deep is not None:
-        ddi, dflat = deep_index(torch, dev, deep, "std")
+        ddi, dflat, _ = deep_index(torch, dev, deep, "std")
         dtab = (ddi.fused, ddi.stash, ddi.cfg.ways)
         want = lookup_std_plain(*dflat, *dtab)
         check("deep", want, lookup_std(*dflat, *dtab))
@@ -385,6 +413,69 @@ def time_k4(torch, dev, deep: Path | None) -> dict:
         timed("sorted_deep",
               lambda: lookup_std_sorted(*dflat, *dtab, order=dorder))
         out["n_deep"] = dflat[0].numel()
+    return out
+
+
+def time_sort(torch, dev, deep: Path) -> dict:
+    """K9, K10 and the sorted pairs on the deep world, each held to its
+    plain version first: CUDA-event ms and profiler device ms a call."""
+    from pangea_tpu_torch.kernels import (bucket_sort, bucket_sort_plain,
+                                          lookup_q8_sorted, lookup_q12_sorted,
+                                          lookup_std_sorted, route_bin,
+                                          route_bin_plain)
+    from pangea_tpu_torch.kernels.lookup import bucket_keys
+    from pangea_tpu_torch.kernels.route import owner_of, route_capacity
+    out = {}
+
+    def timed(name, fn, n):
+        split = device_split(torch, fn)
+        out[name] = {"probes": n, "ms": time_ms(torch, fn),
+                     "device_ms": sum(split.values()), "split": split}
+
+    for layout in ("q8", "q12", "std"):
+        di, flat, _ = deep_index(torch, dev, deep, layout)
+        nb, n = di.fused.shape[0], flat[0].numel()
+        k = None if layout == "std" else di.cfg.k
+        records, inv = bucket_sort(*flat, nb, k)
+        want = bucket_sort_plain(*flat, nb, k)
+        keys = bucket_keys(*flat, nb, k)
+        perm = records[:, 0].long()
+        every = torch.arange(n, device=dev)
+        lanes = torch.stack([flat[0], flat[1], flat[2].to(torch.int32)], 1)
+        if not (torch.equal(torch.sort(perm).values, every)
+                and torch.equal(keys[perm], keys[want[0][:, 0].long()])
+                and torch.equal(records[:, 1:], lanes[perm])
+                and torch.equal(inv[perm], every.to(torch.int32))):
+            raise AssertionError(f"sort: K9 on deep {layout} disagrees")
+        timed(f"k9_deep_{layout}", lambda: bucket_sort(*flat, nb, k), n)
+        fn = {"q8": lookup_q8_sorted, "q12": lookup_q12_sorted,
+              "std": lookup_std_sorted}[layout]
+        tab = (di.fused, di.stash,
+               *((di.cfg.ways,) if layout == "std" else
+                 (di.cfg.k, di.cfg.ways) if layout == "q12" else
+                 (di.cfg.k,)))
+        timed(f"pair_deep_{layout}", lambda: fn(*flat, *tab), n)
+    _, flat, _ = deep_index(torch, dev, deep, "q8")
+    n = flat[0].numel()
+    for S in ROUTE_SHARDS:
+        cap = route_capacity(n, S)
+        records, inv, counts = route_bin(*flat, S, cap)
+        _, pinv, pcounts = route_bin_plain(*flat, S, cap)
+        fits = inv >= 0
+        slots = inv[fits].long()
+        used = torch.zeros(records.shape[0], dtype=torch.bool, device=dev)
+        used[slots] = True
+        mine = torch.stack([torch.nonzero(fits)[:, 0].to(torch.int32),
+                            flat[0][fits], flat[1][fits],
+                            torch.ones_like(slots, dtype=torch.int32)], 1)
+        if not (torch.equal(counts, pcounts)
+                and int(fits.sum()) == int((pinv >= 0).sum())
+                and not (fits & ~flat[2]).any()
+                and torch.equal(slots // cap, owner_of(*flat[:2], S)[fits])
+                and torch.equal(records[slots], mine)
+                and not records[~used].any()):
+            raise AssertionError(f"sort: K10 at {S} owners disagrees")
+        timed(f"k10_s{S}", lambda: route_bin(*flat, S, cap), n)
     return out
 
 
@@ -506,7 +597,8 @@ def time_score(torch, dev) -> dict:
     return out
 
 
-def time_steps(torch, dev) -> dict:
+def time_steps(torch, dev, deep: Path | None) -> dict:
+    import os
     from pangea_tpu_torch.classify import Classifier, MultiKClassifier
     out = {}
     for name, kw in (("q8", HEADLINE), ("std", WIDE)):
@@ -520,6 +612,19 @@ def time_steps(torch, dev) -> dict:
     out["config4"] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
                       "back_to_back": time_stats(torch,
                                                  lambda: model(b1, b2))}
+    if deep is not None:
+        for layout in ("q8", "q12", "std"):
+            di, _, b = deep_index(torch, dev, deep, layout)
+            model = Classifier(di)
+            for path, env in (("sorted", "1"), ("unsorted", "0")):
+                os.environ["PANGEA_DEEP_SORT"] = env
+                try:
+                    out[f"deep_{layout}_{path}"] = {
+                        "one": time_stats(torch, lambda: model(b), 1),
+                        "back_to_back": time_stats(torch,
+                                                   lambda: model(b))}
+                finally:
+                    os.environ.pop("PANGEA_DEEP_SORT")
     return out
 
 
@@ -630,8 +735,8 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--deep", type=Path, default=None,
-                    help="time K2 and K4 on the deep tables, their index "
-                         "in DIR")
+                    help="time K2, K4, K9, K10 and the deep steps on the "
+                         "deep world, its index in DIR")
     ap.add_argument("--split", action="store_true",
                     help="split the block copy's host time into parts")
     ap.add_argument("--sections", default=",".join(SECTIONS),
@@ -658,10 +763,12 @@ def main(argv=None) -> int:
         line["k2"] = time_k2(torch, dev, args.deep)
     if "k4" in sections:
         line["k4"] = time_k4(torch, dev, args.deep)
+    if "sort" in sections and args.deep is not None:
+        line["sort"] = time_sort(torch, dev, args.deep)
     if "score" in sections:
         line["score"] = time_score(torch, dev)
     if "steps" in sections:
-        line["steps"] = time_steps(torch, dev)
+        line["steps"] = time_steps(torch, dev, args.deep)
     print(json.dumps(line), flush=True)
     return 0
 

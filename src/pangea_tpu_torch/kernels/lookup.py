@@ -46,6 +46,9 @@ _DEEP_ROWS = 1 << 17
 _DEEP_SLICE = 1 << 15
 # K9 groups probes by bucket >> key_shift(NB): at most 2^KEY_BITS keys.
 KEY_BITS = 10
+# K9 and K10 (csrc/bucket_sort.cu kTile): a block bins a tile of BIN_TILE
+# probes.
+BIN_TILE = 8192
 
 
 def _deep_chunk(n: int, nb: int, row_bytes: int = 512,
@@ -192,13 +195,21 @@ def bucket_sort_plain(hi, lo, valid, nb: int, k: int | None = None):
     return records, inv
 
 
+def k9_scratch(n: int, n_keys: int) -> int:
+    """Int32 entries of K9's key counts for n probes over ``n_keys`` keys:
+    a row a tile of BIN_TILE probes, then the keys' totals."""
+    return (-(-n // BIN_TILE) + 1) * n_keys
+
+
 def bucket_sort(hi, lo, valid, nb: int, k: int | None = None):
     """The probes sorted by bucket, (records, inv) as
     :func:`bucket_sort_plain` returns them: the plain version for CPU
     tensors, kernel K9 (``csrc/bucket_sort.cu``) for CUDA tensors. K9
-    groups the probes by :func:`bucket_keys` in ascending key order; within
-    a key the order is unspecified (each probe's outputs depend on it
-    alone)."""
+    counts each tile's keys, scans the counts key by key over the tiles and
+    writes each tile's records as runs of their keys (tiles of BIN_TILE
+    probes, the counts in :func:`k9_scratch`'s scratch), in ascending
+    :func:`bucket_keys` order; within a key the order is unspecified (each
+    probe's outputs depend on it alone)."""
     dev = _build.dispatch_device(hi, lo, valid)
     if dev is None:
         return bucket_sort_plain(hi, lo, valid, nb, k)
@@ -210,7 +221,8 @@ def bucket_sort(hi, lo, valid, nb: int, k: int | None = None):
                              (1 <= k <= 31 and 0 <= 2 * k - log2nb <= 62)):
         raise ValueError(f"bucket_sort: NB={nb}, k={k}")
     shift = key_shift(nb)
-    counts = torch.empty(nb >> shift, dtype=torch.int32, device=dev)
+    counts = torch.empty(k9_scratch(hi.numel(), nb >> shift),
+                         dtype=torch.int32, device=dev)
     records = torch.empty((hi.numel(), 4), dtype=torch.int32, device=dev)
     inv = torch.empty(hi.numel(), dtype=torch.int32, device=dev)
     _build.launch("pangea_bucket_sort", dev, hi.data_ptr(), lo.data_ptr(),

@@ -10,7 +10,11 @@ home with a zero answer (the reference sends it to owner 0 as padding,
 where it fills owner 0's bin: ROADMAP §C). The records (index, hi, lo,
 valid) go to the owners by one all_to_all; the
 owners' answers come back in slot order, and :func:`route_restore` (K9's
-restore on routed records) puts them in probe order. Within an owner's run
+restore on routed records) puts them in probe order. K10 runs K9's tile
+body (tiles of ``lookup.BIN_TILE`` probes): a tile ranks its probes by
+owner in shared memory, claims each owner's run of slots with one global
+atomic, and writes its records as runs; a tail launch zeroes each owner's
+unused slots, so every slot is written once. Within an owner's run
 K10's order is unspecified (each probe's answer depends on it alone); the
 plain versions rank stably, as the reference's sort does.
 """

@@ -17,8 +17,9 @@ from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
 from pangea_tpu.utils import datagen as ref_datagen
-from pangea_tpu_torch.bench import (chain_taxonomy, k1_edge_world,
-                                    make_bench_world, score_world)
+from pangea_tpu_torch.bench import (K9_EDGE, chain_taxonomy, k1_edge_world,
+                                    k9_edge_world, make_bench_world,
+                                    route_bin_dirty, score_world)
 from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
@@ -923,6 +924,60 @@ def test_route_bin_kernel_matches_plain(cuda, n_shards, cap_frac):
     assert kernel_launches()["route_restore"] == 1
     for a, b in zip(got, route_restore_plain(inv, answers)):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name", list(K9_EDGE))
+def test_k9_k10_edge_worlds_match_plain(cuda, name):
+    """K9 and K10 on their edge cases (bench.k9_edge_world), held to their
+    plain versions as the tests above hold them. K10 runs through its
+    wrapper and again on a grid filled with -1 and an inv filled with -2
+    first (bench.route_bin_dirty), where a slot or an inv the kernel
+    leaves unwritten shows."""
+    from pangea_tpu_torch.kernels import (bucket_sort, bucket_sort_plain,
+                                          route_bin, route_bin_plain)
+    from pangea_tpu_torch.kernels.lookup import bucket_keys
+    from pangea_tpu_torch.kernels.route import owner_of, route_capacity
+    w = k9_edge_world(name)
+    hi, lo = (torch.from_numpy(w[key].view(np.int32)) for key in ("hi", "lo"))
+    valid = torch.from_numpy(w["valid"])
+    n = hi.numel()
+    on = [t.to(cuda) for t in (hi, lo, valid)]
+    reset_kernel_launches()
+    if w["kind"] == "sort":
+        nb, k = w["nb"], w["k"]
+        records, inv = (t.cpu() for t in bucket_sort(*on, nb, k))
+        assert kernel_launches()["bucket_sort"] == 1
+        perm = records[:, 0].long()
+        assert torch.equal(torch.sort(perm).values, torch.arange(n))
+        assert torch.equal(inv[perm], torch.arange(n, dtype=torch.int32))
+        for j, lanes in enumerate((hi, lo, valid.to(torch.int32)), 1):
+            assert torch.equal(records[:, j], lanes[perm])
+        keys = bucket_keys(hi, lo, valid, nb, k)
+        want = keys[bucket_sort_plain(hi, lo, valid, nb, k)[0][:, 0].long()]
+        assert torch.equal(keys[perm], want)
+        return
+    S = w["n_shards"]
+    cap = w["cap"] or route_capacity(n, S)
+    _, pinv, pcounts = route_bin_plain(hi, lo, valid, S, cap)
+    for call in (route_bin, route_bin_dirty):
+        records, inv, counts = (t.cpu() for t in call(*on, S, cap))
+        assert torch.equal(counts, pcounts)
+        fits = inv >= 0
+        assert int(fits.sum()) == int((pinv >= 0).sum())
+        assert not fits[~valid].any() and (inv[~fits] == -1).all()
+        assert torch.equal((inv[fits] // cap).long(),
+                           owner_of(hi, lo, S)[fits])
+        rec = records[inv[fits].long()]
+        assert torch.equal(rec[:, 0],
+                           torch.arange(n, dtype=torch.int32)[fits])
+        assert torch.equal(rec[:, 1], hi[fits])
+        assert torch.equal(rec[:, 2], lo[fits])
+        assert (rec[:, 3] == 1).all()
+        used = torch.zeros(records.shape[0], dtype=torch.bool)
+        used[inv[fits].long()] = True
+        assert int(used.sum()) == int(fits.sum())
+        assert (records[~used] == 0).all()
+    assert kernel_launches()["route_bin"] == 1
 
 
 @pytest.mark.parametrize("n_shards", [2, 4])
