@@ -65,13 +65,16 @@ general path:
      plain versions, bit for bit: K4 on the wide table with 16384 pairs x
      260 probes, on the k=31 packed table and on a table with a forced stash, the wide and packed
      tables timed beside their bounds, each with its launch plan
-     (kernels.lookup.std_plan) in K4's `variants` map; K3-taxon and K5 at
-     two thresholds, K3-taxon also on scorer worlds of U = 1, 8, 64 and R
-     at 16,384 x 260, 64 x 1,180 and 16 x 2,048 (past score_cap(R)
-     distinct intervals, the general branch); K5 also on a 5,251-taxon q8
-     world and on a 5,000-node chain (13 lifting levels);
-  8. the std Classifier at full width: launch counts of K1, K4, K3 and K5,
-     the outputs against the plain path and the planted truth, step times;
+     (kernels.lookup.std_plan) in K4's `variants` map; K3-taxon at two
+     thresholds, also on scorer worlds of U = 1, 8, 64 and R at 16,384 x
+     260, 64 x 1,180 and 16 x 2,048 (past score_cap(R) distinct
+     intervals, the general branch); K5, the scorer's lifted launch, one
+     launch a call, against the plain winners and K5 at two thresholds,
+     timed beside its bound, also on a 5,251-taxon q8 world and on a
+     5,000-node chain (13 lifting levels, the winners deep chain nodes);
+  8. the std Classifier at full width: launch counts of K1, K4, K3 and K5
+     (in K3's launch: four launches of their own), the outputs against
+     the plain path and the planted truth, step times;
   9. the CLI on the std index (written by the port's Index.save) with
      config 2's file and 24,576 pairs, its lines against phase 8's outputs;
  10. torch.profiler over back-to-back std steps;
@@ -81,13 +84,17 @@ general path:
      (remainder below 32 bits), on K2's q12 edge tables (r = 0, 20, 32, 54
      and 62, slots sharing a rem_lo, W = 4 with a forced stash, a
      3,000-column stash; the sizes of phase 3) and on the full-width
-     probes at every swept plan, timed with its plan; K7 on the
-     full-width calls at thresholds 0 and 0.05, on the int32 extreme
-     cases, on conflicting pairs of the 66,563-taxon tree and of the
-     5,000-node chain;
+     probes at every swept plan, timed with its plan; K7, the scorer's
+     merged launch (the k=31 index's K3 with the k=21 index's call as its
+     prior), one launch a call, against the plain scorer and K7 on the
+     full-width calls at thresholds 0 and 0.05, on the int32 extreme cases
+     in the prior, and on reads of the 66,563-taxon tree and of the
+     5,000-node chain merged with conflicting calls, timed beside its
+     bound;
  12. the multi-k step at full width: launch counts (K1 four times, K2 and
-     its q12 form, K3 twice, K7), the outputs against the plain path and
-     the planted truth, step times;
+     its q12 form, K3 twice, K7 in the second: eight launches of their
+     own), the outputs against the plain path and the planted truth, step
+     times;
  13. the CLI on the two indexes (written by the port's Index.save) with
      config 4's file and 24,576 pairs, its lines against phase 12's;
  14. torch.profiler over back-to-back multi-k steps;
@@ -195,9 +202,10 @@ each) and, where w > 1, one hash32 (18: two fmix32 and two xors), plus w
 - 1 compares a window (kernels.minimize.k1_cost). A table
 counts only what this run's probes need: the key lanes of the buckets they
 reach, the payload lanes of the keys they hit and the stash (K2, K2-q12,
-K4; never the pad lanes); for K5 and K7, the depth, parent and lifting
-entries of the lineages its pairs (K7: its conflicting pairs) reach, beside
-their [B] inputs and outputs. K3 and K8 (the scorer) read each probe's
+K4; never the pad lanes); for K5 and K7, the scorer's bytes and
+operations plus the depth, parent and lifting entries of the lineages its
+pairs (K7: its conflicting pairs) reach and, for K7, the prior's three [B]
+inputs. K3 and K8 (the scorer) read each probe's
 13 bytes once and write their [B] outputs once; their operations are the
 least of the exact form they run: one key a probe and U^2 compares a read
 over its U distinct (t_in, t_out) intervals (U counted from this run's
@@ -304,7 +312,11 @@ PRIMARY_GATHERS = ("gather2_d16_c512", "gather5_hbm2hbm_d16_c4096",
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 INT8_TC_OPS_PER_S = 1979e12   # dense int8 tensor cores: K12's product line
-# name -> (kernel source, the reference function it replaces)
+# name -> (kernel source, the reference function it replaces). lca_lift
+# (K5) and merge_multik (K7) are the scorer's lifted and merged tails
+# (csrc/common.cuh score_tail): their counts are scorer launches that the
+# scorer's own count holds too (TAIL_KERNELS).
+TAIL_KERNELS = ("lca_lift", "merge_multik")
 KERNELS = {
     "extract_probes": ("src/pangea_tpu_torch/csrc/extract_probes.cu",
                        "src/pangea_tpu/kernels/encode.py:100"),
@@ -316,11 +328,11 @@ KERNELS = {
                    "src/pangea_tpu/kernels/lookup.py:94"),
     "score_taxon": ("src/pangea_tpu_torch/csrc/score_tin.cu",
                     "src/pangea_tpu/kernels/score.py:221"),
-    "lca_lift": ("src/pangea_tpu_torch/csrc/lca_lift.cu",
+    "lca_lift": ("src/pangea_tpu_torch/csrc/common.cuh",
                  "src/pangea_tpu/kernels/score.py:127"),
     "lookup_q12": ("src/pangea_tpu_torch/csrc/lookup_q8.cu",
                    "src/pangea_tpu/kernels/lookup.py:629"),
-    "merge_multik": ("src/pangea_tpu_torch/csrc/merge_multik.cu",
+    "merge_multik": ("src/pangea_tpu_torch/csrc/common.cuh",
                      "src/pangea_tpu/classify/merge.py:39"),
     "score_ranked": ("src/pangea_tpu_torch/csrc/score_ranked.cu",
                      "src/pangea_tpu/kernels/score.py:71"),
@@ -949,12 +961,14 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
     b1, b2 = world["b1"], world["b2"]
     model = world["model"]
     reset_kernel_launches()
-    out = model(b1, b2)
+    out, names = count_launches(lambda: model(b1, b2))
     torch.cuda.synchronize()
     launches = kernel_launches()
-    log(f"[{tag}] kernel launches in one {world['name']} step: {launches}")
-    if launches != want_launches:
-        raise AssertionError(f"launches {launches}, want {want_launches}")
+    log(f"[{tag}] kernel launches in one {world['name']} step: {launches}; "
+        f"{len(names)} launches of their own: {names}")
+    if launches != want_launches or len(names) != own_launches(launches):
+        raise AssertionError(f"launches {launches} ({len(names)} of their "
+                             f"own), want {want_launches}")
     out = {k: v.cpu() for k, v in out.items()}
     for k, v in out.items():
         if v.dtype != torch.int32 or tuple(v.shape) != (BATCH,):
@@ -1124,7 +1138,7 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     from pangea_tpu_torch.index import extract_pairs
     from pangea_tpu_torch.index.build import layout_table
     from pangea_tpu_torch.kernels import (extract_probes_plain, fuse_stash,
-                                          fuse_table, hash32, lca_lift,
+                                          fuse_table, hash32,
                                           lca_lift_plain, lookup_q8,
                                           lookup_std, lookup_std_plain,
                                           score_reads_taxon,
@@ -1228,9 +1242,8 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     for R3, B3 in K3_SHAPES:
         check_u_worlds(torch, res, "score_taxon", "7", B3, R3, (True,), cuda)
     for thr in THRESHOLDS:
-        res.check("lca_lift", f"7 wide, threshold {thr}",
-                  lca_lift_plain(*winners, di.tax, thr, True),
-                  lca_lift(*winners, di.tax, thr, True))
+        check_lifted(res, f"7 wide, threshold {thr}", args, di.tax, thr,
+                     True, winners)
     # The direct form, on the k=31 packed lookups (68 taxa).
     ptaxon, pt_in, pt_out = (t.reshape(phi.shape) for t in pwant)
     for thr in THRESHOLDS:
@@ -1241,51 +1254,116 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
                                     thr))
     levels = di.tax["up"].shape[0]
     need = lineage_bytes(torch, winners[0], winners[1], di.tax)
-    log(f"[7] lca_lift reaches {need} B of the taxonomy's lifting, parent "
+    log(f"[7] the lift reaches {need} B of the taxonomy's lifting, parent "
         "and depth tables")
+    ops = score_ops(taxon, t_in, t_out)
     res.time(torch, "score_taxon", "7 wide winners",
              lambda: score_winners(*args, True),
              lambda: score_winners_plain(*args, True),
-             nbytes=B * R * 13 + B * 24,
-             ops=score_ops(taxon, t_in, t_out),
+             nbytes=B * R * 13 + B * 24, ops=ops,
              plain_calls=1, plain_reps=PLAIN_REPS)
-    res.time(torch, "lca_lift", "7 wide",
-             lambda: lca_lift(*winners, di.tax, 0.0, True),
-             lambda: lca_lift_plain(*winners, di.tax, 0.0, True),
-             nbytes=B * 20 + need, ops=B * (levels * 8 + 24),
+    # The lifted launch: the scorer's bytes, the lifting entries the lift
+    # reaches and three [B] outputs.
+    res.time(torch, "lca_lift", "7 wide, the scorer's lifted launch",
+             lambda: score_reads_taxon(*args, di.tax, 0.0),
+             lambda: lca_lift_plain(*score_winners_plain(*args, True),
+                                    di.tax, 0.0, True),
+             nbytes=B * R * 13 + need + B * 12,
+             ops=ops + B * (levels * 8 + 24),
              plain_calls=1, plain_reps=PLAIN_REPS)
 
-    # K5 behind K3's q8 form on the 5,251-taxon q8 world.
+    # K5 in K3's q8 form on the 5,251-taxon q8 world.
     qdi = q8l["di"]
     qhi, qlo, qvalid = probes(torch, q8l, Q8_LIFT["k"], Q8_LIFT["w"])
     hits = [t.reshape(qhi.shape) for t in lookup_q8(
         qhi.reshape(-1), qlo.reshape(-1), qvalid.reshape(-1), qdi.fused,
         qdi.stash, Q8_LIFT["k"])]
-    qwin = score_winners_plain(*hits, qvalid, False)
     for thr in THRESHOLDS:
         res.check("score_tin", f"7 q8 lifting, threshold {thr}",
                   score_reads_tin_plain(*hits, qvalid, qdi.tax, thr),
                   score_reads_tin(*hits, qvalid, qdi.tax, thr))
-        res.check("lca_lift", f"7 q8 lifting, threshold {thr}",
-                  lca_lift_plain(*qwin, qdi.tax, thr, False),
-                  lca_lift(*qwin, qdi.tax, thr, False))
-    # K5 on a chain deep enough for 13 lifting levels: random pairs.
+        check_lifted(res, f"7 q8 lifting, threshold {thr}",
+                     (*hits, qvalid), qdi.tax, thr, False)
+    # K5 on a chain deep enough for 13 lifting levels, its winners two
+    # random deep chain nodes a read.
     ctax = chain_tax(torch, cuda)
     g = torch.Generator(device="cpu").manual_seed(5)
-    u, v = (torch.randint(0, CHAIN_NODES + 1, (B,), generator=g,
-                          dtype=torch.int32).to(cuda) for _ in range(2))
-    best = torch.randint(0, 4, (B,), generator=g, dtype=torch.int32).to(cuda)
-    nvalid = best + torch.randint(0, 4, (B,), generator=g,
-                                  dtype=torch.int32).to(cuda)
-    cargs = (u, v, ctax["tin"][u.long()], ctax["tin"][v.long()], best,
-             nvalid)
+    cargs = chain_reads(torch, ctax, B, 32, g)
     log(f"[7] chain: {CHAIN_NODES} nodes, {ctax['up'].shape[0]} lifting "
-        "levels")
+        f"levels, {B} reads of 32 probes")
     for thr in THRESHOLDS:
-        res.check("lca_lift", f"7 chain, threshold {thr}",
-                  lca_lift_plain(*cargs, ctax, thr, True),
-                  lca_lift(*cargs, ctax, thr, True))
+        for taxon_lanes in (True, False):
+            lanes = cargs[0] if taxon_lanes else (cargs[0] != 0).to(
+                torch.int32)
+            check_lifted(res, f"7 chain, threshold {thr}",
+                         (lanes, *cargs[1:]), ctax, thr, taxon_lanes)
     res.assert_clean(("lookup_std", "score_taxon", "lca_lift", "score_tin"))
+
+
+def check_lifted(res: Results, what: str, args, tax: dict, thr: float,
+                 taxon_lanes: bool, winners=None) -> None:
+    """The scorer's lifted launch (past 4,096 taxa) against the plain
+    winners and K5: (taxon, best, nvalid), one launch."""
+    from pangea_tpu_torch.kernels import (lca_lift_plain, score_reads_taxon,
+                                          score_reads_tin,
+                                          score_winners_plain)
+    if winners is None:
+        winners = score_winners_plain(*args, taxon_lanes)
+    want = (lca_lift_plain(*winners, tax, thr, taxon_lanes), winners[4],
+            winners[5])
+    fn = score_reads_taxon if taxon_lanes else score_reads_tin
+    got, names = count_launches(lambda: fn(*args, tax, thr))
+    if len(names) != 1:
+        raise AssertionError(f"{what}: launches {names}, want one scorer")
+    res.check("lca_lift", f"{what}, {'taxon' if taxon_lanes else 'q8'}",
+              want, got)
+
+
+def chain_reads(torch, tax: dict, B: int, R: int, g):
+    """[B, R] scorer inputs on a chain taxonomy whose winners are two
+    random deep chain nodes a read: R // 4 hits on each node's unit
+    interval [tin, tin + 1), so that the two tie; the hits' lanes random
+    chain nodes (the taxon form's u and v), the rest misses. Read 0 has
+    no hit and read 1 no valid probe."""
+    n = tax["tin"].numel() - 1
+    nodes = torch.randint(1, n + 1, (B, 2), generator=g)
+    which = torch.full((B, R), -1)
+    which[:, :R // 4] = 0
+    which[:, R // 4:R // 2] = 1
+    which = which.gather(1, torch.rand((B, R), generator=g).argsort(1))
+    node = torch.where(which >= 0, nodes.gather(1, which.clamp(min=0)), 0)
+    t_in = torch.where(which >= 0, tax["tin"].cpu()[node], 0)
+    t_out = torch.where(which >= 0, t_in + 1, 0)
+    lanes = torch.where(which >= 0, torch.randint(1, n + 1, (B, R),
+                                                  generator=g), 0)
+    lanes[0] = 0
+    valid = (torch.rand((B, R), generator=g) < 0.8) | (lanes != 0)
+    valid[1] = False
+    dev = tax["tin"].device
+    return tuple(t.to(torch.int32).to(dev) for t in (lanes, t_in, t_out)) \
+        + (valid.to(dev),)
+
+
+def count_launches(fn):
+    """fn's result and the names of the launchers it called through
+    ``kernels._build.launch``: the kernel launches themselves."""
+    from pangea_tpu_torch.kernels import _build
+    real, names = _build.launch, []
+
+    def spy(name, *args):
+        names.append(name)
+        return real(name, *args)
+    _build.launch = spy
+    try:
+        return fn(), names
+    finally:
+        _build.launch = real
+
+
+def own_launches(counts: dict) -> int:
+    """The launches the wrappers' counts stand for: the tails' counts are
+    scorer launches, which the scorer counts too."""
+    return sum(n for k, n in counts.items() if k not in TAIL_KERNELS)
 
 
 def _check_q12(res: Results, what: str, args, k: int, ways: int):
@@ -1298,12 +1376,12 @@ def _check_q12(res: Results, what: str, args, k: int, ways: int):
 def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
     import dataclasses
 
-    from pangea_tpu_torch.classify import (classify_reads, merge_multik,
-                                           merge_multik_plain)
+    from pangea_tpu_torch.classify import classify_reads, merge_multik_plain
     from pangea_tpu_torch.index import extract_pairs, relayout_q12
     from pangea_tpu_torch.index.quot import Q12_WAYS, q12_layout
     from pangea_tpu_torch.kernels import (fuse_stash, lookup_q12,
-                                          lookup_q12_plain, lookup_q12_sorted)
+                                          lookup_q12_plain, lookup_q12_sorted,
+                                          score_reads_plain, score_reads_tin)
     from pangea_tpu_torch.kernels.lookup import (_q8_split, _q12_geometry,
                                                  narrow, widen)
     from pangea_tpu_torch.utils import datagen
@@ -1399,61 +1477,102 @@ def phase_multik_kernels(torch, world, cuda, res: Results) -> None:
              plan=k2_plan(N, fused, stash, True))
     log_bound(res, "lookup_q12", "c4_full_width", "11")
 
-    # K7 on the full-width calls of both indexes, at two thresholds.
+    # K7 in the scorer's launch: the k=31 index's call merged with the
+    # k=21 index's over its taxonomy, at full width and two thresholds.
     b1, b2 = world["b1"], world["b2"]
+    v31 = valid
+    hits31 = tuple(t.reshape(B, R) for t in want)
+    keys = ("taxon", "best", "nvalid")
     for thr in THRESHOLDS:
-        calls = [classify_reads(di.tables, b1, dataclasses.replace(
-                     di.cfg, confidence_threshold=thr), mate_bases=b2)
-                 for di in (di21, di31)]
-        res.check("merge_multik", f"11 full width, threshold {thr}",
-                  merge_multik_plain(*calls, di21.tax).values(),
-                  merge_multik(*calls, di21.tax).values())
-    t1, t2 = calls[0]["taxon"], calls[1]["taxon"]
+        first = classify_reads(di21.tables, b1, dataclasses.replace(
+            di21.cfg, confidence_threshold=thr), mate_bases=b2)
+        check_merged(res, f"11 full width, threshold {thr}",
+                     (*hits31, v31), di31.tax, thr, first, di21.tax)
+    own = dict(zip(keys, score_reads_plain(*hits31, v31, di31.tax,
+                                           di31.cfg.confidence_threshold,
+                                           False)))
+    t1, t2 = first["taxon"], own["taxon"]
     conflict = (t1 != 0) & (t2 != 0) & (t1 != t2)
     agree = (t1 != 0) & (t1 == t2)
     log(f"[11] merge_multik on {B} pairs: {int(agree.sum())} agree, "
         f"{int(conflict.sum())} conflict, "
         f"{int(((t1 == 0) != (t2 == 0)).sum())} one-sided")
-    # The int32 extreme cases, on config 4's taxonomy.
-    ext = [{key: torch.tensor([c[j][i] for c in MERGE_EXTREMES],
-                              dtype=torch.int32, device=cuda)
-            for i, key in enumerate(("taxon", "best", "nvalid"))}
-           for j in (0, 1)]
-    res.check("merge_multik", "11 int32 extremes",
-              merge_multik_plain(*ext, di21.tax).values(),
-              merge_multik(*ext, di21.tax).values())
-    # Conflicting pairs across the 66,563-taxon tree and the chain.
+    # The int32 extreme cases in the prior, on config 4's taxonomy; the
+    # n1 + n2 wrap on reads the k=31 call leaves unclassified.
+    n = len(MERGE_EXTREMES)
+    none = torch.nonzero((t2 == 0) & (own["nvalid"] > 0)).flatten()[:2]
+    rows = torch.cat([torch.arange(n, device=cuda), none])
+    ext = {key: torch.tensor([c[0][i] for c in MERGE_EXTREMES]
+                             + [0] * none.numel(), dtype=torch.int32,
+                             device=cuda)
+           for i, key in enumerate(keys)}
+    ext["nvalid"][n:] = 2**31 - 1
+    log(f"[11] the int32 extremes: {n} prior calls, and the n1 + n2 wrap on "
+        f"{none.numel()} reads the k=31 call leaves unclassified")
+    check_merged(res, "11 int32 extremes",
+                 tuple(t[rows] for t in (*hits31, v31)), di31.tax,
+                 di31.cfg.confidence_threshold, ext, di21.tax)
+    # Conflicting calls across the 66,563-taxon tree and the chain, both
+    # scored (lifted) and merged over the same tree.
     wide = datagen.make_taxonomy(2, *WIDE["tree"], seed=0)
     for name, deep in (("66,563-taxon tree", {
             k: torch.from_numpy(v).to(cuda)
             for k, v in wide.device_arrays().items()}),
             (f"{CHAIN_NODES}-node chain", chain_tax(torch, cuda))):
         T = deep["tin"].numel() - 1
-        u, v = (torch.randint(1, T + 1, (B,), generator=g,
-                              dtype=torch.int32).to(cuda) for _ in range(2))
-        n = torch.randint(1, 300, (2, B), generator=g,
+        reads = (lineage_lanes(torch, deep, B, 32, g) if T > CHAIN_NODES
+                 else chain_reads(torch, deep, B, 32, g))
+        u = torch.randint(1, T + 1, (B,), generator=g,
                           dtype=torch.int32).to(cuda)
-        calls = [{"taxon": t, "best": (n[j] * 3) // 4, "nvalid": n[j]}
-                 for j, t in enumerate((u, v))]
-        res.check("merge_multik", f"11 {name}, levels "
-                  f"{deep['up'].shape[0]}",
-                  merge_multik_plain(*calls, deep).values(),
-                  merge_multik(*calls, deep).values())
+        nv = torch.randint(1, 300, (B,), generator=g,
+                           dtype=torch.int32).to(cuda)
+        prior = {"taxon": u, "best": (nv * 3) // 4, "nvalid": nv}
+        # Reads 0 and 1 have no hit: both calls unclassified, the n1 + n2
+        # wrap on read 0 (which has valid probes).
+        for key, vals in (("taxon", (0, 0)), ("best", (0, 0)),
+                          ("nvalid", (2**31 - 1, 50000))):
+            prior[key][:2] = torch.tensor(vals, dtype=torch.int32)
+        check_merged(res, f"11 {name}, levels {deep['up'].shape[0]}",
+                     reads, deep, 0.05, prior, deep)
     # Timing on the full-width calls at config 4's threshold.
-    calls = [classify_reads(di.tables, b1, di.cfg, mate_bases=b2)
-             for di in (di21, di31)]
-    t1, t2 = calls[0]["taxon"], calls[1]["taxon"]
+    thr = di31.cfg.confidence_threshold
+    first = classify_reads(di21.tables, b1, di21.cfg, mate_bases=b2)
+    t1 = first["taxon"]
     conflict = (t1 != 0) & (t2 != 0) & (t1 != t2)
     need = lineage_bytes(torch, t1[conflict], t2[conflict], di21.tax)
     levels = di21.tax["up"].shape[0]
-    log(f"[11] merge_multik's {int(conflict.sum())} conflicts reach {need} B "
+    T1 = di31.tax["tin"].numel()
+    log(f"[11] the merge's {int(conflict.sum())} conflicts reach {need} B "
         "of the lifting, parent and depth tables")
-    res.time(torch, "merge_multik", "11",
-             lambda: merge_multik(*calls, di21.tax),
-             lambda: merge_multik_plain(*calls, di21.tax),
-             nbytes=B * 36 + need,
-             ops=B * 20 + int(conflict.sum()) * levels * 8)
+    # The merged launch: K3's direct launch, the prior's three [B] inputs
+    # and the lifting entries its conflicts reach.
+    res.time(torch, "merge_multik", "11, the scorer's merged launch",
+             lambda: score_reads_tin(*hits31, v31, di31.tax, thr,
+                                     prior=(first, di21.tax)),
+             lambda: merge_multik_plain(first, dict(zip(keys, (
+                 score_reads_plain(*hits31, v31, di31.tax, thr, False)))),
+                 di21.tax),
+             nbytes=B * R * 13 + 12 * T1 + 24 * B + need,
+             ops=score_ops(*hits31) + B * T1 * 6 + B * 20
+             + int(conflict.sum()) * levels * 8,
+             plain_calls=1, plain_reps=PLAIN_REPS)
     res.assert_clean(("lookup_q12", "lookup_q12_sorted", "merge_multik"))
+
+
+def check_merged(res: Results, what: str, args, tax: dict, thr: float,
+                 prior: dict, merge_tax: dict) -> None:
+    """The scorer's merged launch (K3's q8 form, prior given) against the
+    plain scorer and K7: (taxon, best, nvalid), one launch."""
+    from pangea_tpu_torch.classify import merge_multik_plain
+    from pangea_tpu_torch.kernels import score_reads_plain, score_reads_tin
+    own = score_reads_plain(*args, tax, thr, False)
+    want = merge_multik_plain(prior, dict(zip(("taxon", "best", "nvalid"),
+                                              own)), merge_tax)
+    got, names = count_launches(lambda: score_reads_tin(
+        *args, tax, thr, prior=(prior, merge_tax)))
+    if len(names) != 1:
+        raise AssertionError(f"{what}: launches {names}, want one scorer")
+    res.check("merge_multik", what, want.values(), got)
 
 
 def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
@@ -1593,14 +1712,16 @@ def phase_long_step(torch, wide, cuda, card: str, mix) -> dict:
             b = torch.from_numpy(bases).to(cuda)
             R = probe_width(b.shape[1], WIDE["k"], WIDE["w"])
             reset_kernel_launches()
-            out = model(b)
+            out, names = count_launches(lambda: model(b))
             torch.cuda.synchronize()
+            # K5 in the scorer's launch: three launches a bucket.
             want = {**none, "extract_probes": 1, "lookup_std": 1,
                     "lca_lift": 1,
                     "score_ranked" if R > MAX_PROBES else "score_taxon": 1}
-            if kernel_launches() != want:
+            if kernel_launches() != want or len(names) != 3:
                 raise AssertionError(f"launches at {tuple(b.shape)}: "
-                                     f"{kernel_launches()}, want {want}")
+                                     f"{kernel_launches()} ({names}), want "
+                                     f"{want}")
             mism, _ = compare([v for v in wide["plain"](b, None).values()],
                               list(out.values()))
             if mism:

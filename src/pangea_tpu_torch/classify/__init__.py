@@ -1,7 +1,7 @@
 from .engine import (Classifier, ClassifyConfig, DeviceIndex,
                      MultiKClassifier, classify_multik, classify_reads,
                      make_classify_fn, make_multik_classify_fn, pad_batch)
-from .merge import merge_multik, merge_multik_plain
+from ..kernels.score import merge_multik, merge_multik_plain
 
 __all__ = ["Classifier", "ClassifyConfig", "DeviceIndex", "MultiKClassifier",
            "classify_multik", "classify_reads", "make_classify_fn",

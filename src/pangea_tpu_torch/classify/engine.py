@@ -9,8 +9,9 @@ rank). A batch is an int8 [B, L] code tensor (pad =
 at the probe level, mate 1 first (SEMANTICS.md §8), and ``nvalid`` counts
 the valid windows over both mates. On CUDA tensors the step is K1 (or its
 packed form) once a mate, then K2 (q8), K2's q12 form (q12) or K4 (std),
-then K3 (K8 past 2,048 probes a read), plus K5 when the taxonomy has more
-than 4,096 entries; on CPU tensors it is their plain versions. A table past
+then K3 (K8 past 2,048 probes a read), whose launch lifts the LCA (K5)
+when the taxonomy has more than 4,096 entries; on CPU tensors it is their
+plain versions. A table past
 the reference's deep-table gate (``kernels.lookup.takes_sorted``, with N =
 B * R probes of the step) takes the sorted lookup instead: K9 sorts the
 probes by bucket, then the sorted form of K2 or K4 probes them.
@@ -18,8 +19,9 @@ probes by bucket, then the sorted form of K2 or K4 probes them.
 The multi-k step (the one-device counterpart of ``pangea_tpu/dist/mesh.py``
 ``make_multik_sharded_classify_fn``) classifies the same batch against
 several indexes built on one taxonomy and folds their calls left to right
-with the SEMANTICS.md §9 merge (K7 on CUDA tensors), over the first index's
-taxonomy arrays.
+with the SEMANTICS.md §9 merge over the first index's taxonomy arrays: each
+index after the first is scored with the running call as its prior, so
+that on CUDA tensors its scorer's launch merges (K7).
 """
 from __future__ import annotations
 
@@ -48,7 +50,6 @@ from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
                              score_reads_tin, score_reads_tin_plain)
-from .merge import merge_multik, merge_multik_plain
 
 # The taxonomy arrays the scorer reads (Taxonomy.device_arrays).
 TAX_KEYS = ("tin", "tout", "depth", "parent", "up", "tin2node")
@@ -275,34 +276,40 @@ def probe_tables(tables: dict, hi, lo, valid, cfg: ClassifyConfig,
 
 
 def score_hits(hits, valid, tax: dict, cfg: ClassifyConfig,
-               plain: bool = False) -> dict:
+               plain: bool = False, prior=None) -> dict:
     """The per-read score of the hits (hits, valid [B, R]): dict(taxon,
-    best, nvalid) int32 [B]."""
+    best, nvalid) int32 [B], merged with ``prior`` where given (the
+    scorers' ``prior``: an earlier call and its merge's taxonomy
+    arrays)."""
     if cfg.layout == "std":
         score = score_reads_taxon_plain if plain else score_reads_taxon
     else:
         score = score_reads_tin_plain if plain else score_reads_tin
-    taxon, best, nvalid = score(*hits, valid, tax, cfg.confidence_threshold)
+    taxon, best, nvalid = score(*hits, valid, tax, cfg.confidence_threshold,
+                                prior)
     return {"taxon": taxon, "best": best, "nvalid": nvalid}
 
 
 def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
                    mate_bases=None, packed_len: int = 0,
                    plain: bool = False, shard_id: int = 0,
-                   merge_hits=None) -> dict:
+                   merge_hits=None, prior=None) -> dict:
     """The read -> assignment step. tables: :attr:`DeviceIndex.tables`;
     packed_len=L: the inputs are packed wire rows of L bases. plain=True
     runs the plain PyTorch versions on any device (the reference the
     kernels are held to). On one shard of a sharded table, shard_id names
     it and merge_hits, applied to the hits triple before scoring, merges
-    the shards' hits (the sharded steps' all-reduce). Returns dict(taxon,
-    best, nvalid) int32 [B]."""
+    the shards' hits (the sharded steps' all-reduce). prior: None, or
+    (call, merge_tax), an earlier call dict(taxon, best, nvalid) int32 [B]
+    that this one merges with (SEMANTICS.md §9, the earlier call as res1)
+    over the taxonomy arrays merge_tax. Returns dict(taxon, best, nvalid)
+    int32 [B]."""
     hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
                                     packed_len)
     hits = probe_tables(tables, hi, lo, valid, cfg, shard_id, plain)
     if merge_hits is not None:
         hits = merge_hits(hits)
-    return score_hits(hits, valid, tables["tax"], cfg, plain)
+    return score_hits(hits, valid, tables["tax"], cfg, plain, prior)
 
 
 class Classifier(nn.Module):
@@ -353,16 +360,16 @@ def classify_multik(tables_tuple, bases, cfgs, *, mate_bases=None,
     """The multi-k step: :func:`classify_reads` of the same batch against
     each index in order (``tables_tuple`` holds each
     :attr:`DeviceIndex.tables`, ``cfgs`` each config), folded left to right
-    by the merge over the first index's taxonomy arrays. plain=True runs
-    the plain versions throughout. Returns dict(taxon, best, nvalid) int32
-    [B]."""
-    merge = merge_multik_plain if plain else merge_multik
+    by the merge over the first index's taxonomy arrays: each later
+    index's call merges with the running one in its scorer (``prior``).
+    plain=True runs the plain versions throughout. Returns dict(taxon,
+    best, nvalid) int32 [B]."""
     res = None
     for tables, cfg in zip(tables_tuple, cfgs, strict=True):
-        out = classify_reads(tables, bases, cfg, mate_bases=mate_bases,
-                             packed_len=packed_len, plain=plain)
-        res = out if res is None else merge(res, out,
-                                            tables_tuple[0]["tax"])
+        res = classify_reads(
+            tables, bases, cfg, mate_bases=mate_bases, packed_len=packed_len,
+            plain=plain,
+            prior=None if res is None else (res, tables_tuple[0]["tax"]))
     return res
 
 

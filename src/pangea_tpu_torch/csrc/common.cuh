@@ -25,8 +25,8 @@ __device__ __forceinline__ uint32_t hash32(uint32_t hi, uint32_t lo) {
 // u == 0 -> v, v == 0 -> u; otherwise lift the deeper of (u, v) by the depth
 // difference bit by bit from the top level, and if they differ move both
 // while up[l] differs; the LCA is the common node, or the parent of the last
-// pair. parent/depth int32 [T1], up int32 [levels, T1]. Shared by K5
-// (lca_lift.cu) and K7 (merge_multik.cu).
+// pair. parent/depth int32 [T1], up int32 [levels, T1]. The scorer's lifted
+// and merged tails (score_tail below: K5 and K7) call it.
 __device__ __forceinline__ int lca_lift_pair(
     int u, int v, const int32_t* __restrict__ parent,
     const int32_t* __restrict__ depth, const int32_t* __restrict__ up,
@@ -257,10 +257,43 @@ inline unsigned int blocks_for(long long n, long long per) {
 // slot's) takes the form's exact general branch (Form::general: K3's
 // quadratic count, K8's sort) in the same launch, and the launch adds one
 // to *general for each such read.
+//
+// The tail (score_tail) turns the winners into the read's outputs in the
+// same launch, in one of three forms (ScoreTail): the winners themselves
+// (six [B] arrays); the direct LCA, a scan over T1 <= 4096 taxa; or the
+// lifted LCA, K5 (below). Every form that writes a taxon may merge it with
+// an earlier call, K7 (below).
+//
+// K5, the lifted tail: replaces the XLA-compiled reference function
+//   src/pangea_tpu/kernels/score.py:127  lca_pairs_jnp (B12)
+// as _score_impl uses it past _DIRECT_LCA_MAX_TAXA (score.py:204-217), with
+// the q8 path's node recovery through tin2node (:207-212). Rank 0 of the
+// read's group recovers u and v (q8: has ? tin2node[clamp(tin, 0, M-1)] :
+// 0), lifts their LCA (lca_lift_pair) and applies the threshold. Its bound
+// is 2 x levels dependent reads of the up table (levels x T1 x 4 B, 0.5 MB
+// at 66,563 taxa, held by L2) a read; in the scorer's launch they overlap
+// the other reads' scoring on every SM, where a launch of their own ran
+// B / 256 blocks of them alone, after a round trip of six [B] arrays
+// through HBM.
+//
+// K7, the merged tail: replaces the XLA-compiled reference function
+//   src/pangea_tpu/classify/merge.py:39  merge_multik_jnp (B13)
+// (with _mul_u64 :16 and _ge_u64 :35), the rules of docs/SEMANTICS.md §9,
+// with an earlier call (prior, the reference's res1) over the first
+// index's taxonomy (m_parent, m_depth, m_up): x1 = b1 * n2 and x2 = b2 * n1
+// exactly, in int64 (the TPU compared 16-bit limb products). Both
+// unclassified: (0, 0, n1 + n2), the sum wrapping in 32 bits. Agreement:
+// the taxon, with (best, nvalid) of the prior if x1 >= x2. Conflict: the
+// LCA, with (best, nvalid) of the prior if x1 <= x2 (a tie goes to the
+// prior). One-sided: the classified call's triple. It reads three [B]
+// arrays more and walks the lifting table on a conflict, in place of a
+// launch that read six [B] arrays and wrote three.
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kScoreMaxCap = 128;    // a lane keeps cap / 32 entries' pscores
 constexpr int kScoreMaxReads = 8;    // reads a block (one warp each)
+constexpr int kScoreDirectMaxTaxa = 4096;   // the direct tail's T1; lifted
+                                            // beyond
 // An empty slot: the key of (t_in, t_out) = (INT_MIN, INT_MIN), which a read
 // that carries it sends to the general branch.
 constexpr unsigned long long kEmptyKey = 0x8000000080000000ull;
@@ -273,6 +306,9 @@ __host__ __device__ __forceinline__ int score_slots(int cap) {
   return s;
 }
 
+// The scorer's tails (score_tail).
+enum ScoreTail { kWinnersTail, kDirectTail, kLiftedTail };
+
 struct ScoreArgs {
   const int32_t* lanes;
   const int32_t* t_in;
@@ -282,14 +318,28 @@ struct ScoreArgs {
   int wpr, cap, per_read;            // score_plan; per_read: shared bytes
   int rpad;                          // K8's sort width (0 for K3)
   int32_t* scratch;                  // K8's sort in device memory, or null
-  const int32_t* tin;
+  const int32_t* tin;                // the direct tail's scan
   const int32_t* tout;
-  const int32_t* depth;
+  const int32_t* depth;              // [T1]: the direct and lifted tails
   int T1;
+  const int32_t* parent;             // the lifted tail: [T1]
+  const int32_t* up;                 // [levels, T1]
+  int levels;                        // > 0 selects the lifted tail
+  const int32_t* tin2node;           // [M]: q8 winners' nodes
+  int M;
   float thr;
   int32_t* o[6];
   int* general;                      // += reads that took the general branch
+  const int32_t* prior[3];           // the merge: taxon, best, nvalid [B]
+  const int32_t* m_parent;           // the merge's taxonomy: [m_T1]
+  const int32_t* m_depth;
+  const int32_t* m_up;               // [m_levels, m_T1]
+  int m_levels, m_T1;
 };
+
+inline int score_tail_of(const ScoreArgs& a) {
+  return a.levels > 0 ? kLiftedTail : a.T1 > 0 ? kDirectTail : kWinnersTail;
+}
 
 // The per-read state, in shared memory.
 struct ReadState {
@@ -547,15 +597,38 @@ __device__ void group_winners(const ScoreGroup& g, ReadState* st, int R,
   g.sync();
 }
 
-// After the winners: the direct LCA scan over the T1 taxa and the threshold
-// (kDirect: o0..o2 = taxon, best, nvalid), or the winners form (o0..o5 =
-// u, v, tin_u, tin_v, best, nvalid) that K5 lifts.
-template <bool kTaxon, bool kDirect>
+// K7: merges an earlier call (t1, b1, n1) into the read's (t2, b2, n2), in
+// place (see above).
+__device__ __forceinline__ void merge_call(int t1, int b1, int n1, int& t2,
+                                           int& b2, int& n2,
+                                           const ScoreArgs& a) {
+  const long long x1 = static_cast<long long>(b1) * n2;
+  const long long x2 = static_cast<long long>(b2) * n1;
+  const bool both0 = t1 == 0 && t2 == 0;
+  const bool agree = t1 != 0 && t1 == t2;
+  const bool conflict = t1 != 0 && t2 != 0 && t1 != t2;
+  const bool keep1 = agree ? x1 >= x2 : conflict ? x1 <= x2 : t1 != 0;
+  const int t = conflict ? lca_lift_pair(t1, t2, a.m_parent, a.m_depth,
+                                         a.m_up, a.m_levels, a.m_T1)
+                         : (t1 != 0 ? t1 : t2);
+  const int n = both0 ? static_cast<int>(static_cast<uint32_t>(n1) +
+                                         static_cast<uint32_t>(n2))
+                      : keep1 ? n1 : n2;
+  b2 = both0 ? 0 : keep1 ? b1 : b2;
+  n2 = n;
+  t2 = t;
+}
+
+// After the winners, by kTail: the winners form (o0..o5 = u, v, tin_u,
+// tin_v, best, nvalid); or the direct LCA scan over the T1 taxa, or the
+// lifted LCA (K5), then the threshold and, given a prior, the merge (K7):
+// o0..o2 = taxon, best, nvalid.
+template <bool kTaxon, int kTail>
 __device__ void score_tail(const ScoreGroup& g, ReadState* st,
                            const ScoreArgs& a, int b) {
   const int best = st->best;
   const int tu = st->tin_u, tv = st->tin_v;
-  if (kDirect && best > 0) {
+  if (kTail == kDirectTail && best > 0) {
     // Key orders by depth, then by the smaller taxon index: the maximum
     // key is the first-index argmax of the masked depth.
     unsigned long long key = 0ull;
@@ -572,30 +645,46 @@ __device__ void score_tail(const ScoreGroup& g, ReadState* st,
   }
   g.sync();
   if (g.rank == 0) {
-    const int nvalid = st->nvalid;
+    int nvalid = st->nvalid;
     const int has = best > 0 ? 1 : 0;
-    const int u = kTaxon ? st->u : has;
-    const int v = kTaxon ? st->v : has;
-    if (kDirect) {
-      const int res = best > 0 ? static_cast<int>(
-          0xFFFFFFFFu - static_cast<unsigned>(st->lca & 0xFFFFFFFFull)) : 0;
-      const int assigned = (u == 0 && v == 0) ? 0
-                           : (u == 0)         ? v
-                           : (v == 0)         ? u
-                                              : res;
-      const bool below = static_cast<float>(best) <
-                         __fmul_rn(a.thr, static_cast<float>(nvalid));
-      a.o[0][b] = (below || nvalid == 0) ? 0 : assigned;
-      a.o[1][b] = best;
-      a.o[2][b] = nvalid;
-    } else {
+    int u = kTaxon ? st->u : has;
+    int v = kTaxon ? st->v : has;
+    if (kTail == kWinnersTail) {
       a.o[0][b] = u;
       a.o[1][b] = v;
       a.o[2][b] = tu;
       a.o[3][b] = tv;
       a.o[4][b] = best;
       a.o[5][b] = nvalid;
+      return;
     }
+    int assigned;
+    if (kTail == kDirectTail) {
+      const int res = best > 0 ? static_cast<int>(
+          0xFFFFFFFFu - static_cast<unsigned>(st->lca & 0xFFFFFFFFull)) : 0;
+      assigned = (u == 0 && v == 0) ? 0
+                 : (u == 0)         ? v
+                 : (v == 0)         ? u
+                                    : res;
+    } else {
+      if (!kTaxon) {
+        u = has ? a.tin2node[min(max(tu, 0), a.M - 1)] : 0;
+        v = has ? a.tin2node[min(max(tv, 0), a.M - 1)] : 0;
+      }
+      assigned = lca_lift_pair(u, v, a.parent, a.depth, a.up, a.levels,
+                               a.T1);
+    }
+    const bool below = static_cast<float>(best) <
+                       __fmul_rn(a.thr, static_cast<float>(nvalid));
+    int taxon = (below || nvalid == 0) ? 0 : assigned;
+    int bst = best;
+    if (a.prior[0] != nullptr) {
+      merge_call(a.prior[0][b], a.prior[1][b], a.prior[2][b], taxon, bst,
+                 nvalid, a);
+    }
+    a.o[0][b] = taxon;
+    a.o[1][b] = bst;
+    a.o[2][b] = nvalid;
   }
 }
 
@@ -603,7 +692,7 @@ __device__ void score_tail(const ScoreGroup& g, ReadState* st,
 // args, read, its shared bytes), general_bytes(R, cap, rpad, scratch). A
 // read's shared bytes hold its hash table (score_slots(cap) slots), then
 // its packed entries (cap); the general branch reuses them from the start.
-template <bool kTaxon, bool kDirect, class Form>
+template <bool kTaxon, int kTail, class Form>
 __global__ void __launch_bounds__(1024) score_kernel(const ScoreArgs a) {
   extern __shared__ __align__(16) unsigned char score_smem[];
   __shared__ ReadState states[kScoreMaxReads];
@@ -727,19 +816,39 @@ __global__ void __launch_bounds__(1024) score_kernel(const ScoreArgs a) {
     Form::template general<kTaxon>(g, st, a, b, mine);
     if (g.rank == 0) atomicAdd(a.general, 1);
   }
-  score_tail<kTaxon, kDirect>(g, st, a, b);
+  score_tail<kTaxon, kTail>(g, st, a, b);
 }
 
-// Checks a plan against the form's needs and launches score_kernel in the
-// form the lanes and T1 select. rpb reads a block of wpr warps each.
+using ScoreKernel = void (*)(const ScoreArgs);
+
+template <int kTail, class Form>
+ScoreKernel score_kernel_for(int taxon_lanes) {
+  return taxon_lanes ? score_kernel<true, kTail, Form>
+                     : score_kernel<false, kTail, Form>;
+}
+
+// Checks a plan and the tail's arrays against the form's needs and
+// launches score_kernel in the form the lanes, T1 and levels select. rpb
+// reads a block of wpr warps each.
 template <class Form>
 int score_launch(const ScoreArgs& a, int taxon_lanes, int rpb,
                  cudaStream_t s) {
   const int wpr = a.wpr;
   const bool pow2 = wpr >= 1 && wpr <= 32 && (wpr & (wpr - 1)) == 0;
+  const int tail = score_tail_of(a);
+  const bool lift_ok =
+      a.T1 >= 2 && a.parent != nullptr && a.depth != nullptr &&
+      a.up != nullptr && (taxon_lanes || (a.tin2node != nullptr && a.M >= 1));
+  const bool merge_ok =
+      tail != kWinnersTail && a.prior[1] != nullptr &&
+      a.prior[2] != nullptr && a.m_parent != nullptr &&
+      a.m_depth != nullptr && a.m_up != nullptr && a.m_levels >= 1 &&
+      a.m_T1 >= 2;
   if (!pow2 || rpb < 1 || rpb > kScoreMaxReads || (rpb > 1 && wpr > 1) ||
-      a.cap < 1 || a.cap > kScoreMaxCap || a.T1 < 0 ||
-      a.general == nullptr) {
+      a.cap < 1 || a.cap > kScoreMaxCap || a.T1 < 0 || a.levels < 0 ||
+      a.general == nullptr || (tail == kLiftedTail && !lift_ok) ||
+      (tail == kDirectTail && a.T1 > kScoreDirectMaxTaxa) ||
+      (a.prior[0] != nullptr && !merge_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t tables = 16 * static_cast<size_t>(score_slots(a.cap) + a.cap);
@@ -753,11 +862,11 @@ int score_launch(const ScoreArgs& a, int taxon_lanes, int rpb,
   const size_t smem = static_cast<size_t>(rpb) * a.per_read;
   const unsigned grid = blocks_for(a.B, rpb);
   const unsigned threads = 32u * wpr * rpb;
-  void (*kernel)(const ScoreArgs) =
-      taxon_lanes ? (a.T1 > 0 ? score_kernel<true, true, Form>
-                              : score_kernel<true, false, Form>)
-                  : (a.T1 > 0 ? score_kernel<false, true, Form>
-                              : score_kernel<false, false, Form>);
+  const ScoreKernel kernel =
+      tail == kLiftedTail   ? score_kernel_for<kLiftedTail, Form>(taxon_lanes)
+      : tail == kDirectTail ? score_kernel_for<kDirectTail, Form>(taxon_lanes)
+                            : score_kernel_for<kWinnersTail, Form>(
+                                  taxon_lanes);
   // Past 48 KB a block (with its static per-read states) the kernel must
   // opt in.
   if (smem + sizeof(ReadState) * kScoreMaxReads > 48 * 1024) {
@@ -772,18 +881,27 @@ int score_launch(const ScoreArgs& a, int taxon_lanes, int rpb,
 
 // The score launchers' arguments (pangea_score, pangea_score_ranked):
 // lanes/t_in/t_out int32 and valid bytes [B, R]; taxon_lanes selects the
-// taxon form. T1 > 0: the direct form, tin/tout/depth int32 [T1] and o0..o2
-// = taxon, best, nvalid int32 [B] (o3..o5 unused). T1 == 0: the winners
-// form, o0..o5 = u, v, tin_u, tin_v, best, nvalid int32 [B]. general: an
+// taxon form. The tail (o0..o2 = taxon, best, nvalid int32 [B], o3..o5
+// unused, unless the winners form): levels > 0, the lifted LCA (K5) over
+// depth/parent int32 [T1] and up int32 [levels, T1], the q8 form's winners
+// recovered through tin2node int32 [M] (null for taxon lanes); else T1 > 0,
+// the direct LCA over tin/tout/depth int32 [T1]; else T1 == 0, the winners
+// form, o0..o5 = u, v, tin_u, tin_v, best, nvalid int32 [B]. prior: null,
+// or an earlier call's taxon/best/nvalid int32 [B] (p_best, p_nvalid) that
+// the read's taxon merges with (K7) over m_parent/m_depth int32 [m_T1] and
+// m_up int32 [m_levels, m_T1], in the direct and lifted tails. general: an
 // int32 the launch adds its general-branch reads to. wpr, rpb, cap,
 // per_read, rpad, scratch: kernels/score.py score_plan.
-inline ScoreArgs score_args(const void* lanes, const void* t_in,
-                            const void* t_out, const void* valid, int B,
-                            int R, const void* tin, const void* tout,
-                            const void* depth, int T1, float thr, void* o0,
-                            void* o1, void* o2, void* o3, void* o4, void* o5,
-                            void* general, int wpr, int cap, int per_read,
-                            int rpad, void* scratch) {
+inline ScoreArgs score_args(
+    const void* lanes, const void* t_in, const void* t_out,
+    const void* valid, int B, int R, const void* tin, const void* tout,
+    const void* depth, int T1, const void* parent, const void* up,
+    int levels, const void* tin2node, int M, float thr, void* o0, void* o1,
+    void* o2, void* o3, void* o4, void* o5, void* general,
+    const void* prior, const void* p_best, const void* p_nvalid,
+    const void* m_parent, const void* m_depth, const void* m_up,
+    int m_levels, int m_T1, int wpr, int cap, int per_read, int rpad,
+    void* scratch) {
   ScoreArgs a;
   a.lanes = static_cast<const int32_t*>(lanes);
   a.t_in = static_cast<const int32_t*>(t_in);
@@ -800,9 +918,22 @@ inline ScoreArgs score_args(const void* lanes, const void* t_in,
   a.tout = static_cast<const int32_t*>(tout);
   a.depth = static_cast<const int32_t*>(depth);
   a.T1 = T1;
+  a.parent = static_cast<const int32_t*>(parent);
+  a.up = static_cast<const int32_t*>(up);
+  a.levels = levels;
+  a.tin2node = static_cast<const int32_t*>(tin2node);
+  a.M = M;
   a.thr = thr;
   void* o[6] = {o0, o1, o2, o3, o4, o5};
   for (int i = 0; i < 6; ++i) a.o[i] = static_cast<int32_t*>(o[i]);
   a.general = static_cast<int*>(general);
+  a.prior[0] = static_cast<const int32_t*>(prior);
+  a.prior[1] = static_cast<const int32_t*>(p_best);
+  a.prior[2] = static_cast<const int32_t*>(p_nvalid);
+  a.m_parent = static_cast<const int32_t*>(m_parent);
+  a.m_depth = static_cast<const int32_t*>(m_depth);
+  a.m_up = static_cast<const int32_t*>(m_up);
+  a.m_levels = m_levels;
+  a.m_T1 = m_T1;
   return a;
 }

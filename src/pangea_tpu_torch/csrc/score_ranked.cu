@@ -10,10 +10,11 @@
 // tout_j. Here the read's probes fold into the table of distinct (t_in,
 // t_out) intervals that K3 uses (score_kernel in common.cuh), each entry
 // counting both ranks' terms times its multiplicity, so K8 computes
-// exactly the reference's ranks and writes K3's outputs: (taxon, best,
-// nvalid), or the six winners arrays K5 lifts. A read gets a block of 32
-// warps (kernels/score.py score_plan), each warp folding its share of the
-// read's chunks.
+// exactly the reference's ranks and writes K3's outputs in K3's tails:
+// (taxon, best, nvalid) by the direct or lifted LCA (K5), merged with an
+// earlier call where given (K7), or the six winners arrays. A read gets a
+// block of 32 warps (kernels/score.py score_plan), each warp folding its
+// share of the read's chunks.
 //
 // The general branch (Ranked), for a read with more distinct intervals than
 // the plan's cap: the block sorts the read's tins and touts (misses, and the
@@ -33,7 +34,6 @@
 namespace {
 
 constexpr int kMinR = 2049;          // K3 scores R <= 2048
-constexpr int kMaxTaxa = 4096;       // direct LCA scan; K5 lifts beyond
 
 // Ascending bitonic sort of a[0, n) and c[0, n) together (n a power of
 // two), by the group; ends with the group's barrier.
@@ -125,22 +125,25 @@ struct Ranked {
 // K3's contract (pangea_score in score_tin.cu) for R > 2048, with rpad (a
 // power of two >= R) and scratch: null to sort in 12 * rpad bytes of shared
 // memory a read, else int32 [B, 3, rpad] in device memory.
-extern "C" int pangea_score_ranked(const void* lanes, const void* t_in,
-                                   const void* t_out, const void* valid,
-                                   int B, int R, int taxon_lanes,
-                                   const void* tin, const void* tout,
-                                   const void* depth, int T1, float thr,
-                                   void* o0, void* o1, void* o2, void* o3,
-                                   void* o4, void* o5, void* general,
-                                   int wpr, int rpb, int cap, int per_read,
-                                   int rpad, void* scratch, void* stream) {
-  if (R < kMinR || rpad < R || (rpad & (rpad - 1)) != 0 || T1 > kMaxTaxa) {
+extern "C" int pangea_score_ranked(
+    const void* lanes, const void* t_in, const void* t_out, const void* valid,
+    int B, int R, int taxon_lanes, const void* tin, const void* tout,
+    const void* depth, int T1, const void* parent, const void* up,
+    int levels, const void* tin2node, int M, float thr, void* o0, void* o1,
+    void* o2, void* o3, void* o4, void* o5, void* general,
+    const void* prior, const void* p_best, const void* p_nvalid,
+    const void* m_parent, const void* m_depth, const void* m_up,
+    int m_levels, int m_T1, int wpr, int rpb, int cap, int per_read,
+    int rpad, void* scratch, void* stream) {
+  if (R < kMinR || rpad < R || (rpad & (rpad - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ScoreArgs a =
-      score_args(lanes, t_in, t_out, valid, B, R, tin, tout, depth, T1, thr,
-                 o0, o1, o2, o3, o4, o5, general, wpr, cap, per_read, rpad,
-                 scratch);
+      score_args(lanes, t_in, t_out, valid, B, R, tin, tout, depth, T1, parent, up,
+                 levels, tin2node, M, thr, o0, o1, o2, o3, o4, o5, general,
+                 prior, p_best, p_nvalid, m_parent, m_depth, m_up, m_levels,
+                 m_T1, wpr, cap, per_read,
+                 rpad, scratch);
   return score_launch<Ranked>(a, taxon_lanes, rpb,
                               static_cast<cudaStream_t>(stream));
 }

@@ -15,10 +15,12 @@
 //  - kTaxon: the lanes are hit taxa (std lookup) and the winners' node ids
 //    u / v are the taxa of the min-tin and max-tin winners (score.py:192-
 //    195); otherwise the lanes are hit counts (q8) and u = v = has-winner.
-//  - kDirect: the LCA is the direct scan over the T+1 taxa (T+1 <= 4096,
-//    score.py:204) and the read's group writes (taxon, best, nvalid).
-//    Otherwise it writes (u, v, tin_u, tin_v, best, nvalid) and K5
-//    (csrc/lca_lift.cu) lifts the LCA in a second, [B]-wide launch.
+//  - kTail: the direct LCA, a scan over the T+1 taxa (T+1 <= 4096,
+//    score.py:204); past that the LCA by binary lifting (K5, B12, in
+//    common.cuh); either writes (taxon, best, nvalid), merged with an
+//    earlier call where one is given (K7, B13, in common.cuh). Or the
+//    winners form, (u, v, tin_u, tin_v, best, nvalid), which the scorer's
+//    sweeps and timings read.
 //
 // The general branch (Quadratic), for a read with more distinct intervals
 // than the plan's cap: the read's probes go to shared memory as one 8-byte
@@ -44,7 +46,6 @@
 namespace {
 
 constexpr int kMaxR = 2048;          // K8 scores longer reads
-constexpr int kMaxTaxa = 4096;       // direct LCA scan; K5 lifts beyond
 constexpr int kBatch = 4;            // probes a thread counts at once
 
 struct Quadratic {
@@ -109,22 +110,25 @@ struct Quadratic {
 }  // namespace
 
 // See score_args (common.cuh) for the arguments; rpad 0 and scratch null.
-extern "C" int pangea_score(const void* lanes, const void* t_in,
-                            const void* t_out, const void* valid, int B,
-                            int R, int taxon_lanes, const void* tin,
-                            const void* tout, const void* depth, int T1,
-                            float thr, void* o0, void* o1, void* o2,
-                            void* o3, void* o4, void* o5, void* general,
-                            int wpr, int rpb, int cap, int per_read,
-                            int rpad, void* scratch, void* stream) {
-  if (R < 1 || R > kMaxR || T1 > kMaxTaxa || rpad != 0 ||
-      scratch != nullptr) {
+extern "C" int pangea_score(
+    const void* lanes, const void* t_in, const void* t_out, const void* valid,
+    int B, int R, int taxon_lanes, const void* tin, const void* tout,
+    const void* depth, int T1, const void* parent, const void* up,
+    int levels, const void* tin2node, int M, float thr, void* o0, void* o1,
+    void* o2, void* o3, void* o4, void* o5, void* general,
+    const void* prior, const void* p_best, const void* p_nvalid,
+    const void* m_parent, const void* m_depth, const void* m_up,
+    int m_levels, int m_T1, int wpr, int rpb, int cap, int per_read,
+    int rpad, void* scratch, void* stream) {
+  if (R < 1 || R > kMaxR || rpad != 0 || scratch != nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ScoreArgs a =
-      score_args(lanes, t_in, t_out, valid, B, R, tin, tout, depth, T1, thr,
-                 o0, o1, o2, o3, o4, o5, general, wpr, cap, per_read, 0,
-                 nullptr);
+      score_args(lanes, t_in, t_out, valid, B, R, tin, tout, depth, T1, parent, up,
+                 levels, tin2node, M, thr, o0, o1, o2, o3, o4, o5, general,
+                 prior, p_best, p_nvalid, m_parent, m_depth, m_up, m_levels,
+                 m_T1, wpr, cap, per_read,
+                 0, nullptr);
   return score_launch<Quadratic>(a, taxon_lanes, rpb,
-                                 static_cast<cudaStream_t>(stream));
+                              static_cast<cudaStream_t>(stream));
 }

@@ -33,7 +33,6 @@ import torch.distributed as dist
 
 from ..classify.engine import (_extract_probes, classify_reads,
                                probe_tables, score_hits)
-from ..classify.merge import merge_multik
 from ..kernels.route import (route_bin, route_bin_plain, route_capacity,
                              route_restore, route_restore_plain)
 
@@ -178,14 +177,16 @@ def _merge_over_row(mesh: Mesh):
 
 
 def _local_classify_broadcast(tables, bases, mate_bases, cfg, mesh: Mesh,
-                              packed_len: int, plain: bool = False) -> dict:
+                              packed_len: int, plain: bool = False,
+                              prior=None) -> dict:
     """The broadcast step on one rank (``mesh.py:347``): its row's reads
-    probed against its shard, the hits merged over the row, then scored.
-    Returns dict of int32 [B] for the row's B reads."""
+    probed against its shard, the hits merged over the row, then scored,
+    and merged with ``prior`` where given (classify_reads' prior). Returns
+    dict of int32 [B] for the row's B reads."""
     return classify_reads(tables, bases, cfg, mate_bases=mate_bases,
                           packed_len=packed_len, plain=plain,
                           shard_id=mesh.shard_index,
-                          merge_hits=_merge_over_row(mesh))
+                          merge_hits=_merge_over_row(mesh), prior=prior)
 
 
 def _local_classify_routed(tables, bases, mate_bases, cfg, mesh: Mesh,
@@ -273,18 +274,19 @@ def make_multik_sharded_classify_fn(cfgs, mesh: Mesh, paired: bool = False,
                                     replicate_out: bool = False):
     """The multi-k sharded step (``mesh.py:484``): the broadcast step of
     the same reads against each index, merged per read left to right
-    (SEMANTICS.md §9, K7) over the first index's taxonomy arrays.
-    fn(tables_tuple, bases[, mate_bases]) as make_sharded_classify_fn's
-    fn, with each index's tables in order."""
+    (SEMANTICS.md §9) over the first index's taxonomy arrays, each later
+    index's call in its scorer (K7 on the card). fn(tables_tuple, bases[,
+    mate_bases]) as make_sharded_classify_fn's fn, with each index's tables
+    in order."""
     cfgs = tuple(cfgs)
 
     def fn(tables_tuple, bases, mate_bases=None):
         res = None
         for tables, cfg in zip(tables_tuple, cfgs, strict=True):
-            out = _local_classify_broadcast(tables, bases, mate_bases, cfg,
-                                            mesh, packed_len)
-            res = out if res is None else merge_multik(
-                res, out, tables_tuple[0]["tax"])
+            res = _local_classify_broadcast(
+                tables, bases, mate_bases, cfg, mesh, packed_len,
+                prior=None if res is None else (res,
+                                                tables_tuple[0]["tax"]))
         return _replicate_over_data(res, mesh) if replicate_out else res
 
     return fn if paired else (lambda tables_tuple, bases: fn(tables_tuple,

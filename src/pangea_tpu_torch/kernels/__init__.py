@@ -18,17 +18,17 @@ from .route import (route_bin, route_bin_plain, route_restore,
 from .rowprobe import (rowprobe_onehot, rowprobe_onehot_plain,
                        rowprobe_plain, rowprobe_smem)
 from .score import (general_reads, lca_lift, lca_lift_plain,
-                    lca_pairs_plain, pscore_ranked_plain,
+                    lca_pairs_plain, merge_multik, merge_multik_plain,
+                    pscore_ranked_plain,
                     reset_general_reads, score_plan, score_ranked,
                     score_reads_plain, score_reads_taxon,
                     score_reads_taxon_plain, score_reads_tin,
                     score_reads_tin_plain, score_winners,
                     score_winners_plain)
 
-# After the kernel modules: the merge's module imports them.
-from ..classify.merge import merge_multik  # noqa: E402
-
-# The kernel wrappers, whose `launches` attribute counts kernel launches.
+# The kernel wrappers, whose `launches` attribute counts kernel launches
+# (lca_lift and merge_multik: the scorer launches whose tail lifts or
+# merges).
 KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "score_tin": score_reads_tin, "lookup_std": lookup_std,
            "score_taxon": score_reads_taxon, "lca_lift": lca_lift,
@@ -67,7 +67,8 @@ __all__ = ["KERNELS", "block_copy", "bucket_sort", "bucket_sort_plain",
            "lookup_q8_sorted", "lookup_q8_sorted_plain", "lookup_q12",
            "lookup_q12_plain", "lookup_q12_sorted", "lookup_q12_sorted_plain",
            "lookup_std", "lookup_std_owned", "lookup_std_plain",
-           "lookup_std_sorted", "lookup_std_sorted_plain", "mix32",
+           "lookup_std_sorted", "lookup_std_sorted_plain", "merge_multik",
+           "merge_multik_plain", "mix32",
            "pscore_ranked_plain", "reset_general_reads",
            "reset_kernel_launches", "route_bin",
            "route_bin_plain", "route_restore", "route_restore_plain",

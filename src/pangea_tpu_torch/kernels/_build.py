@@ -32,6 +32,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+# The scorers' launchers (K3, K8), see SIGNATURES.
+_SCORE = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _F,
+          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+          _I, _I, _I, _I, _I, _P, _P)
 # C signature of every exported launcher: (argtypes), all return cudaError_t.
 # :func:`launch` passes the stream, the last argument, itself.
 SIGNATURES = {
@@ -65,22 +69,12 @@ SIGNATURES = {
     # hi, lo, valid, N, log2 S, C, counts, records, inv, stream
     "pangea_route_bin": (_P, _P, _P, _I64, _I, _I, _P, _P, _P, _P),
     # lanes, t_in, t_out, valid, B, R, taxon_lanes, tin, tout, depth, T1,
-    # thr, o0..o5, general, wpr, rpb, cap, per_read, rpad, scratch
-    # (score.score_plan), stream: K3 and K8 take the same arguments
-    "pangea_score": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
-                     _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                     _P),
-    "pangea_score_ranked": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F,
-                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P),
-    # u, v, tin_u, tin_v, best, nvalid, B, tin2node, M, parent, depth, up,
-    # levels, T1, thr, taxon, stream
-    "pangea_lca_lift": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
-                        _I, _I, _F, _P, _P),
-    # t1, b1, n1, t2, b2, n2, B, parent, depth, up, levels, T1, taxon, best,
-    # nvalid, stream
-    "pangea_merge_multik": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                            _P, _P, _P, _P),
+    # parent, up, levels, tin2node, M, thr, o0..o5, general, prior taxon,
+    # best, nvalid, the merge's parent, depth, up, levels, T1, wpr, rpb,
+    # cap, per_read, rpad, scratch (score.score_plan), stream: K3 and K8
+    # take the same arguments
+    "pangea_score": _SCORE,
+    "pangea_score_ranked": _SCORE,
     # table, NB, W, b, rem, N, out, stream
     "pangea_rowprobe_smem": (_P, _I64, _I, _P, _P, _I64, _P, _P),
     # table, NB, W, b, rem, M, out, stream

@@ -1,10 +1,10 @@
 """Time K1, K2's and K4's forms, K9 and K10, K13's block copy, the scorer
-(K3, K8) and the q8, std and config-4 steps through the port's public
-entry points, so that one file times any checkout of it.
+(K3, K8) and its tail (K5, K7) and the q8, std and config-4 steps through
+the port's public entry points, so that one file times any checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections k1,block_copy,k2,k4,sort,score,steps]
+        [--sections k1,block_copy,k2,k4,sort,score,tail,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
@@ -60,9 +60,26 @@ with the sections asked for (all by default):
   and K3 (16,384 x 260, 64 x 1,180) and K8 (75 x 16,364, 75 x 32,728) at
   U = R, every probe a hit of its own taxon (``distinct_lanes``, seeded
   numpy);
-- ``steps``: the q8 headline, the std world and config 4's multi-k
-  Classifier steps on 16,384 pairs, one step and back to back, each with
-  the least and largest of its samples; with ``--deep DIR``, also the deep
+- ``tail``: the scoring calls whose LCA is lifted (K5) or whose call is
+  merged with an earlier one (K7), as the checkout runs them (a scorer
+  launch and then K5's or K7's own, or the scorer's one launch), each held
+  to the plain scorer (and merge) first, timed by CUDA events (``ms``), by
+  the profiler's device time a call summed over every launch of the call
+  (``device_ms``, and ``split`` by kernel), with ``launches``, the
+  ``_build.launch`` calls of one call: the std world's scoring (the wide
+  lookups' 16,384 pairs x 260 on the 66,563-taxon tree), the q8 lifting
+  world's (the headline's pairs at k=21, w=1 on 5,251 taxa), config 4's
+  second scoring (the k=31 q12 lookups merged with the k=21 index's call
+  over its taxonomy, at config 4's threshold), the 1,180-probe bucket and
+  K8 at 16,364 x 75 on the wide tree (``lineage_lanes``); and beside each
+  the scorer's launch alone as the parent ran it before K5 or K7
+  (``*_alone``: the winners form, or K3 without a prior);
+- ``steps``: the q8 headline, the std world, the q8 lifting world and
+  config 4's multi-k Classifier steps on 16,384 pairs, one step and back
+  to back, each with the least and largest of its samples, the
+  ``_build.launch`` calls of one step (``launches``) and the profiler's
+  device ms a step, by kernel (``split``); with ``--deep DIR``,
+  also the deep
   q8 and q12 steps on 16,384 single-end reads and the std step on 65,536,
   sorted (the reference's gate) and with ``PANGEA_DEEP_SORT=0``;
 - with ``--split``, ``split``: the block copy's host time a call in parts,
@@ -104,7 +121,9 @@ C4_THRESHOLD = 0.05
 BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
-SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "score", "steps")
+SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "score", "tail",
+            "steps")
+Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
 K1_CASES = (("w1_std", 21, 1, False), ("w8_headline", 21, 8, False),
@@ -597,21 +616,114 @@ def time_score(torch, dev) -> dict:
     return out
 
 
+def launch_count(fn) -> int:
+    """The ``_build.launch`` calls of one call of fn."""
+    from pangea_tpu_torch.kernels import _build
+    real, calls = _build.launch, []
+
+    def spy(name, *args):
+        calls.append(name)
+        return real(name, *args)
+    _build.launch = spy
+    try:
+        fn()
+    finally:
+        _build.launch = real
+    return len(calls)
+
+
+def time_tail(torch, dev) -> dict:
+    import inspect
+    import numpy as np
+    from pangea_tpu_torch.classify import (classify_reads, merge_multik,
+                                           merge_multik_plain)
+    from pangea_tpu_torch.classify.engine import (_extract_probes,
+                                                  probe_tables)
+    from pangea_tpu_torch.kernels import (score_ranked, score_reads_plain,
+                                          score_reads_taxon,
+                                          score_reads_tin, score_winners,
+                                          score_winners_plain)
+    # Whether the checkout's scorer merges in its own launch.
+    in_launch = "prior" in inspect.signature(score_reads_tin).parameters
+    out = {"merge_in_scorer": in_launch}
+
+    def entry(name, fn, want_fn):
+        got, want = fn(), want_fn()
+        mism = sum(int((a != b).sum()) for a, b in zip(want, got))
+        if mism:
+            raise AssertionError(f"{name}: {mism} mismatches")
+        split = device_split(torch, fn)
+        out[name] = {"ms": time_ms(torch, fn),
+                     "device_ms": sum(split.values()),
+                     "split": {k[:60]: v for k, v in split.items()},
+                     "launches": launch_count(fn)}
+
+    def hits_of(di, b1, b2):
+        hi, lo, valid = _extract_probes(b1, b2, di.cfg, False)
+        return (*probe_tables(di.tables, hi, lo, valid, di.cfg), valid)
+
+    for name, kw, taxon_lanes in (("std", WIDE, True),
+                                  ("q8_lift", Q8_LIFT, False)):
+        di, b1, b2 = bench_world(torch, dev, BATCH, **kw)
+        args = hits_of(di, b1, b2)
+        fn = score_reads_taxon if taxon_lanes else score_reads_tin
+        entry(f"{name}_scoring", lambda: fn(*args, di.tax, 0.0),
+              lambda: score_reads_plain(*args, di.tax, 0.0, taxon_lanes))
+        entry(f"{name}_winners_alone",
+              lambda: score_winners(*args, taxon_lanes),
+              lambda: score_winners_plain(*args, taxon_lanes))
+        if name == "std":
+            wide = di
+    dis, b1, b2 = multik_world(torch, dev)
+    first = classify_reads(dis[0].tables, b1, dis[0].cfg, mate_bases=b2)
+    args = hits_of(dis[1], b1, b2)
+    thr = dis[1].cfg.confidence_threshold
+    tax0, tax1 = dis[0].tax, dis[1].tax
+    keys = ("taxon", "best", "nvalid")
+
+    def merged():
+        if in_launch:
+            return score_reads_tin(*args, tax1, thr, prior=(first, tax0))
+        own = dict(zip(keys, score_reads_tin(*args, tax1, thr)))
+        return tuple(merge_multik(first, own, tax0).values())
+
+    def merged_plain():
+        own = dict(zip(keys, score_reads_plain(*args, tax1, thr, False)))
+        return tuple(merge_multik_plain(first, own, tax0).values())
+    entry("config4_second_scoring", merged, merged_plain)
+    entry("config4_k3_alone", lambda: score_reads_tin(*args, tax1, thr),
+          lambda: score_reads_plain(*args, tax1, thr, False))
+    tin, tout = (wide.tax[n].cpu().numpy() for n in ("tin", "tout"))
+    for R, Bb in (BUCKET, RANKED[0]):
+        args = lineage_lanes(np, torch, dev, tin, tout, Bb, R, SCORE_SEED)
+        ranked = R > 2048
+        tag = f"{'k8' if ranked else 'k3'}_{R}x{Bb}"
+        entry(f"{tag}_scoring",
+              (lambda: score_ranked(*args, wide.tax, 0.0, True)) if ranked
+              else (lambda: score_reads_taxon(*args, wide.tax, 0.0)),
+              lambda: score_reads_plain(*args, wide.tax, 0.0, True))
+        entry(f"{tag}_winners_alone", lambda: score_winners(*args, True),
+              lambda: score_winners_plain(*args, True))
+    return out
+
+
 def time_steps(torch, dev, deep: Path | None) -> dict:
     import os
     from pangea_tpu_torch.classify import Classifier, MultiKClassifier
     out = {}
-    for name, kw in (("q8", HEADLINE), ("std", WIDE)):
+
+    def step(model, b1, b2):
+        split = device_split(torch, lambda: model(b1, b2))
+        return {"one": time_stats(torch, lambda: model(b1, b2), 1),
+                "back_to_back": time_stats(torch, lambda: model(b1, b2)),
+                "launches": launch_count(lambda: model(b1, b2)),
+                "device_ms": sum(split.values()),
+                "split": {k[:60]: v for k, v in split.items()}}
+    for name, kw in (("q8", HEADLINE), ("std", WIDE), ("q8_lift", Q8_LIFT)):
         di, b1, b2 = bench_world(torch, dev, BATCH, **kw)
-        model = Classifier(di)
-        out[name] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
-                     "back_to_back": time_stats(torch,
-                                                lambda: model(b1, b2))}
+        out[name] = step(Classifier(di), b1, b2)
     dis, b1, b2 = multik_world(torch, dev)
-    model = MultiKClassifier(dis)
-    out["config4"] = {"one": time_stats(torch, lambda: model(b1, b2), 1),
-                      "back_to_back": time_stats(torch,
-                                                 lambda: model(b1, b2))}
+    out["config4"] = step(MultiKClassifier(dis), b1, b2)
     if deep is not None:
         for layout in ("q8", "q12", "std"):
             di, _, b = deep_index(torch, dev, deep, layout)
@@ -767,6 +879,8 @@ def main(argv=None) -> int:
         line["sort"] = time_sort(torch, dev, args.deep)
     if "score" in sections:
         line["score"] = time_score(torch, dev)
+    if "tail" in sections:
+        line["tail"] = time_tail(torch, dev)
     if "steps" in sections:
         line["steps"] = time_steps(torch, dev, args.deep)
     print(json.dumps(line), flush=True)

@@ -1,4 +1,5 @@
-"""Per-read consensus score and LCA (SEMANTICS.md §6-7).
+"""Per-read consensus score and LCA (SEMANTICS.md §6-7), and the multi-k
+merge (§9).
 
 Counterpart of ``pangea_tpu/kernels/score.py`` ``_score_impl``, for both
 lookups:
@@ -14,12 +15,18 @@ entries (T + 1), and binary lifting (``lca_pairs_jnp``) above that. The
 pscore is the quadratic count (``_pscore_quadratic``) for reads of up to
 :data:`MAX_PROBES` probes and the sort-rank form (``_pscore_ranked``, the
 long-read buckets) above; the two agree wherever every hit's t_in < t_out,
-as in every sound table. On CUDA tensors :func:`score_reads_tin` and
-:func:`score_reads_taxon` run kernel K3 (``csrc/score_tin.cu``) up to
-MAX_PROBES probes and K8 (``csrc/score_ranked.cu``, counted on
-:func:`score_ranked`) above, one launch with the direct scan, or the
-winners form followed by K5 (``csrc/lca_lift.cu``, :func:`lca_lift`); on
-CPU tensors they run :func:`score_reads_plain`.
+as in every sound table. Given ``prior``, an earlier call and the
+taxonomy arrays of its merge, the read's call is merged with it as
+``pangea_tpu/classify/merge.py`` ``merge_multik_jnp`` merges two calls,
+the earlier one as res1 (the multi-k step's fold).
+
+On CUDA tensors :func:`score_reads_tin` and :func:`score_reads_taxon` run
+kernel K3 (``csrc/score_tin.cu``) up to MAX_PROBES probes and K8
+(``csrc/score_ranked.cu``, counted on :func:`score_ranked`) above, one
+launch whatever the tail: the direct scan, the lifted LCA (K5, counted on
+:func:`lca_lift`) and the merge (K7, counted on :func:`merge_multik`) run
+in the launch's tail (``csrc/common.cuh`` ``score_tail``). On CPU tensors
+they run :func:`score_reads_plain`.
 
 K3 and K8 score a read from the distinct (t_in, t_out) intervals among its
 hits (``csrc/common.cuh`` ``score_kernel``): a probe's pscore depends on
@@ -39,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .lookup import narrow
 
 _I32_MAX = 2**31 - 1
 MAX_PROBES = 2048            # K3 up to here (the reference's _RANKED_MIN_P)
@@ -274,11 +282,47 @@ def lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax: dict,
     return _threshold(assigned, best, nvalid, confidence_threshold)
 
 
+_KEYS = ("taxon", "best", "nvalid")
+
+
+def merge_multik_plain(res1: dict, res2: dict, tax: dict) -> dict:
+    """Plain K7, the multi-k merge (the reference's ``merge_multik_jnp``).
+    res1/res2: dicts of int32 [B] "taxon", "best", "nvalid"; tax: the
+    taxonomy's device arrays (``parent``, ``depth``, ``up`` are read).
+    The confidences b1/n1 and b2/n2 compare exactly as the int64 products
+    b1·n2 and b2·n1 (best and nvalid are counts, never negative), where
+    the reference needs 16-bit limb products. Agreement keeps the more
+    confident call, a conflict takes the LCA with the less confident
+    call's (best, nvalid), ties go to res1; a one-sided call keeps the
+    classified one; two unclassified calls give (0, 0, n1 + n2), the sum
+    wrapping in int32."""
+    t1, b1, n1 = (res1[k] for k in _KEYS)
+    t2, b2, n2 = (res2[k] for k in _KEYS)
+    x1 = b1.long() * n2.long()
+    x2 = b2.long() * n1.long()
+    both0 = (t1 == 0) & (t2 == 0)
+    agree = (t1 != 0) & (t1 == t2)
+    conflict = (t1 != 0) & (t2 != 0) & (t1 != t2)
+    lca = lca_pairs_plain(t1, t2, tax["parent"], tax["depth"], tax["up"])
+    taxon = torch.where(conflict, lca, torch.where(t1 != 0, t1, t2))
+    keep1 = torch.where(agree, x1 >= x2,
+                        torch.where(conflict, x1 <= x2, t1 != 0))
+    best = torch.where(both0, 0, torch.where(keep1, b1, b2))
+    nvalid = torch.where(both0, narrow(n1.long() + n2.long()),
+                         torch.where(keep1, n1, n2))
+    return {"taxon": taxon.to(torch.int32), "best": best.to(torch.int32),
+            "nvalid": nvalid.to(torch.int32)}
+
+
 def score_reads_plain(lanes, t_in, t_out, valid, tax: dict,
-                      confidence_threshold: float, taxon_lanes: bool):
-    """Plain PyTorch K3 (+ K5) on any device. lanes/t_in/t_out int32 and
-    valid bool [B, R]; tax: the taxonomy's device arrays (tin, tout, depth,
-    parent, up, tin2node). Returns (taxon, best, nvalid) int32 [B]."""
+                      confidence_threshold: float, taxon_lanes: bool,
+                      prior=None):
+    """Plain PyTorch K3 (+ K5, + K7) on any device. lanes/t_in/t_out int32
+    and valid bool [B, R]; tax: the taxonomy's device arrays (tin, tout,
+    depth, parent, up, tin2node); prior: None, or (call, merge_tax), an
+    earlier call dict(taxon, best, nvalid) int32 [B] that this one merges
+    with (:func:`merge_multik_plain`, the earlier call as res1) over the
+    taxonomy arrays merge_tax. Returns (taxon, best, nvalid) int32 [B]."""
     u, v, tin_u, tin_v, best, nvalid = score_winners_plain(
         lanes, t_in, t_out, valid, taxon_lanes)
     if tax["tin"].shape[0] <= DIRECT_LCA_MAX_TAXA:
@@ -288,21 +332,26 @@ def score_reads_plain(lanes, t_in, t_out, valid, tax: dict,
     else:
         taxon = lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax,
                                confidence_threshold, taxon_lanes)
-    return taxon, best, nvalid
+    if prior is None:
+        return taxon, best, nvalid
+    call, merge_tax = prior
+    merged = merge_multik_plain(call, dict(zip(_KEYS, (taxon, best,
+                                                       nvalid))), merge_tax)
+    return tuple(merged[k] for k in _KEYS)
 
 
 def score_reads_tin_plain(hit, t_in, t_out, valid, tax: dict,
-                          confidence_threshold: float):
+                          confidence_threshold: float, prior=None):
     """:func:`score_reads_plain` of the q8 lookup's hit lanes."""
     return score_reads_plain(hit, t_in, t_out, valid, tax,
-                             confidence_threshold, taxon_lanes=False)
+                             confidence_threshold, False, prior)
 
 
 def score_reads_taxon_plain(taxon, t_in, t_out, valid, tax: dict,
-                            confidence_threshold: float):
+                            confidence_threshold: float, prior=None):
     """:func:`score_reads_plain` of the std lookup's taxon lanes."""
     return score_reads_plain(taxon, t_in, t_out, valid, tax,
-                             confidence_threshold, taxon_lanes=True)
+                             confidence_threshold, True, prior)
 
 
 def _check_tax(tax: dict, names) -> int:
@@ -342,21 +391,63 @@ def _general_counter(fn, dev) -> torch.Tensor:
     return counter
 
 
+_DIRECT = ("tin", "tout", "depth")
+_LIFTED = ("parent", "depth", "up", "tin2node")
+_MERGE = ("parent", "depth", "up")
+
+
+def _tail_tensors(tax: dict | None, prior) -> list:
+    """The taxonomy and prior tensors that the launch's tail reads."""
+    out = []
+    if tax is not None:
+        out += [tax[n] for n in (_DIRECT if tax["tin"].shape[0]
+                                 <= DIRECT_LCA_MAX_TAXA else _LIFTED)]
+    if prior is not None:
+        call, merge_tax = prior
+        out += [call[k] for k in _KEYS] + [merge_tax[n] for n in _MERGE]
+    return out
+
+
 def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
-                  tax: dict | None = None, thr: float = 0.0,
+                  tax: dict | None = None, thr: float = 0.0, prior=None,
                   plan: ScorePlan | None = None):
-    """One launch of K3 (R <= MAX_PROBES) or K8: with ``tax`` the direct
-    form (taxon, best, nvalid), without it the winners form (u, v, tin_u,
-    tin_v, best, nvalid). ``plan`` overrides :func:`score_plan`
-    (kernels.score_sweep). The launch counts on :func:`score_ranked` (K8),
-    else on :func:`score_reads_taxon` or :func:`score_reads_tin`, and adds
-    its general-branch reads to the same wrapper's counter."""
+    """One launch of K3 (R <= MAX_PROBES) or K8. Without ``tax``, the
+    winners form (u, v, tin_u, tin_v, best, nvalid); with it, (taxon, best,
+    nvalid) by the direct LCA up to DIRECT_LCA_MAX_TAXA taxa, else by the
+    lifted one (K5), merged with ``prior`` where given (K7; as
+    :func:`score_reads_plain` takes it). ``plan`` overrides
+    :func:`score_plan` (kernels.score_sweep). The launch counts on
+    :func:`score_ranked` (K8), else on :func:`score_reads_taxon` or
+    :func:`score_reads_tin`, and adds its general-branch reads to the same
+    wrapper's counter; a lifted tail counts on :func:`lca_lift` too, a
+    merged one on :func:`merge_multik`."""
     B, R = _check_lanes(lanes, t_in, t_out, valid)
+    lifted = tax is not None and tax["tin"].shape[0] > DIRECT_LCA_MAX_TAXA
     if tax is None:
-        T1, tax_ptrs = 0, (0, 0, 0)
+        if prior is not None:
+            raise ValueError("the winners form takes no prior")
+        taxa = (0,) * 9
+    elif lifted:
+        T1 = _check_tax(tax, _LIFTED[:3] + (() if taxon_lanes
+                                             else _LIFTED[3:]))
+        t2n = tax["tin2node"]
+        taxa = (0, 0, tax["depth"].data_ptr(), T1, tax["parent"].data_ptr(),
+                tax["up"].data_ptr(), tax["up"].shape[0],
+                *((0, 0) if taxon_lanes else (t2n.data_ptr(),
+                                              t2n.shape[0])))
     else:
-        T1 = _check_tax(tax, ("tin", "tout", "depth"))
-        tax_ptrs = tuple(tax[n].data_ptr() for n in ("tin", "tout", "depth"))
+        T1 = _check_tax(tax, _DIRECT)
+        taxa = (*(tax[n].data_ptr() for n in _DIRECT), T1, 0, 0, 0, 0, 0)
+    if prior is None:
+        merge = (0,) * 8
+    else:
+        call, merge_tax = prior
+        for k in _KEYS:
+            _build.check(call[k], torch.int32, shape=(B,), name=f"prior {k}")
+        mT1 = _check_tax(merge_tax, _MERGE)
+        merge = (*(call[k].data_ptr() for k in _KEYS),
+                 *(merge_tax[n].data_ptr() for n in _MERGE),
+                 merge_tax["up"].shape[0], mT1)
     if plan is None:
         plan = score_plan(B, R, _build.sm_count(dev.index))
     out = torch.empty((6 if tax is None else 3, B), dtype=torch.int32,
@@ -369,19 +460,23 @@ def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
                if plan.scratch else None)
     _build.launch("pangea_score_ranked" if ranked else "pangea_score", dev,
                   lanes.data_ptr(), t_in.data_ptr(), t_out.data_ptr(),
-                  valid.data_ptr(), B, R, int(taxon_lanes), *tax_ptrs, T1,
-                  float(thr), *ptrs, _general_counter(fn, dev).data_ptr(),
-                  plan.warps, plan.reads, plan.cap, plan.per_read, plan.rpad,
-                  0 if scratch is None else scratch.data_ptr())
+                  valid.data_ptr(), B, R, int(taxon_lanes), *taxa, float(thr),
+                  *ptrs, _general_counter(fn, dev).data_ptr(),
+                  *merge, plan.warps, plan.reads, plan.cap, plan.per_read,
+                  plan.rpad, 0 if scratch is None else scratch.data_ptr())
     fn.launches += 1
+    if lifted:
+        lca_lift.launches += 1
+    if prior is not None:
+        merge_multik.launches += 1
     return tuple(out)
 
 
 def score_winners(lanes, t_in, t_out, valid, taxon_lanes: bool):
     """K3's (or, past MAX_PROBES, K8's) winners form on CUDA tensors (the
     plain :func:`score_winners_plain` on CPU tensors): the part of the
-    score before a lifted LCA. Same contract as
-    :func:`score_winners_plain`."""
+    score before the LCA, which the scorer's sweeps and timings read. Same
+    contract as :func:`score_winners_plain`."""
     dev = _build.dispatch_device(lanes, t_in, t_out, valid)
     if dev is None:
         return score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes)
@@ -389,55 +484,49 @@ def score_winners(lanes, t_in, t_out, valid, taxon_lanes: bool):
 
 
 def _score(lanes, t_in, t_out, valid, tax: dict,
-           confidence_threshold: float, taxon_lanes: bool):
+           confidence_threshold: float, taxon_lanes: bool, prior=None):
     """The body of :func:`score_reads_tin`, :func:`score_reads_taxon` and
     :func:`score_ranked`: the plain version on CPU tensors; on CUDA tensors
-    K3 or K8 in one launch with the direct scan for up to
-    DIRECT_LCA_MAX_TAXA taxa, else their winners form and then K5. Only the
-    taxonomy arrays the form reads are checked."""
-    direct = tax["tin"].shape[0] <= DIRECT_LCA_MAX_TAXA
-    names = ("tin", "tout", "depth") if direct else \
-        ("parent", "depth", "up", "tin2node")
+    K3 or K8 in one launch, its tail the direct scan for up to
+    DIRECT_LCA_MAX_TAXA taxa, else the lifted LCA, merged with ``prior``
+    where given. Only the taxonomy arrays the tail reads are checked."""
     dev = _build.dispatch_device(lanes, t_in, t_out, valid,
-                                 *(tax[n] for n in names))
+                                 *_tail_tensors(tax, prior))
     if dev is None:
         return score_reads_plain(lanes, t_in, t_out, valid, tax,
-                                 confidence_threshold, taxon_lanes)
-    if direct:
-        return _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes,
-                             tax, confidence_threshold)
-    u, v, tin_u, tin_v, best, nvalid = _launch_score(
-        dev, lanes, t_in, t_out, valid, taxon_lanes)
-    taxon = lca_lift(u, v, tin_u, tin_v, best, nvalid, tax,
-                     confidence_threshold, taxon_lanes)
-    return taxon, best, nvalid
+                                 confidence_threshold, taxon_lanes, prior)
+    return _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes, tax,
+                         confidence_threshold, prior)
 
 
 def score_reads_tin(hit, t_in, t_out, valid, tax: dict,
-                    confidence_threshold: float):
+                    confidence_threshold: float, prior=None):
     """Score the q8 lookup's hits: the plain version for CPU tensors,
-    kernel K3's q8 form (K8's past MAX_PROBES probes, plus K5 above
-    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    kernel K3's q8 form (K8's past MAX_PROBES probes) for CUDA tensors, the
+    LCA lifted above DIRECT_LCA_MAX_TAXA taxa and the call merged with
+    ``prior`` in the same launch. Same contract as
     :func:`score_reads_tin_plain`."""
     return _score(hit, t_in, t_out, valid, tax, confidence_threshold,
-                  taxon_lanes=False)
+                  False, prior)
 
 
 def score_reads_taxon(taxon, t_in, t_out, valid, tax: dict,
-                      confidence_threshold: float):
+                      confidence_threshold: float, prior=None):
     """Score the std lookup's hit taxa: the plain version for CPU tensors,
-    kernel K3's taxon form (K8's past MAX_PROBES probes, plus K5 above
-    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    kernel K3's taxon form (K8's past MAX_PROBES probes) for CUDA tensors,
+    the LCA lifted above DIRECT_LCA_MAX_TAXA taxa and the call merged with
+    ``prior`` in the same launch. Same contract as
     :func:`score_reads_taxon_plain`."""
     return _score(taxon, t_in, t_out, valid, tax, confidence_threshold,
-                  taxon_lanes=True)
+                  True, prior)
 
 
 def score_ranked(lanes, t_in, t_out, valid, tax: dict,
-                 confidence_threshold: float, taxon_lanes: bool):
+                 confidence_threshold: float, taxon_lanes: bool,
+                 prior=None):
     """Score reads of more than MAX_PROBES probes (the long-read buckets):
-    the plain version for CPU tensors, kernel K8 (plus K5 above
-    DIRECT_LCA_MAX_TAXA taxa) for CUDA tensors. Same contract as
+    the plain version for CPU tensors, kernel K8 for CUDA tensors, its
+    tail as :func:`score_reads_tin`'s. Same contract as
     :func:`score_reads_plain`. Every K8 launch counts here, also those of
     :func:`score_reads_tin`, :func:`score_reads_taxon` and
     :func:`score_winners` past MAX_PROBES."""
@@ -445,36 +534,37 @@ def score_ranked(lanes, t_in, t_out, valid, tax: dict,
         raise ValueError(f"lanes {tuple(lanes.shape)}: the ranked scorer "
                          f"takes more than {MAX_PROBES} probes a read")
     return _score(lanes, t_in, t_out, valid, tax, confidence_threshold,
-                  taxon_lanes)
+                  taxon_lanes, prior)
+
+
+def _tail_only(name: str, tensors) -> None:
+    """Raise unless every tensor lies on the CPU: on the card K5 and K7
+    run only in the scorer's tail."""
+    if _build.dispatch_device(*tensors) is not None:
+        raise ValueError(f"{name} runs on the card only in the scorer's "
+                         "launch (score_reads_tin, score_reads_taxon, "
+                         "score_ranked)")
 
 
 def lca_lift(u, v, tin_u, tin_v, best, nvalid, tax: dict,
              confidence_threshold: float, taxon_lanes: bool):
-    """K5 on CUDA tensors, the plain version on CPU tensors; same contract
-    as :func:`lca_lift_plain`."""
-    names = ("parent", "depth", "up", "tin2node")
-    dev = _build.dispatch_device(u, v, tin_u, tin_v, best, nvalid,
-                                 *(tax[n] for n in names))
-    if dev is None:
-        return lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax,
-                              confidence_threshold, taxon_lanes)
-    B = u.shape[0]
-    for t, name in ((u, "u"), (v, "v"), (tin_u, "tin_u"), (tin_v, "tin_v"),
-                    (best, "best"), (nvalid, "nvalid")):
-        _build.check(t, torch.int32, shape=(B,), name=name)
-    T1 = _check_tax(tax, names)
-    levels = tax["up"].shape[0]
-    t2n = tax["tin2node"]
-    taxon = torch.empty(B, dtype=torch.int32, device=dev)
-    _build.launch("pangea_lca_lift", dev, u.data_ptr(), v.data_ptr(),
-                  tin_u.data_ptr(), tin_v.data_ptr(), best.data_ptr(),
-                  nvalid.data_ptr(), B,
-                  0 if taxon_lanes else t2n.data_ptr(), t2n.shape[0],
-                  tax["parent"].data_ptr(), tax["depth"].data_ptr(),
-                  tax["up"].data_ptr(), levels, T1,
-                  float(confidence_threshold), taxon.data_ptr())
-    lca_lift.launches += 1
-    return taxon
+    """K5's wrapper: :func:`lca_lift_plain` on CPU tensors. On the card
+    the lift runs in the scorer's launch past DIRECT_LCA_MAX_TAXA taxa,
+    and those launches count here; CUDA tensors raise."""
+    _tail_only("lca_lift", (u, v, tin_u, tin_v, best, nvalid,
+                            *(tax[n] for n in _LIFTED)))
+    return lca_lift_plain(u, v, tin_u, tin_v, best, nvalid, tax,
+                          confidence_threshold, taxon_lanes)
+
+
+def merge_multik(res1: dict, res2: dict, tax: dict) -> dict:
+    """K7's wrapper: :func:`merge_multik_plain` on CPU tensors. On the card
+    the merge runs in the scorer's launch (``prior=``), and those launches
+    count here; CUDA tensors raise."""
+    _tail_only("merge_multik", (*(res1[k] for k in _KEYS),
+                                *(res2[k] for k in _KEYS),
+                                *(tax[n] for n in _MERGE)))
+    return merge_multik_plain(res1, res2, tax)
 
 
 def general_reads() -> dict:
@@ -494,6 +584,7 @@ score_reads_tin.launches = 0
 score_reads_taxon.launches = 0
 score_ranked.launches = 0
 lca_lift.launches = 0
+merge_multik.launches = 0
 # The wrappers whose launches count general-branch reads, by kernel name.
 SCORERS = {"score_tin": score_reads_tin, "score_taxon": score_reads_taxon,
            "score_ranked": score_ranked}

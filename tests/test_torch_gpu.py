@@ -23,18 +23,16 @@ from pangea_tpu_torch.bench import (K9_EDGE, chain_taxonomy, k1_edge_world,
 from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
-                                       merge_multik, merge_multik_plain,
-                                       pad_batch)
+                                       merge_multik_plain, pad_batch)
 from pangea_tpu_torch.index import relayout_q8, relayout_q12
 from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.index.quot import Q12_WAYS
-from pangea_tpu_torch.kernels import (KERNELS, extract_probes,
+from pangea_tpu_torch.kernels import (KERNELS, _build, extract_probes,
                                       extract_probes_plain,
                                       fuse_stash, fuse_table, score_ranked,
                                       score_winners, score_winners_plain,
                                       wire_width,
-                                      kernel_launches, lca_lift,
-                                      lca_lift_plain, lookup_q8,
+                                      kernel_launches, lookup_q8,
                                       lookup_q8_plain, lookup_q12,
                                       lookup_q12_plain, lookup_std,
                                       lookup_std_plain,
@@ -60,6 +58,28 @@ Q8_STEP = {**_NONE, "extract_probes": 2, "lookup_q8": 1, "score_tin": 1}
 def _tax(tax, device):
     return {k: torch.from_numpy(v).to(device)
             for k, v in tax.device_arrays().items()}
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """The launchers that ``_build.launch`` calls, in order: the kernel
+    launches themselves (the lifted and merged tails launch none of their
+    own)."""
+    names = []
+    real = _build.launch
+
+    def spy(name, device, *args):
+        names.append(name)
+        return real(name, device, *args)
+    monkeypatch.setattr(_build, "launch", spy)
+    return names
+
+
+def _own_launches(counts: dict) -> int:
+    """The launches the wrappers' counts stand for: lca_lift and
+    merge_multik count scorer launches, which the scorer counts too."""
+    return sum(n for k, n in counts.items()
+               if k not in ("lca_lift", "merge_multik"))
 
 
 @pytest.fixture(scope="module")
@@ -284,9 +304,10 @@ def _ref_world_index(k, w, tree, genome_len):
 @pytest.mark.parametrize("thr", [0.0, 0.05])
 @pytest.mark.parametrize("name", list(STD_WORLDS))
 def test_std_and_lifting_classifier_cuda_matches_plain_and_golden(
-        cuda, name, thr):
+        cuda, launched, name, thr):
     """K4, K3's taxon form and K5 (and K2 + K5 on a q8 index beyond 4,096
-    taxa) on the card: the step equals the plain path and golden."""
+    taxa) on the card, the lift in the scorer's launch: the step equals the
+    plain path and golden."""
     k, w, tree, launches = STD_WORLDS[name]
     n, L = 512, 150
     bw = make_bench_world(n_reads=n, read_len=L, genome_len=4000, k=k, w=w,
@@ -298,6 +319,8 @@ def test_std_and_lifting_classifier_cuda_matches_plain_and_golden(
     reset_kernel_launches()
     got = {key: v.cpu() for key, v in model(b, m).items()}
     assert kernel_launches() == launches
+    assert len(launched) == _own_launches(launches)
+    assert "lca" not in " ".join(launched)
     plain = classify_reads(model.index.tables, b, model.cfg, mate_bases=m,
                            plain=True)
     for key in got:
@@ -341,7 +364,8 @@ def test_lookup_std_kernel_matches_plain(cuda, tree, ways, load_factor):
 @pytest.mark.parametrize("thr", [0.0, 0.05, 1.0])
 @pytest.mark.parametrize("tree", [None, (512, 64)], ids=["direct",
                                                          "lifting"])
-def test_score_taxon_kernel_matches_plain(cuda, tree, thr):
+def test_score_taxon_kernel_matches_plain(cuda, launched, tree, thr):
+    """K3's taxon form, its LCA direct or lifted in the same launch."""
     tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
     rng = np.random.default_rng(6)
     B, R = 400, 260
@@ -358,14 +382,41 @@ def test_score_taxon_kernel_matches_plain(cuda, tree, thr):
     got = score_reads_taxon(*[a.to(cuda) for a in args], _tax(tax, cuda),
                             thr)
     assert kernel_launches()["lca_lift"] == (1 if tree else 0)
+    assert kernel_launches()["score_taxon"] == 1
+    assert launched == ["pangea_score"]
     want = score_reads_taxon_plain(*args, _tax(tax, "cpu"), thr)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
 
 
+def _chain_reads(tax, B, R, rng):
+    """[B, R] scorer inputs on a chain whose winners are two deep chain
+    nodes a read: R // 4 hits on each node's unit interval [tin, tin + 1),
+    so the two tie; the hits' lanes are random chain nodes (the taxon
+    form's u and v), the other probes misses. Read 0 has no hit, read 1
+    no valid probe."""
+    n = tax.num_taxa
+    nodes = rng.integers(1, n + 1, size=(B, 2))
+    which = rng.permuted(np.repeat([[0] * (R // 4) + [1] * (R // 4)
+                                    + [-1] * (R - 2 * (R // 4))], B, 0),
+                         axis=1)
+    node = np.where(which >= 0,
+                    np.take_along_axis(nodes, np.maximum(which, 0), 1), 0)
+    t_in = np.where(which >= 0, tax.tin[node], 0).astype(np.int32)
+    t_out = np.where(which >= 0, t_in + 1, 0).astype(np.int32)
+    taxon = np.where(which >= 0, rng.integers(1, n + 1, size=(B, R)),
+                     0).astype(np.int32)
+    taxon[0] = 0
+    valid = (rng.random((B, R)) < 0.8) | (taxon != 0)
+    valid[1] = False
+    return taxon, t_in, t_out, valid
+
+
 @pytest.mark.parametrize("q8", [False, True], ids=["taxon", "q8"])
-def test_lca_lift_kernel_matches_plain_on_a_chain(cuda, q8):
-    """A 5,000-node chain: 13 lifting levels, every pair a deep walk."""
+def test_lca_lift_kernel_matches_plain_on_a_chain(cuda, launched, q8):
+    """K5 in the scorer's launch on a 5,000-node chain: 13 lifting levels,
+    the winners two random deep chain nodes a read (taxon form: lanes of
+    random chain nodes), every pair a deep walk; one launch a call."""
     n = 5000
     parent = np.arange(-1, n, dtype=np.int32)
     parent[:2] = (0, 1)
@@ -373,21 +424,23 @@ def test_lca_lift_kernel_matches_plain_on_a_chain(cuda, q8):
                    names=["unclassified"] + [f"n{i}" for i in range(n)])
     assert tax.lifting_table().shape[0] >= 10
     rng = np.random.default_rng(9)
-    B = 20000
-    u, v = (rng.integers(0, n + 1, size=B).astype(np.int32)
-            for _ in range(2))
-    tin_u, tin_v = tax.tin[u], tax.tin[v]
-    best = rng.integers(0, 5, size=B).astype(np.int32)
-    nvalid = best + rng.integers(0, 5, size=B).astype(np.int32)
-    if q8:
-        u = v = (best > 0).astype(np.int32)
-    args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
-            for a in (u, v, tin_u, tin_v, best, nvalid)]
+    taxon, t_in, t_out, valid = _chain_reads(tax, 20000, 32, rng)
+    lanes = (taxon != 0).astype(np.int32) if q8 else taxon
+    args = [torch.from_numpy(a) for a in (lanes, t_in, t_out, valid)]
+    cargs = [a.to(cuda) for a in args]
+    fn = score_reads_tin if q8 else score_reads_taxon
     for thr in (0.0, 0.5):
-        want = lca_lift_plain(*args, _tax(tax, "cpu"), thr, not q8)
-        got = lca_lift(*[a.to(cuda) for a in args], _tax(tax, cuda), thr,
-                       not q8)
-        assert torch.equal(want, got.cpu())
+        want = score_reads_plain(*args, _tax(tax, "cpu"), thr, not q8)
+        reset_kernel_launches()
+        launched.clear()
+        got = fn(*cargs, _tax(tax, cuda), thr)
+        assert kernel_launches()["lca_lift"] == 1
+        assert launched == ["pangea_score"]
+        for a, b in zip(want, got):
+            assert torch.equal(a, b.cpu())
+        if thr == 0.0:             # every read with a hit is classified
+            depth = torch.from_numpy(tax.depth)[want[0][2:].long()]
+            assert int(depth.max()) > 1000 and (want[0][2:] != 0).all()
 
 
 def _q12_index(idx, device, thr):
@@ -449,18 +502,6 @@ def test_lookup_q12_kernel_matches_plain(cuda, request, name, ways,
     assert not want[0][canon.shape[0]:].any()
 
 
-def _calls(tax, B, rng):
-    out = []
-    t1 = rng.integers(0, tax.num_taxa + 1, size=B)
-    for t in (t1, np.where(rng.random(B) < 0.3, t1,
-                           rng.integers(0, tax.num_taxa + 1, size=B))):
-        nvalid = rng.integers(0, 300, size=B)
-        best = np.minimum(rng.integers(0, 300, size=B), nvalid)
-        out.append({"taxon": t, "best": np.where(t == 0, 0, best),
-                    "nvalid": nvalid})
-    return out
-
-
 def _chain_tax(n):
     parent = np.arange(-1, n, dtype=np.int32)
     parent[:2] = (0, 1)
@@ -468,43 +509,83 @@ def _chain_tax(n):
                        names=["unclassified"] + [f"n{i}" for i in range(n)])
 
 
-@pytest.mark.parametrize("tree", ["bench", "wide", "chain"])
-def test_merge_multik_kernel_matches_plain(cuda, tree):
-    """K7 on random calls (agreements, conflicts, zeros, ties), on the
-    bench tree, the 66,563-taxon tree and a 5,000-node chain (13 lifting
-    levels), and on the int32 extreme cases."""
-    tax = {"bench": lambda: ref_datagen.make_taxonomy(2, 8, 3, seed=0),
-           "wide": lambda: ref_datagen.make_taxonomy(2, 512, 64, seed=0),
-           "chain": lambda: _chain_tax(5000)}[tree]()
-    r1, r2 = _calls(tax, 20000, np.random.default_rng(len(tree)))
+def _prior_calls(own, n_taxa, rng):
+    """An earlier call (int32 numpy taxon, best, nvalid) for reads whose
+    own call is ``own``: random calls, 30 % of them agreeing, exact
+    confidence ties on the first 50 reads, and the int32 extremes of
+    tests/test_hardening.py on the last five and on read 0 (no hit, some
+    valid probes: the n1 + n2 wrap)."""
+    t2, b2, n2 = own
+    B = t2.shape[0]
+    t1 = rng.integers(0, n_taxa + 1, size=B)
+    t1 = np.where(rng.random(B) < 0.3, t2, t1)
+    n1 = rng.integers(0, 300, size=B)
+    b1 = np.where(t1 == 0, 0, np.minimum(rng.integers(0, 300, size=B), n1))
+    b1[:50], n1[:50] = 2 * b2[:50], 2 * n2[:50]
     big = 2**30
-    extremes = [((3, big, big + 1), (3, big + 1, big)),
-                ((3, big, big), (5, big - 1, big)),
-                ((5, big - 1, big), (3, big, big)),
-                ((0, 0, 2**31 - 1), (0, 0, 2)),
-                ((3, 2**31 - 1, 2**31 - 1), (5, 2**31 - 2, 2**31 - 1))]
-    for j, r in enumerate((r1, r2)):
-        for i, key in enumerate(("taxon", "best", "nvalid")):
-            r[key] = torch.from_numpy(np.concatenate(
-                [r[key], [c[j][i] for c in extremes]]).astype(np.int32))
-    want = merge_multik_plain(r1, r2, _tax(tax, "cpu"))
-    reset_kernel_launches()
-    got = merge_multik({k: v.to(cuda) for k, v in r1.items()},
-                       {k: v.to(cuda) for k, v in r2.items()},
-                       _tax(tax, cuda))
-    assert kernel_launches()["merge_multik"] == 1
-    for key in want:
-        assert torch.equal(want[key], got[key].cpu())
-    gold = [merge_multik_golden(
-        GoldenResult(*(int(r1[k][i]) for k in ("taxon", "best", "nvalid"))),
-        GoldenResult(*(int(r2[k][i]) for k in ("taxon", "best", "nvalid"))),
-        tax) for i in range(0, 20000, 97)]
-    assert got["taxon"].cpu()[:20000:97].tolist() == [g.taxon for g in gold]
+    other = (t2[-4:] % n_taxa) + 1
+    extremes = [(t2[-1], big, big + 1), (other[0], 2**31 - 1, 2**31 - 1),
+                (t2[-3], big + 1, big), (other[1], big - 1, big),
+                (0, 0, 2**31 - 1)]
+    for j, c in enumerate(extremes):
+        t1[B - 1 - j], b1[B - 1 - j], n1[B - 1 - j] = c
+    t1[0], b1[0], n1[0] = 0, 0, 2**31 - 1
+    return [np.ascontiguousarray(a, dtype=np.int32) for a in (t1, b1, n1)]
+
+
+@pytest.mark.parametrize("tree", ["bench", "wide", "chain",
+                                  "bench_over_wide"])
+def test_merge_multik_kernel_matches_plain(cuda, launched, tree):
+    """K7 in the scorer's launch: each read's call merged with a random
+    earlier one (agreements, conflicts, zeros, ties), on the bench tree
+    (the direct LCA), the 66,563-taxon tree and a 5,000-node chain (13
+    lifting levels; both lifted), and the bench tree scored but merged over
+    the wide tree; the int32 extreme cases in the prior; both forms, one
+    launch a call; against the plain scorer + merge and golden."""
+    make = {"bench": lambda: ref_datagen.make_taxonomy(2, 8, 3, seed=0),
+            "wide": lambda: ref_datagen.make_taxonomy(2, 512, 64, seed=0),
+            "chain": lambda: _chain_tax(5000)}
+    tax = make[tree.split("_")[0]]()
+    mtax = make["wide"]() if tree == "bench_over_wide" else tax
+    B, R = 20000, 32
+    rng = np.random.default_rng(len(tree))
+    taxon, t_in, t_out, valid = _lineage_lanes(tax, B, R, seed=len(tree))
+    keys = ("taxon", "best", "nvalid")
+    for taxon_lanes in (True, False):
+        lanes = taxon if taxon_lanes else (taxon != 0).astype(np.int32)
+        args = [torch.from_numpy(a) for a in (lanes, t_in, t_out, valid)]
+        own = score_reads_plain(*args, _tax(tax, "cpu"), 0.05, taxon_lanes)
+        prior = dict(zip(keys, map(torch.from_numpy, _prior_calls(
+            [o.numpy() for o in own], mtax.num_taxa, rng))))
+        want = merge_multik_plain(prior, dict(zip(keys, own)),
+                                  _tax(mtax, "cpu"))
+        fn = score_reads_taxon if taxon_lanes else score_reads_tin
+        reset_kernel_launches()
+        launched.clear()
+        got = fn(*[a.to(cuda) for a in args], _tax(tax, cuda), 0.05,
+                 prior=({k: v.to(cuda) for k, v in prior.items()},
+                        _tax(mtax, cuda)))
+        assert kernel_launches()["merge_multik"] == 1
+        assert launched == ["pangea_score"]
+        for key, g in zip(keys, got):
+            assert torch.equal(want[key], g.cpu())
+        t1, t2 = prior["taxon"], own[0]
+        assert ((t1 != 0) & (t2 != 0) & (t1 != t2)).sum() > 1000
+        assert ((t1 != 0) & (t1 == t2)).sum() > 1000
+        # Golden sums two unclassified calls' nvalid unwrapped.
+        rows = [i for i in (*range(0, B, 97), *range(B - 5, B))
+                if int(t1[i]) != 0 or int(t2[i]) != 0]
+        gold = [merge_multik_golden(
+            GoldenResult(*(int(prior[k][i]) for k in keys)),
+            GoldenResult(*(int(o[i]) for o in own)), mtax) for i in rows]
+        for key, g in zip(keys, got):
+            assert g.cpu()[rows].tolist() == [getattr(x, key) for x in gold]
+        assert int(own[2][0]) > 0 and int(got[2][0]) < 0      # the wrap
 
 
 @pytest.mark.parametrize("thr", [0.0, 0.05])
-def test_multik_classifier_cuda_matches_plain_and_golden(cuda, world,
-                                                         thr):
+def test_multik_classifier_cuda_matches_plain_and_golden(cuda, launched,
+                                                         world, thr):
     """Config 4 on a small world: the k=21 q8 index and a k=31 q12 index on
     the same genomes; the step on the card equals the plain path and the
     golden merge of the two golden calls."""
@@ -522,6 +603,7 @@ def test_multik_classifier_cuda_matches_plain_and_golden(cuda, world,
     assert kernel_launches() == {**_NONE, "extract_probes": 4,
                                  "lookup_q8": 1, "lookup_q12": 1,
                                  "score_tin": 2, "merge_multik": 1}
+    assert launched.count("pangea_score") == 2 and len(launched) == 8
     plain = classify_multik(tuple(c.index.tables for c in model.classifiers),
                             b, tuple(c.cfg for c in model.classifiers),
                             mate_bases=m, plain=True)
