@@ -19,11 +19,12 @@ reference bench's deep world (24 genomes of 700 kb, k=21, w=1: 14.0M
 k-mers), built by the port's own `build` CLI, whose q8 table of 524,288
 rows (268 MB, five times the L2) takes the sorted lookup: K9 sorts the
 probes by bucket, then the sorted form of K2 (or K4) probes them; phases
-24-28 drive config 3's sharded index, and phases 29-31 the repository's
+24-28 drive config 3's sharded index, phases 29-31 the repository's
 Pallas experiments (B16: K11-K13) through the port's `experiments` entry
-points. The CLI runs of phases 5, 9, 13, 18 and 22 take the fast path
-(the native reader, built with g++ from the checkout), phase 17's the
-general path:
+points, and phases 32-35 config 5's cohort run (trim, demux, resume and
+report) on the deep index. The CLI runs of phases 5, 9, 13, 18, 22, 28,
+32 and 33 take the fast path (the native reader, built with g++ from the
+checkout), phases 17's and 34's the general path:
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -179,7 +180,26 @@ general path:
      ratio to it on a line of its own and in its kernel's `variants` map;
  31. `python -m pangea_tpu_torch.experiments.mb_pallas` and `... .mb_gather`
      as a user runs them: their lines at 0 mismatches, their launches;
- 32. the launch summary.
+ 32. config 5's CLI: `--config configs/config5_cohort.json` (batch
+     262,144, L 300, threshold 0.05, resume on, one card) on the deep
+     index with C5_READS single-end reads of a pooled cohort of 4 barcoded
+     samples (bench.cohort_fastq: 150 bp behind 8 bp barcodes, qualities
+     falling toward the 3' end, one-base barcode errors and unmatched
+     barcodes planted; made by a process started at phase 24), trimmed
+     (min_qual 20, window 4, min_len 60) and demultiplexed (one
+     mismatch) on the fast path: K1's packed form, K9, sorted K2 and K3
+     launched; the trimmed, dropped, undetermined and per-sample shares,
+     each above 0; the classified reads on their planted truth's lineage;
+     reads/s and host time by phase;
+ 33. the same run killed by SIGKILL once metrics.jsonl has 2 lines (the
+     manifest committed every batch), then resumed with --resume: its
+     files byte for byte the whole run's, the manifest's paths aside; the
+     resume's wall and reads/s;
+ 34. the general path (PANGEA_NO_NATIVE) on the cohort's first 65,536
+     reads: each sample's lines equal to phase 32's for those reads;
+ 35. `cli report` on phase 32's assignment files: its summaries, cohort
+     table and stats.json byte for byte the run's;
+ 36. the launch summary.
 
 The plain paths are held to the JAX reference and its golden model by the
 CPU tests (tests/test_torch_classify.py, tests/test_torch_std.py,
@@ -291,6 +311,14 @@ MESH_SHAPES = ((1, 4), (2, 2))
 MESH_REPS = 5            # timed steps of each multi-rank case
 C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
+# Config 5 (phases 32-35): its file on the deep index, C5_READS single-end
+# reads of a pooled cohort of C5_SAMPLES barcoded samples (bench.cohort_fastq
+# on the deep genomes: qualities falling toward the 3' end, barcode errors
+# planted), trimmed and demultiplexed as C5_OPTIONS set; the general path
+# on its first C5_GENERAL reads.
+C5_READS, C5_SAMPLES, C5_GENERAL = 1_048_576, 4, 65_536
+C5_OPTIONS = ("trim.min_qual=20", "trim.window=4", "trim.min_len=60",
+              "demux.max_mismatch=1")
 # The scorer's worlds of chosen U (bench.score_world) in phases 3, 7 and
 # 15: U = 1, 8, 64 and R (None: every probe a hit of its own), nested
 # along a chain's lineage and from unrelated taxa of the 66,563-taxon tree,
@@ -1587,7 +1615,7 @@ def phase_packed_kernels(torch, wide, fastq: tuple, cuda,
     rows = []
     for path in fastq:
         reader = NativeFastxReader(path, BATCH, READ_LEN)
-        n, _, words, _ = reader.next_batch_packed()
+        n, _, words = reader.next_batch_packed()[:3]
         reader.close()
         if n != BATCH:
             raise AssertionError(f"{path}: {n} records in the first batch")
@@ -1833,7 +1861,8 @@ def start_deep_build() -> dict:
     return {"name": "deep", "tax": tax, "genomes": genomes, "dir": work,
             "cmd": cmd, "proc": start_process(cmd), "t0": time.time(),
             "config": "config2_16s_paired.json", "ooc": None, "gen": None,
-            "c3_fastq": work / "config3.fastq"}
+            "cgen": None, "c3_fastq": work / "config3.fastq",
+            "c5_fastq": work / "cohort.fastq"}
 
 
 def start_sharded_build(deep: dict) -> None:
@@ -1850,9 +1879,15 @@ def start_sharded_build(deep: dict) -> None:
            f"_, g = deep_genomes({DEEP_GENOME_LEN})\n"
            f"datagen.write_fastq({str(deep['c3_fastq'])!r}, "
            f"deep_reads(g, {C3_READS}, {READ_LEN}), mate=1)\n"]
-    log(f"[24] started {' '.join(ooc[1:])}, and config 3's {C3_READS} reads")
+    cgen = [sys.executable, "-c",
+            "from pangea_tpu_torch.bench import cohort_fastq, deep_genomes\n"
+            f"_, g = deep_genomes({DEEP_GENOME_LEN})\n"
+            f"cohort_fastq({str(deep['c5_fastq'])!r}, g, {C5_READS}, "
+            f"{C5_SAMPLES})\n"]
+    log(f"[24] started {' '.join(ooc[1:])}, config 3's {C3_READS} reads "
+        f"and config 5's cohort of {C5_READS}")
     deep.update(ooc=start_process(ooc), gen=start_process(gen),
-                t0_ooc=time.time())
+                cgen=start_process(cgen), t0_ooc=time.time())
 
 
 def phase_deep_build(torch, cuda, deep: dict) -> None:
@@ -2748,6 +2783,233 @@ def phase_experiment_clis() -> dict:
     return clis
 
 
+def cohort_cmd(deep: dict, out_dir: Path, fastq: str) -> list:
+    """Config 5's CLI as a user runs it on the cohort: its file (batch
+    262,144, L 300, threshold 0.05, resume on; the mesh choose_mesh gives
+    one card), the deep index, trim and demux as C5_OPTIONS set, the
+    barcodes of gen-testdata --n-samples."""
+    from pangea_tpu_torch.bench import cohort_barcodes
+    barcodes = [[f"sample{i}", bc]
+                for i, bc in enumerate(cohort_barcodes(C5_SAMPLES))]
+    return [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
+            "--config", str(ROOT / "configs" / "config5_cohort.json"),
+            "--index", *deep["idx_dirs"], "--reads", fastq,
+            "--out", str(out_dir), "--device", "cuda", "--resume",
+            *C5_OPTIONS, "demux.barcodes=" + json.dumps(barcodes)]
+
+
+def cohort_env(**extra) -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
+
+
+def run_cohort(tag: str, cmd: list, env: dict) -> tuple[dict, float]:
+    """One cohort CLI process to its end: its result line and its wall."""
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the cohort CLI returned {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[{tag}] CLI process in {wall:.1f} s: {json.dumps(result)}")
+    how = ("threads of the fast path, overlapping" if result["fast_path"]
+           else "the general path's one loop")
+    log(f"[{tag}] host time by phase ({how}): " + ", ".join(
+        f"{k} {v} s ({100 * v / result['wall_sec']} % of the wall)"
+        for k, v in result["host_sec"].items()))
+    return result, wall
+
+
+def assign_files(out: Path) -> dict:
+    """sample -> its assignment lines, split."""
+    return {f.name[:-len(".assign.tsv")]:
+            [ln.split("\t") for ln in f.read_text().splitlines()]
+            for f in sorted(out.glob("*.assign.tsv"))}
+
+
+def read_index(rid: str) -> int:
+    """The read's number in the bulk generator's ids (S0.read0001234)."""
+    return int(rid[rid.index(".read") + 5:])
+
+
+def load_int32_npy(path: str):
+    """An int32 vector saved by numpy.save, as a torch tensor."""
+    import torch
+    data = Path(path).read_bytes()
+    head = 10 + int.from_bytes(data[8:10], "little")
+    if data[:6] != b"\x93NUMPY" or b"'<i4'" not in data[10:head]:
+        raise AssertionError(f"{path}: not an int32 .npy file")
+    return torch.frombuffer(bytearray(data[head:]), dtype=torch.int32)
+
+
+def phase_cohort_cli(deep: dict) -> dict:
+    """Phase 32: config 5's CLI on the whole cohort (the fast path): K1's
+    packed form, K9, sorted K2 and K3 launched; every read counted; the
+    trimmed, dropped, undetermined and per-sample shares above 0; the
+    classified reads on their planted truth's lineage, and in the sample
+    their barcode was drawn for."""
+    import torch
+    _, err = deep["cgen"].communicate(timeout=900)
+    if deep["cgen"].returncode != 0:
+        raise AssertionError(f"config 5's reads: {err[-4000:]}")
+    fastq = str(deep["c5_fastq"])
+    out = deep["dir"] / "out32"
+    result, _ = run_cohort("32", cohort_cmd(deep, out, fastq), cohort_env())
+    launches = result["kernel_launches"]
+    if not result["fast_path"] or result["reads_in"] != C5_READS \
+            or result["mesh"] != {"data": 1, "shard": 1} \
+            or min(launches[k] for k in ("extract_packed", "bucket_sort",
+                                         "lookup_q8_sorted",
+                                         "score_tin")) < 1:
+        raise AssertionError(f"config 5's CLI did not take the fast path "
+                             f"with the sorted lookup: {json.dumps(result)}")
+    # The trimmed share, recounted from the FASTQ's qualities: a read is
+    # cut where the mean phred of a window of 4 first falls below 20.
+    with open(fastq, "rb") as fh:
+        head, seq = fh.readline(), fh.readline()
+    h, n = len(head), len(seq) - 1
+    width = h + 2 * n + 4
+    rec = torch.from_file(fastq, size=C5_READS * width,
+                          dtype=torch.uint8).view(C5_READS, width)
+    trimmed = 0
+    for lo in range(0, C5_READS, 1 << 17):
+        q = rec[lo:lo + (1 << 17), h + n + 3:h + 2 * n + 3].int() - 33
+        sums = q.unfold(1, 4, 1).sum(2)
+        trimmed += int((sums < 4 * 20).any(1).sum())
+    del rec
+    files = assign_files(out)
+    kept = result["reads_kept"]
+    shares = {"trimmed": trimmed / C5_READS,
+              "dropped": result["reads_filtered"] / C5_READS,
+              **{s: len(rows) / kept for s, rows in files.items()}}
+    truth = load_int32_npy(fastq + ".truth.npy").long()
+    planted = load_int32_npy(fastq + ".samples.npy").long()
+    tin, tout = (deep["tax"][k].cpu().long() for k in ("tin", "tout"))
+    off = classified = own = 0
+    for sample, rows in files.items():
+        idx = torch.tensor([read_index(r[1]) for r in rows],
+                           dtype=torch.long)
+        taxon = torch.tensor([int(r[2]) for r in rows], dtype=torch.long)
+        t = truth[idx]
+        on = (tin[taxon] <= tin[t]) & (tin[t] < tout[taxon])
+        classified += int((taxon != 0).sum())
+        off += int(((taxon != 0) & ~on).sum())
+        if sample != "undetermined":
+            own += int((planted[idx] == int(sample[6:])).sum())
+    log(f"[32] config 5: {result['reads_in']} reads, {kept} kept, "
+        f"{result['batches']} batches, {result['reads_per_sec']} reads/s; "
+        f"shares of the reads (trimmed, dropped) and of the kept reads (each "
+        f"sample): {json.dumps(shares)}; {classified} classified, {off} off "
+        f"their truth's lineage (limit {MAX_OFF_LINEAGE} of the kept); "
+        f"{own} of {kept - len(files.get('undetermined', []))} "
+        f"demultiplexed reads in the sample of their drawn barcode")
+    if min(shares.values()) <= 0 or set(files) != {
+            *(f"sample{i}" for i in range(C5_SAMPLES)), "undetermined"} \
+            or off > MAX_OFF_LINEAGE * kept or not classified:
+        raise AssertionError("config 5's outputs are wrong")
+    return {"out": out, "result": result, "launches": launches,
+            "rows": files}
+
+
+def phase_cohort_resume(deep: dict, whole: dict) -> dict:
+    """Phase 33: the same run, killed by SIGKILL once metrics.jsonl holds 2
+    lines (the durable manifest committed every batch,
+    PANGEA_FSYNC_EVERY=1), then run again with --resume: its files byte
+    for byte the whole run's (the manifest's paths aside)."""
+    import signal
+    out = deep["dir"] / "out33"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = cohort_cmd(deep, out, str(deep["c5_fastq"]))
+    env = cohort_env(PANGEA_FSYNC_EVERY="1")
+    t0 = time.time()
+    with open(deep["dir"] / "killed.err", "w") as err:
+        proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err,
+                                env=env, cwd=ROOT)
+        metrics = out / "metrics.jsonl"
+        while proc.poll() is None and time.time() - t0 < 600:
+            if metrics.exists() and metrics.read_text().count("\n") >= 2:
+                proc.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.01)
+        proc.wait(timeout=60)
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the run to kill ended with {proc.returncode}"
+                             " before its second batch was drained")
+    man = out / "manifest.json"
+    done = (json.loads(man.read_text())["files"][str(deep["c5_fastq"])]
+            if man.exists() else 0)
+    log(f"[33] killed after {time.time() - t0:.1f} s, 2 metrics lines; the "
+        f"manifest records {done} reads")
+    result, wall = run_cohort("33", cmd, env)
+    bad = [f.name for f in sorted(whole["out"].iterdir())
+           if f.name.endswith((".tsv", "stats.json"))
+           and f.read_bytes() != (out / f.name).read_bytes()]
+    want = json.loads((whole["out"] / "manifest.json").read_text())
+    got = json.loads((out / "manifest.json").read_text())
+    same_manifest = got == json.loads(json.dumps(want).replace(
+        str(whole["out"]), str(out)))
+    log(f"[33] resumed: {result['reads_in']} reads in {wall:.1f} s of wall "
+        f"({result['reads_per_sec']} reads/s; the whole run "
+        f"{whole['result']['reads_per_sec']}); files unlike the whole "
+        f"run's: {bad}; manifest the same: {same_manifest}")
+    if bad or not same_manifest or result["reads_in"] != C5_READS - done:
+        raise AssertionError("the resumed cohort differs from the whole run")
+    return result["kernel_launches"]
+
+
+def phase_cohort_general(deep: dict, whole: dict) -> dict:
+    """Phase 34: the general path (PANGEA_NO_NATIVE: the Python reader,
+    per-read trim and demux, K1 on codes) on the cohort's first C5_GENERAL
+    reads: each sample's lines equal the fast path's for those reads."""
+    src = deep["c5_fastq"]
+    with open(src, "rb") as fh:
+        width = sum(len(fh.readline()) for _ in range(4))
+        fh.seek(0)
+        head = fh.read(width * C5_GENERAL)
+    fastq = deep["dir"] / "cohort_head.fastq"
+    fastq.write_bytes(head)
+    out = deep["dir"] / "out34"
+    result, _ = run_cohort("34", cohort_cmd(deep, out, str(fastq)),
+                           cohort_env(PANGEA_NO_NATIVE="1"))
+    files = assign_files(out)
+    want = {s: [r for r in rows if read_index(r[1]) < C5_GENERAL]
+            for s, rows in whole["rows"].items()}
+    bad = sum(files.get(s, []) != rows for s, rows in want.items())
+    log(f"[34] general path: {result['reads_in']} reads, "
+        f"{result['reads_kept']} kept, {result['reads_per_sec']} reads/s; "
+        f"samples whose lines differ from the fast path's: {bad}")
+    if result["fast_path"] or bad or set(files) != {
+            s for s, rows in want.items() if rows}:
+        raise AssertionError("the general path differs from the fast path")
+    return result["kernel_launches"]
+
+
+def phase_cohort_report(deep: dict, whole: dict) -> None:
+    """Phase 35: `cli report` on the whole run's assignment files gives
+    back its summaries, cohort table and stats.json."""
+    files = sorted(whole["out"].glob("*.assign.tsv"))
+    rep = deep["dir"] / "report35"
+    t0 = time.time()
+    proc = start_process([
+        sys.executable, "-m", "pangea_tpu_torch.cli", "report",
+        "--assignments", *map(str, files),
+        "--samples", *(f.name[:-len(".assign.tsv")] for f in files),
+        "--taxonomy", str(deep["dir"] / "idx" / "taxonomy.npz"),
+        "--out-dir", str(rep)])
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"report returned {proc.returncode}:\n"
+                             f"{err[-4000:]}")
+    names = sorted(f.name for f in rep.iterdir())
+    bad = [n for n in names
+           if (rep / n).read_bytes() != (whole["out"] / n).read_bytes()]
+    log(f"[35] report on {len(files)} files in {time.time() - t0:.1f} s: "
+        f"{names}; unlike the run's: {bad}")
+    if bad or "cohort.summary.tsv" not in names or "stats.json" not in names:
+        raise AssertionError("report differs from the run's summaries")
+
+
 def write_fastq(world, name: str = "bench") -> tuple:
     from pangea_tpu_torch.bench import write_fastq_pair
     work = ROOT / "build" / "chip_smoke"
@@ -2781,7 +3043,7 @@ def main() -> int:
     try:
         return run_phases(torch, cuda, card, deep, t_start)
     finally:
-        for name in ("proc", "ooc", "gen"):
+        for name in ("proc", "ooc", "gen", "cgen"):
             if deep[name] is not None and deep[name].poll() is None:
                 deep[name].kill()
                 deep[name].wait()
@@ -2867,14 +3129,21 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     phase_gather_kernels(torch, cuda, res, card)
     experiments = phase_experiment_clis()
 
+    # Phases 32-35: config 5's cohort run on the deep index.
+    c5 = phase_cohort_cli(deep)
+    c5_resumed = phase_cohort_resume(deep, c5)
+    c5_general = phase_cohort_general(deep, c5)
+    phase_cohort_report(deep, c5)
+
     # The main paths' launches: each CLI run's own counts, the q12 and std
-    # deep steps' (phase 21), the multi-rank steps' (phase 26) and the
-    # experiment entry points' (phase 31).
+    # deep steps' (phase 21), the multi-rank steps' (phase 26), the
+    # experiment entry points' (phase 31) and the cohort runs' (32-34).
     clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
             "long": long_cli, "fast_long": fast_long_cli, "deep": deep_cli,
             "deep_q12_step": deep["launches"]["q12"],
             "deep_std_step": deep["launches"]["std"], "mesh": mesh,
-            "config3": c3_cli, **experiments}
+            "config3": c3_cli, **experiments, "cohort": c5["launches"],
+            "cohort_resumed": c5_resumed, "cohort_general": c5_general}
     for path, kernels in (
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
@@ -2896,14 +3165,20 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             ("config3", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
                          "score_tin")),
             ("mb_pallas", ("rowprobe_smem", "rowprobe_onehot")),
-            ("mb_gather", ("row_gather", "row_gather_direct", "block_copy"))):
+            ("mb_gather", ("row_gather", "row_gather_direct", "block_copy")),
+            ("cohort", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
+                        "score_tin")),
+            ("cohort_resumed", ("extract_packed", "bucket_sort",
+                                "lookup_q8_sorted", "score_tin")),
+            ("cohort_general", ("extract_probes", "score_tin"))):
         if min(clis[path][k] for k in kernels) < 1:
             raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[32] kernel launches of the seven CLI runs, the two deep steps, "
-        f"the multi-rank steps and the two experiment entry points: "
-        f"{json.dumps(clis)}; whole run {time.time() - t_start:.1f} s")
+    log(f"[36] kernel launches of the seven CLI runs, the two deep steps, "
+        f"the multi-rank steps, the two experiment entry points and the "
+        f"three cohort runs: {json.dumps(clis)}; whole run "
+        f"{time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": ref,
          "launches": launches[name],

@@ -49,6 +49,11 @@ K10 at 1 to 4,096 owners and at one slot an owner; ``route_bin_dirty``
 runs K10 on a grid filled with -1 first, so that a slot it leaves
 unwritten shows.
 
+``cohort_fastq`` writes config 5's pooled cohort: the bulk generator's
+barcoded single-end reads (``gen-testdata --bulk --n-samples``'s barcodes
+and N rate), with phred qualities that fall toward the 3' end and planted
+barcode errors, for trimming and demultiplexing.
+
 ``make_deep_world`` is the reference bench's deep cell
 (``pangea_tpu/bench.py`` ``run_bench_extras``, lines 415-455): the first 24
 genomes of 700 kb on a 2 x 8 x 3 tree (seeds 31 and 32), single-end 150 bp
@@ -175,6 +180,60 @@ def deep_reads(genomes, n_reads: int, read_len: int = 150):
     """The deep cell's single-end reads."""
     return datagen.sample_reads(genomes, n_reads, read_len=read_len,
                                 paired=False, n_prob=0.005, seed=33)
+
+
+def cohort_barcodes(n_samples: int) -> list:
+    """The 8-base barcodes ``gen-testdata --n-samples`` gives sample0,
+    sample1, ... (distinct, Hamming-separated by construction)."""
+    return ["".join("ACGT"[(i >> (2 * j)) & 3] for j in range(4)) * 2
+            for i in range(n_samples)]
+
+
+def cohort_fastq(path: str, genomes, n_reads: int, n_samples: int = 4,
+                 read_len: int = 150, seed: int = 51,
+                 slope=(0.05, 0.35), noise: float = 3.0,
+                 bc_errors: float = 0.1, bc_unmatched: float = 0.05,
+                 chunk: int = 1 << 17) -> list:
+    """A pooled cohort of n_reads single-end reads of the genomes (the bulk
+    generator, seed ``seed``, N at 0.005), each behind one of
+    ``cohort_barcodes(n_samples)`` (``path``.samples.npy, and the source
+    taxa in ``path``.truth.npy), then changed in place from the generator
+    of seed + 1: each read's phred qualities fall from 40 by a slope drawn
+    from ``slope`` a base, with normal noise, clipped to 2-41; a share
+    bc_errors of the reads has one barcode base changed to another base, a
+    further bc_unmatched a barcode of random bases. Returns the barcodes."""
+    barcodes = cohort_barcodes(n_samples)
+    datagen.generate_reads_fastq_bulk(path, genomes, n_reads,
+                                      read_len=read_len, n_prob=0.005,
+                                      seed=seed, barcodes=barcodes)
+    with open(path, "rb") as fh:             # fixed-width records
+        head, seq = fh.readline(), fh.readline()
+    h, n = len(head), len(seq) - 1
+    rec = np.memmap(path, np.uint8, "r+", shape=(n_reads, h + 2 * n + 4))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    code = np.zeros(256, np.int64)
+    code[acgt] = np.arange(4)
+    m = len(barcodes[0])
+    rng = np.random.default_rng(seed + 1)
+    for lo in range(0, n_reads, chunk):
+        r = rec[lo:lo + chunk]
+        B = r.shape[0]
+        q = 40 - rng.uniform(*slope, (B, 1)) * np.arange(n) \
+            + rng.normal(0, noise, (B, n))
+        r[:, h + n + 3:h + 2 * n + 3] = np.clip(q, 2, 41).astype(np.uint8) \
+            + 33
+        u = rng.random(B)
+        bc = r[:, h:h + m]
+        err = np.flatnonzero(u < bc_errors)
+        pos = rng.integers(0, m, err.size)
+        bc[err, pos] = acgt[(code[bc[err, pos]]
+                             + rng.integers(1, 4, err.size)) % 4]
+        unm = (u >= bc_errors) & (u < bc_errors + bc_unmatched)
+        bc[unm] = acgt[rng.integers(0, 4, (int(unm.sum()), m))]
+        r[:, h:h + m] = bc
+    rec.flush()
+    del rec
+    return barcodes
 
 
 def make_deep_world(n_reads: int = 16_384, read_len: int = 150,

@@ -5,7 +5,9 @@
         --taxonomy taxonomy.tsv --k 21 --out idx/
     python -m pangea_tpu_torch.cli classify --index idx/ [idx2/ ...] \\
         --reads r1.fq [--mates r2.fq] [--samples s] [--out dir] \\
-        [--config run.json] [--device cuda] [key.dotted=value ...]
+        [--config run.json] [--device cuda] [--resume] [key.dotted=value ...]
+    python -m pangea_tpu_torch.cli report --assignments a.assign.tsv ... \
+        --taxonomy idx/taxonomy.npz --out-dir dir/ [--samples s ...]
 
 The subcommands and flags are those of ``pangea-tpu``; ``gen-testdata`` and
 ``build`` (in memory, or out of core into a sharded container with
@@ -19,10 +21,17 @@ does with k=21 and k=31. ``--device`` names the torch device (default
 
 As the reference's CLI, a run takes the fast path (the native reader's
 packed rows; reads past ``input.max_read_len`` are cut and counted) unless
-``input.long_reads=true`` or ``PANGEA_NO_NATIVE`` is set, which take the
-general path (the Python reader; long reads classified whole in length
-buckets). The run names its path on stderr, and its result line, printed
-last on stdout, carries ``fast_path`` and ``truncated_reads``.
+``input.long_reads=true``, ``PANGEA_NO_NATIVE`` or a barcode longer than
+32 bases, which take the general path (long reads classified whole in
+length buckets). Both paths trim (``trim.min_qual``, ``trim.window``,
+``trim.min_len``, ``trim.max_len``), demultiplex (``demux.barcodes``,
+``demux.max_mismatch``) and resume (``--resume``: the outputs of a run cut
+short, by either package's CLI, are completed from its ``manifest.json``).
+The run names its path on stderr, and its result line, printed last on
+stdout (and written to ``run_summary.json``), carries ``fast_path`` and
+``truncated_reads``. ``report`` writes the summaries, the cohort table and
+``stats.json`` of existing assignment files, as the reference's does (host
+code only).
 """
 from __future__ import annotations
 
@@ -90,13 +99,20 @@ def main(argv=None) -> int:
                    help="torch device to classify on (default cuda)")
     c.add_argument("overrides", nargs="*",
                    help="dotted config overrides key.path=value")
+
+    r = sub.add_parser("report", help="summaries from assignment TSVs")
+    r.add_argument("--assignments", nargs="+", required=True)
+    r.add_argument("--samples", nargs="+", default=None)
+    r.add_argument("--taxonomy", required=True,
+                   help="taxonomy NPZ/TSV, or nodes.dmp with --names-dmp "
+                        "(e.g. <index>/taxonomy.npz)")
+    r.add_argument("--names-dmp", default=None)
+    r.add_argument("--out-dir", required=True)
     args = p.parse_args(argv)
-    if args.cmd == "build":
-        return _cmd_build(args)
-    if args.cmd == "gen-testdata":
-        return _cmd_gen(args)
-    _rescue_overrides(args, sys.argv[1:] if argv is None else argv)
-    return _cmd_classify(args)
+    if args.cmd == "classify":
+        _rescue_overrides(args, sys.argv[1:] if argv is None else argv)
+    return {"build": _cmd_build, "classify": _cmd_classify,
+            "report": _cmd_report, "gen-testdata": _cmd_gen}[args.cmd](args)
 
 
 # Dotted override shape: section.key=...; every real override has a dot.
@@ -160,9 +176,8 @@ def _cmd_gen(args) -> int:
     if args.bulk:
         barcodes = None
         if args.n_samples:
-            # distinct 8 bp barcodes, Hamming-separated by construction
-            barcodes = ["".join("ACGT"[(i >> (2 * j)) & 3] for j in range(4))
-                        * 2 for i in range(args.n_samples)]
+            from .bench import cohort_barcodes
+            barcodes = cohort_barcodes(args.n_samples)
             with open(os.path.join(args.out, "barcodes.tsv"), "w") as fh:
                 for i, bc in enumerate(barcodes):
                     fh.write(f"sample{i}\t{bc}\n")
@@ -186,6 +201,39 @@ def _cmd_gen(args) -> int:
                    fmt="%d", delimiter="\t", header="read_idx\ttaxid")
     print(f"wrote {args.reads} reads ({'paired' if args.paired else 'single'}"
           f"-end), {len(genomes)} genomes, {tax.num_taxa} taxa -> {args.out}")
+    return 0
+
+
+def _cmd_report(args) -> int:
+    """Summaries, the cohort table (several files, in their order) and
+    stats.json of existing assignment files."""
+    import os
+
+    import numpy as np
+
+    from .pipeline.run import default_sample_names, load_taxonomy_any
+    from .report import (read_assignments, summarize, write_cohort_summary,
+                         write_summary)
+    from .report import stats as report_stats
+    tax = load_taxonomy_any(args.taxonomy, names_dmp=args.names_dmp)
+    os.makedirs(args.out_dir, exist_ok=True)
+    samples = args.samples or default_sample_names(args.assignments)
+    sample_taxa = {}
+    stats_out = {}
+    for sample, path in zip(samples, args.assignments):
+        taxa = np.array([r.taxon for r in read_assignments(path)],
+                        dtype=np.int64)
+        sample_taxa[sample] = taxa
+        write_summary(os.path.join(args.out_dir, f"{sample}.summary.tsv"),
+                      taxa, tax)
+        direct, _ = summarize(taxa, tax)
+        stats_out[sample] = report_stats.sample_stats(direct[1:])
+    if len(sample_taxa) > 1:
+        write_cohort_summary(os.path.join(args.out_dir,
+                                          "cohort.summary.tsv"),
+                             sample_taxa, tax, sample_order=samples)
+    with open(os.path.join(args.out_dir, "stats.json"), "w") as fh:
+        json.dump(stats_out, fh, indent=2, sort_keys=True)
     return 0
 
 

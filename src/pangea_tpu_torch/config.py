@@ -3,9 +3,7 @@
 its outputs.
 
 The port's copy of ``pangea_tpu/config.py``: the same fields, defaults and
-JSON, so one config file drives either package. Fields the port does not
-run yet (mesh, dist, trim, demux, resume, several indexes) are kept and
-refused by ``pipeline.run`` with their ROADMAP item.
+JSON, so one config file drives either package.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 §1-§4).
 
 The port's copy of ``pangea_tpu/core/semantics_np.py``, with the parts the
-index builder and the FASTQ reader use: base codes, canonical k-mers,
-hash32 and the build-side minimizer mask. ``tests/test_torch_host.py``
+index builder, the FASTQ reader and demultiplexing use: base codes
+(``encode_bases``), canonical k-mers, hash32 and the build-side minimizer
+mask. ``tests/test_torch_host.py``
 holds it equal to the reference.
 """
 from __future__ import annotations
@@ -17,6 +18,14 @@ _BASE_LUT = np.full(256, AMBIG, dtype=np.uint8)
 for _b, _c in (("A", 0), ("C", 1), ("G", 2), ("T", 3), ("U", 3)):
     _BASE_LUT[ord(_b)] = _c
     _BASE_LUT[ord(_b.lower())] = _c
+
+
+def encode_bases(seq) -> np.ndarray:
+    """ASCII sequence (str/bytes) → uint8 codes per SEMANTICS.md §1."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii", errors="replace")
+    raw = np.frombuffer(bytes(seq), dtype=np.uint8)
+    return _BASE_LUT[raw]
 
 
 def canonical_kmers(codes: np.ndarray, k: int):

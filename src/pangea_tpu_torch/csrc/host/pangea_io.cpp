@@ -1,18 +1,17 @@
-// Native FASTA/FASTQ ingest into packed wire rows, and the bulk
-// assignment-TSV writer, of the CLI's fast path.
+// Native FASTA/FASTQ ingest into padded codes or packed wire rows, and the
+// bulk assignment-TSV writer, of the CLI's two read paths.
 //
 // The port's own copy of the reference's native/pangea_io.cpp (the port
 // loads no library of the JAX package): the same record scanner over zlib
-// (transparent gzip), pangea_fastx_next_batch_packed and
-// pangea_write_assignments, byte for byte; the reference's unpacked batch
-// parser is left out (the port's general path parses in Python). Exposed
-// as a plain C ABI for ctypes; pangea_tpu_torch/io/native.py builds it with
-// g++ at first use.
+// (transparent gzip), pangea_fastx_next_batch (padded int8 codes, for the
+// general path's native reader), pangea_fastx_next_batch_packed and
+// pangea_write_assignments, byte for byte. Exposed as a plain C ABI for
+// ctypes; pangea_tpu_torch/io/native.py builds it with g++ at first use.
 //
-// Semantics contracts: the wire rows and lengths equal the reference
-// reader's, and the assignment lines equal
+// Semantics contracts: the codes, wire rows, lengths and qualities equal
+// the reference reader's, and the assignment lines equal
 // pangea_tpu_torch.report.writers.format_assignment (tested in
-// tests/test_torch_packed.py).
+// tests/test_torch_packed.py and tests/test_torch_cohort.py).
 
 #include <unistd.h>
 #include <zlib.h>
@@ -27,6 +26,7 @@
 namespace {
 
 constexpr size_t kChunk = 1 << 20;  // 1 MiB read chunks
+constexpr int8_t kPad = 4;
 
 struct Lut {
   unsigned char enc[256];
@@ -125,6 +125,17 @@ inline void copy_id(const char* s, size_t n, char* dst, long stride) {
   dst[m] = '\0';
 }
 
+inline void encode_row(const char* seq, size_t n, size_t max_len,
+                       int8_t* row, int32_t* len_out) {
+  size_t m = n < max_len ? n : max_len;
+  for (size_t i = 0; i < m; ++i)
+    row[i] = (int8_t)kLut.enc[(unsigned char)seq[i]];
+  if (m < max_len) std::memset(row + m, kPad, max_len - m);
+  // Report the TRUE (pre-truncation) length so callers can detect and
+  // warn about overlong reads; the row itself holds min(n, max_len) bases.
+  *len_out = (int32_t)n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -148,6 +159,97 @@ void pangea_fastx_close(void* h) {
 const char* pangea_fastx_error(void* h) {
   Reader* r = (Reader*)h;
   return r ? r->err.c_str() : "null handle";
+}
+
+// Parse up to max_reads records into a padded batch.
+//   codes: int8 [max_reads, max_len]  (row-padded with 4)
+//   lens:  int32 [max_reads]          (TRUE pre-truncation lengths)
+//   quals: uint8 [max_reads, max_len] or NULL (phred+33 decoded, 0-padded)
+//   ids:   char  [max_reads, id_stride] NUL-terminated first tokens
+// Returns records parsed (0 = EOF), or -1 on malformed input / IO error.
+long pangea_fastx_next_batch(void* h, long max_reads, long max_len,
+                             int8_t* codes, int32_t* lens, uint8_t* quals,
+                             char* ids, long id_stride) {
+  Reader* r = (Reader*)h;
+  if (!r || !r->peek_format()) return -1;
+  long n = 0;
+  size_t s, e;
+  if (r->format == 2) {  // FASTQ
+    while (n < max_reads) {
+      if (!r->getline(&s, &e)) break;  // EOF
+      if (e == s) continue;            // blank line tolerance
+      if (r->buf[s] != '@') {
+        r->err = "malformed FASTQ header";
+        return -1;
+      }
+      copy_id(&r->buf[s + 1], e - s - 1, ids + n * id_stride, id_stride);
+      size_t hs = s;
+      if (!r->getline(&s, &e)) {
+        r->err = "truncated FASTQ record";
+        return -1;
+      }
+      (void)hs;
+      // NOTE: getline may compact the buffer, so sequence bytes must be
+      // consumed before the next getline call.
+      encode_row(&r->buf[s], e - s, (size_t)max_len,
+                 codes + n * max_len, lens + n);
+      size_t seq_len = e - s;
+      if (!r->getline(&s, &e) || r->buf[s] != '+') {
+        r->err = "malformed FASTQ separator";
+        return -1;
+      }
+      if (!r->getline(&s, &e)) {
+        r->err = "truncated FASTQ quality";
+        return -1;
+      }
+      if (e - s != seq_len) {
+        r->err = "FASTQ qual/seq length mismatch";
+        return -1;
+      }
+      if (quals) {
+        uint8_t* q = quals + n * max_len;
+        size_t m = seq_len < (size_t)max_len ? seq_len : (size_t)max_len;
+        for (size_t i = 0; i < m; ++i)
+          q[i] = (uint8_t)(r->buf[s + i] - 33);
+        if (m < (size_t)max_len) std::memset(q + m, 0, max_len - m);
+      }
+      ++n;
+    }
+    return n;
+  }
+  // FASTA: sequences may span lines; accumulate until next '>' or EOF.
+  std::string& seq = r->seq_scratch;
+  while (n < max_reads) {
+    if (!r->getline(&s, &e)) break;  // EOF
+    if (e == s) continue;
+    if (r->buf[s] != '>') {
+      r->err = "malformed FASTA header";
+      return -1;
+    }
+    // Copy header id now (buffer may compact during sequence reads).
+    copy_id(&r->buf[s + 1], e - s - 1, ids + n * id_stride, id_stride);
+    seq.clear();
+    bool eof = false;
+    for (;;) {
+      if (!r->getline(&s, &e)) {
+        eof = true;
+        break;
+      }
+      if (e > s && r->buf[s] == '>') break;  // next record header
+      seq.append(&r->buf[s], e - s);
+    }
+    encode_row(seq.data(), seq.size(), (size_t)max_len,
+               codes + n * max_len, lens + n);
+    if (quals)
+      std::memset(quals + n * max_len, 0, max_len);
+    ++n;
+    if (eof) break;
+    // The '>' line for the NEXT record is already consumed: rewind pos so
+    // the next loop iteration re-reads it. Safe because getline never
+    // compacts past a line it just returned.
+    r->pos = s;
+  }
+  return n;
 }
 
 // ---------------------------------------------------------------------------

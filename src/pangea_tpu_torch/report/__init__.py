@@ -1,8 +1,12 @@
 from . import stats
-from .writers import (AssignmentRecord, format_assignment,
-                      summarize_counts, write_cohort_summary_counts,
+from .writers import (AssignmentRecord, count_taxa_tsv, format_assignment,
+                      merge_cohort, read_assignments, summarize,
+                      summarize_counts, write_cohort_summary,
+                      write_cohort_summary_counts, write_summary,
                       write_summary_counts)
 
-__all__ = ["AssignmentRecord", "format_assignment", "stats",
-           "summarize_counts", "write_cohort_summary_counts",
+__all__ = ["AssignmentRecord", "count_taxa_tsv", "format_assignment",
+           "merge_cohort", "read_assignments", "stats", "summarize",
+           "summarize_counts", "write_cohort_summary",
+           "write_cohort_summary_counts", "write_summary",
            "write_summary_counts"]

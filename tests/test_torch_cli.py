@@ -64,25 +64,17 @@ def test_cli_outputs_byte_identical_to_jax(testdata, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("extra", [
     ["mesh.n_data=2", "mesh.n_shard=1"],
-    ["trim.min_qual=20"],
-    ['demux.barcodes=[["x", "ACGTACGT"]]'],
-    ["--resume"],
-    ["trim.max_len=100"],
-], ids=["mesh", "trim", "demux", "resume", "max_len"])
+], ids=["mesh"])
 def test_cli_unsupported_options_raise(testdata, tmp_path, extra):
-    """Options the port does not run raise, naming their ROADMAP item; a
-    mesh runs (tests/test_torch_dist.py) but must cover the world of ranks,
-    here one process."""
+    """A mesh runs (tests/test_torch_dist.py) but must cover the world of
+    ranks, here one process. (Trim, demux, max_len and resume run:
+    tests/test_torch_cohort.py and tests/test_torch_resume.py.)"""
     d = testdata
-    extra = [str(d / a) if a == "idx" else a for a in extra]
     args = ["classify", "--index", str(d / "idx"),
             "--reads", str(d / "a_1.fastq"), "--mates", str(d / "a_2.fastq"),
             "--out", str(tmp_path / "out"), "--device", "cpu",
             "input.batch_size=64", "input.max_read_len=120", *extra]
-    error, match = ((ValueError, "mesh 2 x 1 for a world of 1 ranks")
-                    if extra[0].startswith("mesh") else
-                    (NotImplementedError, "ROADMAP"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="mesh 2 x 1 for a world of 1 ranks"):
         cli.main(args)
 
 
@@ -98,12 +90,15 @@ def test_cli_refuses_indexes_of_different_taxonomies(testdata, tmp_path):
 
 def test_cli_reports_host_time_by_phase(testdata, tmp_path, capsys,
                                         monkeypatch):
-    """Each path reports its own phases: the general loop's parse, pad,
-    step and write sum to at most the wall; the fast path's threads
-    (parse, step, fetch, write) overlap, so each is at most the wall."""
+    """Each path reports its own phases: the general loop's parse, trim,
+    pad, step, write and sync sum to at most the wall; the fast path's
+    threads (parse and trim, step, fetch and write, sync) overlap, so each
+    is at most the wall."""
     d = testdata
-    for env, phases in ((None, ["fetch", "parse", "step", "write"]),
-                        ("1", ["pad", "parse", "step", "write"])):
+    for env, phases in ((None, ["fetch", "parse", "step", "sync", "trim",
+                                "write"]),
+                        ("1", ["pad", "parse", "step", "sync", "trim",
+                               "write"])):
         if env:
             monkeypatch.setenv("PANGEA_NO_NATIVE", env)
         assert cli.main(["classify", "--index", str(d / "idx"),

@@ -72,7 +72,9 @@ def test_four_rank_classify_byte_identical(testdata, tmp_path, routing):
         assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
         assert f"rank {r} at ({r // 2}, {r % 2})" in err
     _same_outputs(d / "ref", out)
-    assert sorted(os.listdir(out)) == sorted([*OUTPUTS, "run_config.json"])
+    assert sorted(os.listdir(out)) == sorted([
+        *OUTPUTS, "run_config.json", "manifest.json", "metrics.jsonl",
+        "run_summary.json"])
 
 
 def test_port_built_sharded_index_on_one_rank(testdata, tmp_path):
