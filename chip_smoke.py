@@ -166,12 +166,15 @@ checkout), phases 17's and 34's the general path:
      4-shard index (one card: mesh (1, 1), one q8 table) with 1,048,576
      single-end reads in four batches of 262,144, its first 16,384 lines
      against the one-rank step at config 3's threshold, reads/s;
- 29. K11 and K12 (the Pallas row probe of experiments/mb_pallas.py)
-     against their plain versions, bit for bit: K11 on the experiment's
-     world (a 16,384 x 128 table, 524,288 queries, seed 0), on a
-     65,536-row table (past one wave of blocks) and at W = 32; K12 on the
-     same world and on a 1,024-row table, every query; timed, and K12's
-     one-hot product set against the int8 peak;
+ 29. K11 and K12 (the Pallas row probe of experiments/mb_pallas.py) and
+     the routing pass that orders their queries by table tile, against
+     their plain versions, bit for bit (the routing pass by key, count and
+     record multiset): on the experiment's world (a 16,384 x 128 table,
+     524,288 queries, seed 0), on a 65,536-row table, at W = 32 (with row
+     numbers past the table and below 0), on a 1,024-row table, with
+     every query in one row, and with the queries in every other 32-row
+     tile; timed (each call's routing pass in), and K12's one-hot product,
+     dense and over the k-tiles it visits, set against the int8 peak;
  30. K13 (the Pallas row gathers of experiments/mb_gather2-5.py) in every
      variant of `experiments.mb_gather` at the scripts' shapes (a [2^19,
      64] uint32 table of 134.2 MB, 2^20 or 2^19 indices, each (depth,
@@ -327,9 +330,9 @@ C5_OPTIONS = ("trim.min_qual=20", "trim.window=4", "trim.min_len=60",
 U_WORLDS = (1, 8, 64, None)
 U_MISS = 0.5
 K3_SHAPES = ((1180, 64), (2048, 16))
-# The Pallas experiments (phases 29-31): K11 on mb_pallas's world and on a
-# table of PROBE_TALL_NB rows (past one wave of blocks); K12 on the same
-# world and on a table of ONEH_SMALL_NB rows, every query. K13's variants
+# The Pallas experiments (phases 29-31): the routing pass, K11 and K12 on
+# mb_pallas's world and on tables of PROBE_TALL_NB (2,048 routing keys) and
+# ONEH_SMALL_NB rows, every query. K13's variants
 # are the entry point's own (experiments.mb_gather.VARIANTS);
 # PRIMARY_GATHERS name the variant whose numbers each K13 wrapper's entry
 # of the kernels line carries; its `variants` map carries every variant's.
@@ -380,6 +383,9 @@ KERNELS = {
                   "src/pangea_tpu/dist/mesh.py:371"),
     "route_restore": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
                       "src/pangea_tpu/dist/mesh.py:450"),
+    "rowprobe_route": ("src/pangea_tpu_torch/csrc/bucket_sort.cu",
+                       "experiments/mb_pallas.py:83, experiments/"
+                       "mb_pallas.py:118"),
     "rowprobe_smem": ("src/pangea_tpu_torch/csrc/rowprobe_smem.cu",
                       "experiments/mb_pallas.py:83"),
     "rowprobe_onehot": ("src/pangea_tpu_torch/csrc/rowprobe_onehot.cu",
@@ -2629,17 +2635,43 @@ def phase_config3_cli(torch, deep) -> dict:
     return launches
 
 
+def check_row_route(torch, res: Results, what: str, b, rem,
+                    nb: int) -> None:
+    """The routing pass against its plain version by key, count and record
+    multiset: the totals equal, the keys ascend, and the records (query
+    index, row, rem, 1) are the plain version's up to order within a
+    key."""
+    from pangea_tpu_torch.kernels import rowprobe_route, rowprobe_route_plain
+    from pangea_tpu_torch.kernels.rowprobe import rowprobe_plan
+    records, totals = rowprobe_route(b, rem, nb)
+    want, want_totals = rowprobe_route_plain(b, rem, nb)
+    shift = rowprobe_plan(nb, 1).shift
+    keys = records[:, 1].long() >> shift
+    if bool((keys[1:] < keys[:-1]).any()):
+        raise AssertionError(f"29 routing pass {what}: keys out of order")
+    res.check("rowprobe_route", f"29 routing pass {what}",
+              [want_totals, want[want[:, 0].long().argsort()]],
+              [totals, records[records[:, 0].long().argsort()]])
+
+
 def phase_rowprobe_kernels(torch, cuda, res: Results, card: str) -> None:
-    """Phase 29: K11 and K12 at mb_pallas's shapes against their plain
-    versions, bit for bit: K11 on the experiment's world (16,384 x 128,
-    524,288 queries, seed 0), on a table of PROBE_TALL_NB rows and at W =
-    32; K12 on the same world and on an ONEH_SMALL_NB-row table, every
-    query. Bounds: the table read once, 8 B in and 4 B out a query; K12's
-    one-hot product is also set against the int8 tensor-core peak."""
+    """Phase 29: the routing pass, K11 and K12 at mb_pallas's shapes
+    against their plain versions, bit for bit: the experiment's world
+    (16,384 x 128, 524,288 queries, seed 0), a table of PROBE_TALL_NB rows,
+    W = 32 (with the row numbers that count from the end or pass it), an
+    ONEH_SMALL_NB-row table, every query in one row, and queries in every
+    other 32-row tile. Bounds: the table read once, 8 B in and 4 B out a
+    query (the routing pass: 8 B in, a 16-byte record out); K12's one-hot
+    product, dense as the TPU experiment ran it and over the k-tiles it
+    visits, is set against the int8 tensor-core peak."""
     from pangea_tpu_torch.experiments import mb_pallas as MP
     from pangea_tpu_torch.kernels import (rowprobe_onehot,
                                           rowprobe_onehot_plain,
-                                          rowprobe_plain, rowprobe_smem)
+                                          rowprobe_plain, rowprobe_route,
+                                          rowprobe_route_plain,
+                                          rowprobe_smem)
+    from pangea_tpu_torch.kernels.rowprobe import (TILE_ROWS, onehot_visits,
+                                                   rowprobe_plan)
 
     def world(**kw):
         return MP.world_tensors(MP.make_world(0, **kw), cuda)
@@ -2649,34 +2681,52 @@ def phase_rowprobe_kernels(torch, cuda, res: Results, card: str) -> None:
 
     t0 = time.time()
     full = world()
-    for what, args in (("full", full), ("tall", world(nb=PROBE_TALL_NB)),
-                       ("W=32", world(w=32))):
-        res.check("rowprobe_smem", f"29 K11 {what} {tuple(args[0].shape)}",
-                  [rowprobe_plain(*args)], [rowprobe_smem(*args)])
     table, b, rem = full
-    n = b.numel()
-    res.time(torch, "rowprobe_smem", "29 K11 full",
+    n, nb = b.numel(), table.shape[0]
+    w32 = world(w=32)
+    w32[1][:8] = torch.tensor([-1, -7, nb, nb + 5, -nb, -nb - 9, 2**31 - 1,
+                               -2**31], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(29)
+    tiles = torch.randint(0, nb // TILE_ROWS // 2, (n,), generator=g) * 2
+    half = (table, (tiles * TILE_ROWS + torch.randint(
+        0, TILE_ROWS, (n,), generator=g)).to(torch.int32).to(cuda), rem)
+    worlds = {"full": full, "tall": world(nb=PROBE_TALL_NB), "W=32": w32,
+              "small": world(nb=ONEH_SMALL_NB),
+              "skewed (one row)": (table, torch.full_like(b, 12345), rem),
+              "half-empty (every other tile)": half}
+    for what, (tab, bb, rr) in worlds.items():
+        check_row_route(torch, res, f"{what} {tuple(tab.shape)}", bb, rr,
+                        tab.shape[0])
+        want = [rowprobe_plain(tab, bb, rr)]
+        res.check("rowprobe_smem", f"29 K11 {what} {tuple(tab.shape)}",
+                  want, [rowprobe_smem(tab, bb, rr)])
+        res.check("rowprobe_onehot", f"29 K12 {what} {tuple(tab.shape)}",
+                  want, [rowprobe_onehot(tab, bb, rr)])
+    res.time(torch, "rowprobe_route", "29 routing pass full",
+             lambda: rowprobe_route(b, rem, nb),
+             lambda: rowprobe_route_plain(b, rem, nb), nbytes=n * 24, ops=0)
+    res.time(torch, "rowprobe_smem", "29 K11 full, the routing pass in",
              lambda: rowprobe_smem(*full), lambda: rowprobe_plain(*full),
              nbytes=probe_bytes(table, n), ops=n * table.shape[1])
-
-    small = world(nb=ONEH_SMALL_NB)
-    for what, args in (("full", full), ("small table", small)):
-        res.check("rowprobe_onehot",
-                  f"29 K12 {what} {tuple(args[0].shape)}, "
-                  f"{args[1].numel()} queries",
-                  [rowprobe_onehot_plain(*args)], [rowprobe_onehot(*args)])
-    ms = res.time(torch, "rowprobe_onehot", "29 K12 full",
+    ms = res.time(torch, "rowprobe_onehot",
+                  "29 K12 full, the routing pass in",
                   lambda: rowprobe_onehot(*full),
                   lambda: rowprobe_onehot_plain(*full),
                   nbytes=probe_bytes(table, n), ops=n * table.shape[1],
                   plain_calls=1, plain_reps=PLAIN_REPS)
-    ops = 2 * n * table.shape[0] * 4 * table.shape[1]
+    dense = 2 * n * nb * 4 * table.shape[1]
+    rows = rowprobe_route(b, rem, nb)[0][:, 1].cpu().long().numpy()
+    visits = onehot_visits(rows, nb, rowprobe_plan(nb, table.shape[1] // 2))
+    ops = visits * 2 * 16 * TILE_ROWS * 4 * table.shape[1]
+    dense_ms = dense / INT8_TC_OPS_PER_S * 1e3
     peak_ms = ops / INT8_TC_OPS_PER_S * 1e3
-    log(f"[29] K12's one-hot product on {card}: {ops} int8 operations, "
-        f"{peak_ms} ms at the {INT8_TC_OPS_PER_S:.4g} op/s int8 peak; the "
-        f"kernel's {ms} ms is {100 * peak_ms / ms} % of it; phase 29 in "
-        f"{time.time() - t0:.1f} s")
-    res.assert_clean(("rowprobe_smem", "rowprobe_onehot"))
+    log(f"[29] K12's one-hot product on {card}: dense, as the TPU "
+        f"experiment ran it, {dense} int8 operations, {dense_ms} ms at the "
+        f"{INT8_TC_OPS_PER_S:.4g} op/s int8 peak; run, {visits} (m-tile, "
+        f"k-tile) visits, {ops} operations, {peak_ms} ms at the peak, "
+        f"{100 * peak_ms / ms} % of the call's {ms} ms")
+    log(f"[29] phase 29 in {time.time() - t0:.1f} s")
+    res.assert_clean(("rowprobe_route", "rowprobe_smem", "rowprobe_onehot"))
 
 
 def phase_gather_kernels(torch, cuda, res: Results, card: str) -> None:
@@ -3164,7 +3214,8 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
                       "lookup_std_owned", "score_tin", "score_taxon")),
             ("config3", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
                          "score_tin")),
-            ("mb_pallas", ("rowprobe_smem", "rowprobe_onehot")),
+            ("mb_pallas", ("rowprobe_route", "rowprobe_smem",
+                           "rowprobe_onehot")),
             ("mb_gather", ("row_gather", "row_gather_direct", "block_copy")),
             ("cohort", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
                         "score_tin")),

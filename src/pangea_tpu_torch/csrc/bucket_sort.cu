@@ -74,6 +74,22 @@
 // valid 0. The way back is the restore below, on the records the owners
 // answered: out[i] = answer[inv[i]]. Bytes bound it: 9 read and 20
 // written a probe, plus the unused slots' zeros.
+//
+// The row probes' routing pass (pangea_rowprobe_route, for K11 and K12 of
+// rowprobe_smem.cu and rowprobe_onehot.cu; it replaces no TPU kernel: the
+// Pallas kernels it serves hold the whole table on chip, which no H100
+// block can): K9's three launches with the fourth key rule, key =
+// row_in(b, NB) >> shift, over tiles of kRouteTile queries. The records
+// are (query index, row, rem, 1) in ascending key order, no inverse is
+// written, and each query's output depends on it alone, so the order
+// within a key is free. shift is 5 (a key is K12's 32-row k-tile, so any
+// run of keys is a run of whole k-tiles), coarsened only past 2^
+// kRouteKeyBits k-tiles (65,536 rows), where more keys than a tile has
+// queries would cost the scatter's scans more than its queries and
+// overflow the slots that hold a tile's row of places
+// (kernels/rowprobe.py rowprobe_plan). The tile is a quarter of K9's: at
+// mb_pallas's 524,288 queries K9's tile would give 64 blocks on 132 SMs,
+// kRouteTile gives 256. Bytes bound it: 8 read and 16 written a query.
 #include <mutex>
 
 #include "common.cuh"
@@ -83,9 +99,13 @@ namespace {
 constexpr int kThreads = 512;              // a tile's block
 constexpr int kItems = 16;                 // probes a thread in a tile
 constexpr int kTile = kThreads * kItems;   // probes a tile
+constexpr int kRouteItems = 4;             // the row probes' routing pass
+constexpr int kRouteTile = kThreads * kRouteItems;
+constexpr int kRouteKeyBits = 11;          // the routing pass's most keys
+static_assert(1 << kRouteKeyBits <= kRouteTile,
+              "a tile's row of places fits its slots");
 constexpr int kWarps = kThreads / 32;
 constexpr int kCountThreads = 1024;        // K9's count pass
-constexpr int kCountItems = kTile / kCountThreads;
 constexpr int kScanKeys = 32;              // keys a scan block, a lane a key
 constexpr int kScanWarps = 32;
 constexpr int kZeroThreads = 256;
@@ -102,7 +122,15 @@ struct KeyRule {
   uint32_t nb_mask;    // NB - 1
   int shift;           // kOwner: 32 - log2 S (0: one shard)
   uint32_t key_mask;   // (NB >> shift) - 1
+  long long nb;        // the routing pass: NB
 };
+
+// The routing pass: the row a row number names (row_in), which its record
+// keeps; its key is row >> shift.
+__device__ __forceinline__ uint32_t row_of(const KeyRule& rule,
+                                           uint32_t b) {
+  return static_cast<uint32_t>(row_in(static_cast<int32_t>(b), rule.nb));
+}
 
 __device__ __forceinline__ uint32_t probe_key(const KeyRule& rule,
                                               uint32_t hi, uint32_t lo,
@@ -122,11 +150,12 @@ __device__ __forceinline__ uint32_t probe_key(const KeyRule& rule,
   return static_cast<uint32_t>(bucket >> rule.shift);
 }
 
-// Item j of thread x is probe tile * kTile + j * kThreads + x, so each load
+// Item j of thread x is probe tile * kT + j * kThreads + x, so each load
 // and inv's stores are coalesced; the probe's place in its tile is
 // j * kThreads + x.
+template <int kT>
 __device__ __forceinline__ long long tile_probe(int j) {
-  return blockIdx.x * static_cast<long long>(kTile) +
+  return blockIdx.x * static_cast<long long>(kT) +
          j * static_cast<long long>(kThreads) + threadIdx.x;
 }
 
@@ -192,16 +221,20 @@ __device__ __forceinline__ int block_scan(int* v, int n, int* sums, F f) {
 }
 
 // K9, pass 1: the tile's key counts, a row of counts [tiles, n_keys]. A
-// block of kCountThreads threads, each loading its kCountItems probes
-// before it hashes any.
+// block of kCountThreads threads, each loading its kT / kCountThreads
+// probes before it hashes any. kRows: the routing pass (hi the row
+// numbers, every probe valid, key = row >> shift).
+template <int kT, bool kRows>
 __global__ void __launch_bounds__(kCountThreads)
     tile_counts(const uint32_t* __restrict__ hi,
                 const uint32_t* __restrict__ lo,
                 const uint8_t* __restrict__ valid, long long N, KeyRule rule,
                 int n_keys, int* __restrict__ counts) {
+  constexpr int kCountItems = kT / kCountThreads;
+  static_assert(kT % kCountThreads == 0, "a count pass thread's items");
   extern __shared__ int hist[];
   for (int k = threadIdx.x; k < n_keys; k += kCountThreads) hist[k] = 0;
-  const long long base = blockIdx.x * static_cast<long long>(kTile) +
+  const long long base = blockIdx.x * static_cast<long long>(kT) +
                          threadIdx.x;
   uint32_t h[kCountItems], l[kCountItems];
   uint32_t ok = 0;
@@ -211,14 +244,16 @@ __global__ void __launch_bounds__(kCountThreads)
     const bool on = i < N;
     h[j] = on ? hi[i] : 0u;
     l[j] = on ? lo[i] : 0u;
-    if (on && valid[i] != 0) ok |= 1u << j;
+    if (on && (kRows || valid[i] != 0)) ok |= 1u << j;
   }
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < kCountItems; ++j) {
     const long long i = base + j * static_cast<long long>(kCountThreads);
     if (i < N) {
-      atomicAdd(&hist[probe_key(rule, h[j], l[j], (ok >> j) & 1, i)], 1);
+      atomicAdd(&hist[kRows ? row_of(rule, h[j]) >> rule.shift
+                            : probe_key(rule, h[j], l[j], (ok >> j) & 1, i)],
+                1);
     }
   }
   __syncthreads();
@@ -263,7 +298,9 @@ __global__ void __launch_bounds__(kScanWarps * 32)
 }
 
 // The scatter's arguments. K9: place = the scanned counts [tiles + 1,
-// n_keys]. K10: cap = C, counts = the owners' counts [n_keys] (zeroed).
+// n_keys]; the routing pass: the same, valid and inv unused (every probe
+// valid, no inverse). K10: cap = C, counts = the owners' counts
+// [n_keys] (zeroed).
 struct BinArgs {
   const uint32_t* hi;
   const uint32_t* lo;
@@ -283,39 +320,48 @@ struct BinArgs {
 constexpr int kLocalBits = 13;
 static_assert(kTile <= 1 << kLocalBits, "a tile's places fit kLocalBits");
 
-// Shared bytes of a scatter block: the tile's hi and lo lanes in probe
-// order and its slots in key order, then two ints a key.
+// Shared bytes of a scatter block of kT probes: the tile's hi and lo lanes
+// in probe order and its slots in key order, then two ints a key.
+template <int kT>
 __host__ __device__ constexpr size_t scatter_smem(int n_keys) {
-  return 3 * sizeof(uint32_t) * kTile +
+  return 3 * sizeof(uint32_t) * kT +
          2 * sizeof(int) * static_cast<size_t>(n_keys);
 }
 
-// K9 (kRoute false) and K10 (kRoute true), pass 3: one tile a block.
-template <bool kRoute>
+// K9 and the routing pass (kRoute false; kRows: the routing pass, valid
+// and inv unused) and K10 (kRoute true), pass 3: one tile of kT probes a
+// block.
+template <int kT, bool kRoute, bool kRows>
 __global__ void __launch_bounds__(kThreads, 2) scatter_tiles(const BinArgs a) {
+  constexpr int kPer = kT / kThreads;
+  static_assert(kT % kThreads == 0 && kT <= 1 << kLocalBits,
+                "a tile's places fit kLocalBits");
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* shi = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* slo = shi + kTile;
-  uint32_t* slot = slo + kTile;     // key << 14 | place in tile << 1 | valid
-  int* off = reinterpret_cast<int*>(slot + kTile);   // tile counts, then slots
+  uint32_t* slo = shi + kT;
+  uint32_t* slot = slo + kT;     // key << 14 | place in tile << 1 | valid
+  int* off = reinterpret_cast<int*>(slot + kT);   // tile counts, then slots
   int* delta = off + a.n_keys;                       // a slot's place - slot
   // K9: the tile's row of place (its keys' probes in earlier tiles) waits
   // in the slots until the scans have read it.
   int* row = reinterpret_cast<int*>(slot);
   __shared__ int sums[kWarps];
   const int n_keys = a.n_keys;
-  uint32_t key[kItems];
+  uint32_t key[kPer];
   uint32_t ok = 0;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = tile_probe(j);
+  for (int j = 0; j < kPer; ++j) {
+    const long long i = tile_probe<kT>(j);
     const bool on = i < a.N;
-    const uint32_t h = on ? a.hi[i] : 0u, l = on ? a.lo[i] : 0u;
-    const bool v = on && a.valid[i] != 0;
+    const uint32_t h = on ? (kRows ? row_of(a.rule, a.hi[i]) : a.hi[i]) : 0u;
+    const uint32_t l = on ? a.lo[i] : 0u;
+    const bool v = on && (kRows || a.valid[i] != 0);
     shi[j * kThreads + threadIdx.x] = h;
     slo[j * kThreads + threadIdx.x] = l;
     ok |= static_cast<uint32_t>(v) << j;
-    key[j] = on ? probe_key(a.rule, h, l, v, i) : kNone;
+    key[j] = !on    ? kNone
+             : kRows ? h >> a.rule.shift
+                     : probe_key(a.rule, h, l, v, i);
   }
   const int* place =
       kRoute ? nullptr : a.place + blockIdx.x * static_cast<long long>(n_keys);
@@ -329,9 +375,9 @@ __global__ void __launch_bounds__(kThreads, 2) scatter_tiles(const BinArgs a) {
     }
   }
   __syncthreads();
-  int rank[kItems];
+  int rank[kPer];
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) rank[j] = warp_rank<kRoute>(off, key[j]);
+  for (int j = 0; j < kPer; ++j) rank[j] = warp_rank<kRoute>(off, key[j]);
   if (!kRoute) {
     // The keys' totals become each key's first place in the output.
     block_scan(delta, n_keys, sums, [](int, int, int) {});
@@ -346,8 +392,8 @@ __global__ void __launch_bounds__(kThreads, 2) scatter_tiles(const BinArgs a) {
     }
   });
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = tile_probe(j);
+  for (int j = 0; j < kPer; ++j) {
+    const long long i = tile_probe<kT>(j);
     if (key[j] == kNone) {
       if (kRoute && i < a.N) a.inv[i] = -1;
       continue;
@@ -359,16 +405,16 @@ __global__ void __launch_bounds__(kThreads, 2) scatter_tiles(const BinArgs a) {
               ((ok >> j) & 1);
     if (kRoute) {
       a.inv[i] = pos < a.cap ? static_cast<int>(key[j]) * a.cap + pos : -1;
-    } else {
+    } else if (!kRows) {
       a.inv[i] = pos;
     }
   }
   __syncthreads();
-  const long long first = blockIdx.x * static_cast<long long>(kTile);
+  const long long first = blockIdx.x * static_cast<long long>(kT);
   for (int s = threadIdx.x; s < staged; s += kThreads) {
     const uint32_t e = slot[s];
     const int k = static_cast<int>(e >> (kLocalBits + 1));
-    const int t = static_cast<int>(e >> 1) & (kTile - 1);
+    const int t = static_cast<int>(e >> 1) & ((1 << kLocalBits) - 1);
     const int pos = delta[k] + s;
     const int4 rec = make_int4(static_cast<int>(first + t),
                                static_cast<int>(shi[t]),
@@ -413,7 +459,7 @@ __global__ void restore(const int32_t* __restrict__ inv,
 
 // The scatter launch. Its shared memory is opted in past 48 KB once a
 // device, up to the most the launchers' 2^12 keys take.
-template <bool kRoute>
+template <int kT, bool kRoute, bool kRows = false>
 cudaError_t launch_scatter(const BinArgs& a, unsigned tiles, cudaStream_t s) {
   constexpr int kDevices = 64;
   static std::mutex lock;
@@ -426,14 +472,36 @@ cudaError_t launch_scatter(const BinArgs& a, unsigned tiles, cudaStream_t s) {
     std::lock_guard<std::mutex> hold(lock);
     if (!allowed[dev]) {
       err = cudaFuncSetAttribute(
-          scatter_tiles<kRoute>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(scatter_smem(1 << kMaxKeyBits)));
+          scatter_tiles<kT, kRoute, kRows>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(scatter_smem<kT>(1 << kMaxKeyBits)));
       if (err != cudaSuccess) return err;
       allowed[dev] = true;
     }
   }
-  scatter_tiles<kRoute><<<tiles, kThreads, scatter_smem(a.n_keys), s>>>(a);
+  scatter_tiles<kT, kRoute, kRows>
+      <<<tiles, kThreads, scatter_smem<kT>(a.n_keys), s>>>(a);
   return cudaGetLastError();
+}
+
+// K9's three launches (kRows: the routing pass's) on tiles of kT probes:
+// counts, column scan, scatter. counts: (ceil(N / kT) + 1) * n_keys ints.
+template <int kT, bool kRows>
+cudaError_t sort_tiles(const uint32_t* h, const uint32_t* l, const uint8_t* v,
+                       long long N, const KeyRule& rule, int n_keys,
+                       int* counts, int4* order, int32_t* inv,
+                       cudaStream_t s) {
+  const unsigned tiles = blocks_for(N, kT);
+  tile_counts<kT, kRows><<<tiles, kCountThreads, sizeof(int) * n_keys, s>>>(
+      h, l, v, N, rule, n_keys, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scan_columns<<<blocks_for(n_keys, kScanKeys), kScanWarps * 32, 0, s>>>(
+      counts, static_cast<int>(tiles), n_keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const BinArgs a{h, l, v, N, rule, n_keys, 0, counts,
+                  static_cast<int>(tiles), nullptr, order, inv};
+  return launch_scatter<kT, false, kRows>(a, tiles, s);
 }
 
 }  // namespace
@@ -463,24 +531,37 @@ extern "C" int pangea_bucket_sort(const void* hi, const void* lo,
   rule.nb_mask = static_cast<uint32_t>(NB - 1);
   rule.shift = shift;
   rule.key_mask = static_cast<uint32_t>((NB >> shift) - 1);
-  const int n_keys = static_cast<int>(NB >> shift);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned tiles = blocks_for(N, kTile);
-  const auto h = static_cast<const uint32_t*>(hi);
-  const auto l = static_cast<const uint32_t*>(lo);
-  const auto v = static_cast<const uint8_t*>(valid);
-  const auto c = static_cast<int*>(counts);
-  tile_counts<<<tiles, kCountThreads, sizeof(int) * n_keys, s>>>(
-      h, l, v, N, rule, n_keys, c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_columns<<<blocks_for(n_keys, kScanKeys), kScanWarps * 32, 0, s>>>(
-      c, static_cast<int>(tiles), n_keys);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const BinArgs a{h, l, v, N, rule, n_keys, 0, c, static_cast<int>(tiles),
-                  nullptr, static_cast<int4*>(order),
-                  static_cast<int32_t*>(inv)};
-  return static_cast<int>(launch_scatter<false>(a, tiles, s));
+  return static_cast<int>(sort_tiles<kTile, false>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+      static_cast<const uint8_t*>(valid), N, rule,
+      static_cast<int>(NB >> shift), static_cast<int*>(counts),
+      static_cast<int4*>(order), static_cast<int32_t*>(inv),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The row probes' routing pass. b int32 [N] row numbers, rem int32 [N]
+// (uint32 bit patterns); key = row_in(b, NB) >> shift, 5 <= shift, at most
+// 2^kRouteKeyBits keys; counts: int32 scratch of (ceil(N / kRouteTile) + 1)
+// * ceil(NB / 2^shift) entries (kernels/rowprobe.py route_scratch), its
+// last row each key's total; records: int32 [N, 4], written with (query
+// index, row, rem, 1) in ascending key order.
+extern "C" int pangea_rowprobe_route(const void* b, const void* rem,
+                                     long long N, long long NB, int shift,
+                                     void* counts, void* records,
+                                     void* stream) {
+  if (N < 0 || N > INT_MAX || NB < 1 || NB > INT_MAX || shift < 5 ||
+      shift > 30 || ((NB - 1) >> shift) >= (1ll << kRouteKeyBits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N == 0) return 0;
+  KeyRule rule{};
+  rule.shift = shift;
+  rule.nb = NB;
+  return static_cast<int>(sort_tiles<kRouteTile, true>(
+      static_cast<const uint32_t*>(b), static_cast<const uint32_t*>(rem),
+      nullptr, N, rule, static_cast<int>(((NB - 1) >> shift) + 1),
+      static_cast<int*>(counts), static_cast<int4*>(records), nullptr,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K10. hi/lo int32 bit patterns and valid bytes [N]; S = 2^log2S owners
@@ -511,7 +592,7 @@ extern "C" int pangea_route_bin(const void* hi, const void* lo,
                     static_cast<const uint32_t*>(lo),
                     static_cast<const uint8_t*>(valid), N, rule, n_keys, C,
                     nullptr, 0, c, grid, static_cast<int32_t*>(inv)};
-    if ((err = launch_scatter<true>(a, blocks_for(N, kTile), s)) !=
+    if ((err = launch_scatter<kTile, true>(a, blocks_for(N, kTile), s)) !=
         cudaSuccess) {
       return static_cast<int>(err);
     }

@@ -227,6 +227,146 @@ inline unsigned int blocks_for(long long n, long long per) {
   return static_cast<unsigned int>((n + per - 1) / per);
 }
 
+// ---------------------------------------------------------------------------
+// The routed row probes, K11 (rowprobe_smem.cu) and K12 (rowprobe_onehot.cu).
+// The routing pass (bucket_sort.cu pangea_rowprobe_route) leaves the
+// queries as records (query index, row, rem, 1) in ascending key order,
+// key = row >> shift. Block b takes the run of records [b * kRun, (b + 1)
+// * kRun): its rows are a run of keys, and over the grid the runs read the
+// table about once. The block stages its run's records, then walks the run
+// in passes: a pass is the records whose keys lie within window_keys keys
+// of its first record's key, and the block stages the rows of the keys from
+// its first to its last record into shared memory, then probes the pass
+// from there. A key that holds no record opens no pass, so a run that
+// jumps over empty keys stages none of their rows; a run whose keys span
+// more than one window takes a pass a window.
+constexpr int kRun = 2048;
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// Starts copying words [0, n) of src into dst (shared memory, 16-byte
+// aligned), the block's threads in turn: 16 bytes a copy by cp.async where
+// src is 16-byte aligned, else 4 bytes a load. stage_wait ends every copy
+// started.
+__device__ __forceinline__ void stage_words(uint32_t* dst,
+                                            const uint32_t* src,
+                                            long long n) {
+  long long done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const long long n4 = n >> 2;
+    for (long long c = threadIdx.x; c < n4; c += blockDim.x) {
+      cp_async16(shared_addr(dst + 4 * c), src + 4 * c);
+    }
+    done = n4 << 2;
+  }
+  for (long long c = done + threadIdx.x; c < n; c += blockDim.x) {
+    dst[c] = src[c];
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// A pass of a run: its records end at `end`; the rows [row0, row0 + rows)
+// of its keys are staged.
+struct RowPass {
+  long long end;
+  long long row0;
+  int rows;
+};
+
+__device__ __forceinline__ int record_key(const int4* rec, long long i,
+                                          int shift) {
+  return __ldg(&rec[i].y) >> shift;
+}
+
+// The pass that opens at record i of a run that ends at r1: the records
+// before the first whose key is window_keys or more past record i's
+// (found by bisection where the run's last record is that far), and the
+// rows of the keys from record i's to the last such record's, cut at NB.
+__device__ __forceinline__ RowPass row_pass(const int4* rec, long long i,
+                                            long long r1, int shift,
+                                            int window_keys, long long NB) {
+  const int k0 = record_key(rec, i, shift);
+  const int kend = k0 + window_keys;
+  long long end = r1;
+  if (record_key(rec, r1 - 1, shift) >= kend) {
+    long long lo = i + 1, hi = r1 - 1;         // hi's key is kend or more
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      if (record_key(rec, mid, shift) < kend) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    end = lo;
+  }
+  RowPass p;
+  p.end = end;
+  p.row0 = static_cast<long long>(k0) << shift;
+  const long long last = record_key(rec, end - 1, shift);
+  p.rows = static_cast<int>(min(NB, (last + 1) << shift) - p.row0);
+  return p;
+}
+
+// Shared memory a routed probe block may take, or a CUDA error: the most a
+// block of the current device may opt in to (cudaErrorInvalidValue when
+// smem is past it), opted in for kernel.
+template <class K>
+cudaError_t allow_smem(K kernel, long long smem) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  if (smem > optin) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The group's part of one row probe: lane g of the group compares the rem
+// lanes of row (in shared memory) with rem and adds the payload lanes of
+// those equal; group_sum of the parts is the probe. kVec (W a multiple of
+// 4, row 16-byte aligned): lane g reads the rem words 4g + 32t as 16-byte
+// loads, and reads a payload word only where one of its 4 equals rem;
+// else lanes g, g + 8, ... one word a load.
+template <bool kVec>
+__device__ __forceinline__ uint32_t probe_part(const uint32_t* row, int W,
+                                               uint32_t rem, int g) {
+  uint32_t pk = 0;
+  if (kVec) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(row);
+    for (int j4 = g; j4 < W / 4; j4 += kProbeLanes) {
+      const uint4 v = r4[j4];
+      if (v.x == rem || v.y == rem || v.z == rem || v.w == rem) {
+        const uint4 p = r4[W / 4 + j4];
+        pk += (v.x == rem ? p.x : 0u) + (v.y == rem ? p.y : 0u) +
+              (v.z == rem ? p.z : 0u) + (v.w == rem ? p.w : 0u);
+      }
+    }
+  } else {
+    for (int j = g; j < W; j += kProbeLanes) {
+      if (row[j] == rem) pk += row[W + j];
+    }
+  }
+  return pk;
+}
+
 
 // ---------------------------------------------------------------------------
 // The scorer: K3 (score_tin.cu, R <= 2048) and K8 (score_ranked.cu), one

@@ -1,4 +1,5 @@
-// K11: the q8-style row probe with the table held in shared memory.
+// K11: the q8-style row probe, the table rows a block needs held in shared
+// memory.
 //
 // Replaces the Pallas kernel
 //   experiments/mb_pallas.py:83  take_lookup (kernel _take_kernel :75)
@@ -8,164 +9,130 @@
 // the whole table resident in VMEM and tiles the queries over its grid.
 //
 // No H100 block can hold the 8.4 MB table (227 KB of shared memory at
-// most), but the card's 132 SMs hold about 30 MB together. So the table is
-// cut into slices of a power-of-two row count that fits one block's
-// dynamic shared memory (kSliceBytes: 256 rows of 512 B), and block (s, p)
-// loads slice s once, with 16-byte loads, then streams the queries of
-// partition p and probes from shared memory exactly those whose row lies in
-// slice s: a warp reads the row numbers of kUnroll windows of 32 queries
-// at once (then the remainders of the ones it owns), ballots a window's
-// owned queries, and a group of kProbeLanes lanes probes each (lane g
-// reads rem lanes j = g, g + 8, ... and, only on a match, the payload lane),
-// reducing with shuffles. Each query has one owner, which writes its output
-// once. A table past one wave of blocks just takes more blocks; when the
-// slices are few, the queries split into partitions (gridDim.y) so that
-// every SM gets a block.
+// most). So the queries come routed: the routing pass (bucket_sort.cu
+// pangea_rowprobe_route) leaves them as records in ascending order of their
+// row's 32-row tile, and block b takes the run of records [b * kRun, (b +
+// 1) * kRun) (common.cuh). On mb_pallas's world a run of 2,048 records
+// touches 2-4 tiles (32-64 KB), so the grid reads the table about once, as
+// take_lookup does. The block stages its run's records and, a pass at a
+// time, the rows of its keys (cp.async, 16 bytes a copy, at most
+// window_keys keys: about 64 KB), then probes each record from shared
+// memory: a group of kProbeLanes lanes probes kBatch records at a time,
+// lane g reading the rem lanes 4g + 32t as 16-byte words where W is a
+// multiple of 4 (one word a load otherwise) and a payload word only on a
+// match, and one reduce-scatter leaves each lane one record's sum to
+// write. Each query has one record, which writes its output once.
 //
-// What bounds it on an H100: bytes are the table read once plus 8 B in and
-// 4 B out a query (14.7 MB at mb_pallas's shapes, 0.0044 ms at 3.35 TB/s),
-// but every block scans every query's row number of its partition, so the
-// blocks read the row numbers S / P times from L2 in all (S slices, P
-// partitions). A counting pass that routes each query to its slice first
-// would remove that scan; it is later work.
+// What bounds it on an H100: bytes, the table read once plus 8 B in and 4
+// B out a query (14.7 MB at mb_pallas's shapes, 0.0044 ms at 3.35 TB/s).
+// Routed, the call moves about twice that: the routing pass reads the 8 B
+// and writes a 16-byte record a query, and the probe reads the records
+// back; the rows staged per pass add about half a table (a tile at each
+// run's edge is staged by both runs). Before the routing pass, each block
+// held a 128 KB slice and scanned the row number of every query, reading
+// the row numbers 64 times over.
 //
 // A row number below 0 counts from the end, as in NumPy, and the result is
-// clamped into [0, NB), as XLA clamps the reference's gather (row_in).
+// clamped into [0, NB), as XLA clamps the reference's gather (row_in, in
+// the routing pass).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSliceBytes = 128 * 1024;
 constexpr int kThreads = 512;                  // 16 warps
-constexpr int kUnroll = 8;                     // 32-query windows a step
+constexpr int kGroups = 32 / kProbeLanes;      // groups a warp
+constexpr int kBatch = kProbeLanes;            // records a group a step
 
+// kW: W when the launch fixes it (32 or 64, mb_pallas's widths, so that a
+// lane's loop over its 16-byte rem words unrolls), else 0; kVec: the
+// 16-byte probe (W a multiple of 4).
+template <int kW, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rowprobe_smem_kernel(const uint32_t* __restrict__ table, long long NB,
-                     int W, int log2_slice,
-                     const int32_t* __restrict__ b,
-                     const uint32_t* __restrict__ rem, long long N,
+                     int w, int shift, int window_keys,
+                     const int4* __restrict__ rec, long long N,
                      uint32_t* __restrict__ out) {
   extern __shared__ int4 smem4[];
-  uint32_t* srow = reinterpret_cast<uint32_t*>(smem4);
+  int4* srec = smem4;                               // [kRun] the run
+  uint32_t* srow = reinterpret_cast<uint32_t*>(smem4 + kRun);  // the rows
+  const int W = kW ? kW : w;
   const int lanes = 2 * W;
-  const long long s = blockIdx.x;
-  const long long row0 = s << log2_slice;
-  const long long rows = min(NB - row0, 1ll << log2_slice);
-
-  // The slice, once: 16-byte loads where the slice is 16-byte aligned.
-  const uint32_t* src = table + row0 * lanes;
-  const long long words = rows * lanes;
-  long long done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const long long n4 = words / 4;
-    const int4* src4 = reinterpret_cast<const int4*>(src);
-    for (long long i = threadIdx.x; i < n4; i += blockDim.x) {
-      smem4[i] = src4[i];
-    }
-    done = n4 * 4;
-  }
-  for (long long i = done + threadIdx.x; i < words; i += blockDim.x) {
-    srow[i] = src[i];
-  }
-  __syncthreads();
-
-  // Partition p of the queries.
-  const long long per = (N + gridDim.y - 1) / gridDim.y;
-  const long long q0 = blockIdx.y * per;
-  const long long q1 = min(N, q0 + per);
+  const long long r0 = blockIdx.x * static_cast<long long>(kRun);
+  const long long r1 = min(N, r0 + kRun);
+  stage_words(reinterpret_cast<uint32_t*>(srec),
+              reinterpret_cast<const uint32_t*>(rec + r0), 4 * (r1 - r0));
   const int lane = threadIdx.x % 32;
-  const int g = lane % kProbeLanes;            // lane in its group
-  const int grp = lane / kProbeLanes;          // group in the warp
-  constexpr int kGroups = 32 / kProbeLanes;
-  const int warps = blockDim.x / 32;
-  constexpr long long kSpan = 32ll * kUnroll;  // queries a warp a step
-  for (long long base = q0 + (threadIdx.x / 32) * kSpan; base < q1;
-       base += warps * kSpan) {
-    // The step's row numbers first, then the remainders of the owned
-    // queries, each batch of loads in flight together.
-    int local[kUnroll];                        // row in the slice, or -1
-    uint32_t r[kUnroll];
+  const int g = lane % kProbeLanes, grp = lane / kProbeLanes;
+  for (long long i = r0; i < r1;) {
+    const RowPass p = row_pass(rec, i, r1, shift, window_keys, NB);
+    stage_words(srow, table + p.row0 * lanes,
+                static_cast<long long>(p.rows) * lanes);
+    stage_wait();
+    // A warp takes 32 consecutive records a step: group grp probes records
+    // grp + kGroups k (k < kBatch; the groups' k-th records are adjacent in
+    // shared memory), each lane of the group its part of each, and
+    // reduce_scatter leaves lane g the sum of record grp + kGroups g, which
+    // it writes. The loop's bound is the warp's, so that every lane shuffles.
+    for (long long base = i + threadIdx.x / 32 * 32; base < p.end;
+         base += kThreads) {
+      uint32_t v[kBatch];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long q = base + u * 32 + lane;
-      local[u] = -1;
-      if (q < q1) {
-        const long long bb = row_in(b[q], NB);
-        if ((bb >> log2_slice) == s) local[u] = static_cast<int>(bb - row0);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      r[u] = local[u] >= 0 ? rem[base + u * 32 + lane] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      unsigned mask = __ballot_sync(0xFFFFFFFFu, local[u] >= 0);
-      while (mask) {                            // warp-uniform
-        unsigned m = mask;
-        for (int k = 0; k < grp; ++k) m &= m - 1;  // the grp-th owned query
-        const bool has = m != 0;
-        const int src_lane = has ? __ffs(m) - 1 : 0;
-        const int lr = __shfl_sync(0xFFFFFFFFu, local[u], src_lane);
-        const uint32_t rr = __shfl_sync(0xFFFFFFFFu, r[u], src_lane);
-        uint32_t pk = 0;
-        if (has) {
-          const uint32_t* row = srow + static_cast<long long>(lr) * lanes;
-          for (int j = g; j < W; j += kProbeLanes) {
-            if (row[j] == rr) pk += row[W + j];
-          }
+      for (int k = 0; k < kBatch; ++k) {
+        const long long r = base + grp + kGroups * k;
+        v[k] = 0;
+        if (r < p.end) {
+          const int4 e = srec[r - r0];
+          v[k] = probe_part<kVec>(srow + (e.y - p.row0) * lanes, W,
+                                  static_cast<uint32_t>(e.z), g);
         }
-        pk = group_sum(pk);
-        if (has && g == 0) out[base + u * 32 + src_lane] = pk;
-        for (int k = 0; k < kGroups && mask; ++k) mask &= mask - 1;
       }
+      const uint32_t pk = reduce_scatter(v, g);
+      const long long mine = base + grp + kGroups * g;
+      if (mine < p.end) out[srec[mine - r0].x] = pk;
     }
+    __syncthreads();                    // before the next pass's rows land
+    i = p.end;
   }
+}
+
+template <int kW, bool kVec>
+cudaError_t launch(const uint32_t* table, long long NB, int W, int shift,
+                   int window_keys, const int4* rec, long long N,
+                   uint32_t* out, cudaStream_t s) {
+  const long long smem =
+      kRun * sizeof(int4) +
+      (static_cast<long long>(window_keys) << shift) * 8ll * W;
+  cudaError_t err = allow_smem(rowprobe_smem_kernel<kW, kVec>, smem);
+  if (err != cudaSuccess) return err;
+  rowprobe_smem_kernel<kW, kVec><<<blocks_for(N, kRun), kThreads, smem, s>>>(
+      table, NB, W, shift, window_keys, rec, N, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// table int32 [NB, 2W] (uint32 bit patterns), b int32 [N], rem int32 [N]
-// (uint32 bit patterns), out int32 [N]. A block holds the most rows, a
-// power of two, that fit kSliceBytes (one row when a row is larger).
+// table int32 [NB, 2W] (uint32 bit patterns); shift and window_keys: the
+// routing pass's key shift and the keys a block stages at once
+// (kernels/rowprobe.py rowprobe_plan); records int32 [N, 4], the routing
+// pass's (query index, row, rem, 1) in ascending row >> shift; out int32
+// [N], written at each record's query index.
 extern "C" int pangea_rowprobe_smem(const void* table, long long NB, int W,
-                                    const void* b, const void* rem,
-                                    long long N, void* out, void* stream) {
-  if (NB < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                    int shift, int window_keys,
+                                    const void* records, long long N,
+                                    void* out, void* stream) {
+  if (NB < 1 || NB > INT_MAX || W < 1 || shift < 5 || shift > 30 ||
+      window_keys < 1 || N < 0 ||
+      reinterpret_cast<uintptr_t>(records) & 15) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (N == 0) return 0;
-  const long long row_bytes = 8ll * W;
-  int log2_slice = 0;
-  while ((row_bytes << (log2_slice + 1)) <= kSliceBytes &&
-         (1ll << log2_slice) < NB) {
-    ++log2_slice;
-  }
-  const long long slice = min(1ll << log2_slice, NB);
-  const long long smem = slice * row_bytes;
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(rowprobe_smem_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long S = (NB + slice - 1) / slice;
-  // Split the queries when the slices alone leave SMs idle, keeping at
-  // least a warp's worth of queries a partition per warp of the block.
-  long long P = S < sms ? sms / S : 1;
-  P = max(1ll, min(P, N / kThreads));
-  const dim3 grid(static_cast<unsigned>(S), static_cast<unsigned>(P));
-  rowprobe_smem_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(table), NB, W, log2_slice,
-      static_cast<const int32_t*>(b), static_cast<const uint32_t*>(rem), N,
-      static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const auto t = static_cast<const uint32_t*>(table);
+  const auto rec = static_cast<const int4*>(records);
+  const auto o = static_cast<uint32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto go = W == 64  ? launch<64, true>
+                 : W == 32  ? launch<32, true>
+                 : W % 4 == 0 ? launch<0, true>
+                              : launch<0, false>;
+  return static_cast<int>(go(t, NB, W, shift, window_keys, rec, N, o, s));
 }

@@ -8,11 +8,14 @@ numbers and remainders, about half of them planted in their row. Variants,
 one JSON line each, every one on all N queries:
 
   plain -- ``rowprobe_plain``, the reference's ``xla_lookup``;
-  take  -- K11 (``rowprobe_smem``), for ``take_lookup``: the table held in
-           shared memory, slice by slice;
-  oneh  -- K12 (``rowprobe_onehot``), for ``oneh_lookup``: the one-hot
-           product on the tensor cores, 2 N NB 4 (2W) operations (8.8e12
-           at the defaults, 4.4 ms at the H100's dense int8 peak).
+  take  -- K11 (``rowprobe_smem``), for ``take_lookup``: the queries
+           routed by table tile (``rowprobe_route``), then each block holds
+           the rows its run of queries reaches in shared memory;
+  oneh  -- K12 (``rowprobe_onehot``), for ``oneh_lookup``: the same routing,
+           then the one-hot product on the tensor cores over only the
+           32-row tiles the queries reach (dense, as the TPU ran it, 2 N NB
+           4 (2W) operations: 8.8e12 at the defaults, 4.4 ms at the H100's
+           int8 peak; over those tiles about 1.7e10).
 
 A line gives ``step_ms`` (CUDA events after a warm-up on a card, the host
 clock with ``--device cpu``), ``rows_per_sec``, ``mismatches`` against

@@ -16,7 +16,8 @@ from .minimize import (extract_probes, extract_probes_packed,
 from .route import (route_bin, route_bin_plain, route_restore,
                     route_restore_plain)
 from .rowprobe import (rowprobe_onehot, rowprobe_onehot_plain,
-                       rowprobe_plain, rowprobe_smem)
+                       rowprobe_plain, rowprobe_route, rowprobe_route_plain,
+                       rowprobe_routed_plain, rowprobe_smem)
 from .score import (general_reads, lca_lift, lca_lift_plain,
                     lca_pairs_plain, merge_multik, merge_multik_plain,
                     pscore_ranked_plain,
@@ -39,7 +40,8 @@ KERNELS = {"extract_probes": extract_probes, "lookup_q8": lookup_q8,
            "lookup_q12_sorted": lookup_q12_sorted,
            "lookup_std_sorted": lookup_std_sorted,
            "lookup_std_owned": lookup_std_owned, "route_bin": route_bin,
-           "route_restore": route_restore, "rowprobe_smem": rowprobe_smem,
+           "route_restore": route_restore,
+           "rowprobe_route": rowprobe_route, "rowprobe_smem": rowprobe_smem,
            "rowprobe_onehot": rowprobe_onehot, "row_gather": row_gather,
            "row_gather_direct": row_gather_direct, "block_copy": block_copy}
 
@@ -74,6 +76,7 @@ __all__ = ["KERNELS", "block_copy", "bucket_sort", "bucket_sort_plain",
            "route_bin_plain", "route_restore", "route_restore_plain",
            "row_gather", "row_gather_direct", "row_gather_plain",
            "rowprobe_onehot", "rowprobe_onehot_plain", "rowprobe_plain",
+           "rowprobe_route", "rowprobe_route_plain", "rowprobe_routed_plain",
            "rowprobe_smem", "score_plan", "score_ranked",
            "score_reads_plain", "score_reads_taxon",
            "score_reads_taxon_plain", "score_reads_tin",

@@ -75,10 +75,13 @@ SIGNATURES = {
     # take the same arguments
     "pangea_score": _SCORE,
     "pangea_score_ranked": _SCORE,
-    # table, NB, W, b, rem, N, out, stream
-    "pangea_rowprobe_smem": (_P, _I64, _I, _P, _P, _I64, _P, _P),
-    # table, NB, W, b, rem, M, out, stream
-    "pangea_rowprobe_onehot": (_P, _I64, _I, _P, _P, _I64, _P, _P),
+    # b, rem, N, NB, shift, counts, records, stream: the row probes'
+    # routing pass (rowprobe.rowprobe_plan, route_scratch)
+    "pangea_rowprobe_route": (_P, _P, _I64, _I64, _I, _P, _P, _P),
+    # table, NB, W, shift, window_keys, records, N, out, stream: K11 and
+    # K12 on the routing pass's records (rowprobe.rowprobe_plan)
+    "pangea_rowprobe_smem": (_P, _I64, _I, _I, _I, _P, _I64, _P, _P),
+    "pangea_rowprobe_onehot": (_P, _I64, _I, _I, _I, _P, _I64, _P, _P),
     # table, NB, row_bytes, rows, idx, n, chunk, direct, grid, warps,
     # lanes, slots (gather.gather_plan), out, stream
     "pangea_row_gather": (_P, _I64, _I, _I, _P, _I64, _I, _I, _I, _I, _I,

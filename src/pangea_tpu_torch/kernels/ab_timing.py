@@ -1,10 +1,11 @@
-"""Time K1, K2's and K4's forms, K9 and K10, K13's block copy, the scorer
-(K3, K8) and its tail (K5, K7) and the q8, std and config-4 steps through
-the port's public entry points, so that one file times any checkout of it.
+"""Time K1, K2's and K4's forms, K9 and K10, K11 and K12, K13's block copy,
+the scorer (K3, K8) and its tail (K5, K7) and the q8, std and config-4
+steps through the port's public entry points, so that one file times any
+checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections k1,block_copy,k2,k4,sort,score,tail,steps]
+        [--sections k1,block_copy,k2,k4,sort,rowprobe,score,tail,steps]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
@@ -46,6 +47,14 @@ with the sections asked for (all by default):
   counts, slots and records), timed by CUDA events (``ms``) and by the
   profiler's device time a call (``device_ms``), summed over every launch
   and memset of the call;
+- ``rowprobe``: K11 (``rowprobe_smem``) and K12 (``rowprobe_onehot``) on
+  mb_pallas's world (a 16,384 x 128 table, 524,288 queries, seed 0), each
+  held to ``rowprobe_plain`` first, timed by CUDA events (``ms``) and by
+  the profiler's device time a call (``device_ms``, ``split`` by kernel),
+  every launch of the call summed (a checkout that routes the queries
+  first has its routing pass's launches in); where the checkout has it,
+  the routing pass (``rowprobe_route``) alone, held to its plain version
+  by key, count and record multiset;
 - ``block_copy``: K13's block copy and ``narrow().clone()`` on mb_gather4's
   array, static and dynamic (``experiments.mb_gather``'s gather4 starts);
 - ``score``: the scorer through ``score_reads_tin``, ``score_winners``,
@@ -121,8 +130,8 @@ C4_THRESHOLD = 0.05
 BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
-SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "score", "tail",
-            "steps")
+SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "rowprobe", "score",
+            "tail", "steps")
 Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
@@ -495,6 +504,40 @@ def time_sort(torch, dev, deep: Path) -> dict:
                 and not records[~used].any()):
             raise AssertionError(f"sort: K10 at {S} owners disagrees")
         timed(f"k10_s{S}", lambda: route_bin(*flat, S, cap), n)
+    return out
+
+
+def time_rowprobe(torch, dev) -> dict:
+    """K11, K12 and, where the checkout has it, the routing pass on
+    mb_pallas's world, each held to its plain version first: CUDA-event ms
+    and profiler device ms a call."""
+    from pangea_tpu_torch import kernels
+    from pangea_tpu_torch.experiments import mb_pallas as MP
+    table, b, rem = MP.world_tensors(MP.make_world(0), dev)
+    nb = table.shape[0]
+    want = kernels.rowprobe_plain(table, b, rem)
+    out = {}
+
+    def timed(name, fn):
+        split = device_split(torch, fn)
+        out[name] = {"queries": b.numel(), "ms": time_ms(torch, fn),
+                     "device_ms": sum(split.values()), "split": split}
+
+    if hasattr(kernels, "rowprobe_route"):
+        records, totals = kernels.rowprobe_route(b, rem, nb)
+        plain, plain_totals = kernels.rowprobe_route_plain(b, rem, nb)
+        keys = records[:, 1].long() >> 5
+        if not (torch.equal(totals, plain_totals)
+                and not bool((keys[1:] < keys[:-1]).any())
+                and torch.equal(records[records[:, 0].long().argsort()],
+                                plain[plain[:, 0].long().argsort()])):
+            raise AssertionError("rowprobe: the routing pass disagrees")
+        timed("route", lambda: kernels.rowprobe_route(b, rem, nb))
+    for name, fn in (("k11", kernels.rowprobe_smem),
+                     ("k12", kernels.rowprobe_onehot)):
+        if not torch.equal(fn(table, b, rem), want):
+            raise AssertionError(f"rowprobe: {name} disagrees")
+        timed(name, lambda fn=fn: fn(table, b, rem))
     return out
 
 
@@ -877,6 +920,8 @@ def main(argv=None) -> int:
         line["k4"] = time_k4(torch, dev, args.deep)
     if "sort" in sections and args.deep is not None:
         line["sort"] = time_sort(torch, dev, args.deep)
+    if "rowprobe" in sections:
+        line["rowprobe"] = time_rowprobe(torch, dev)
     if "score" in sections:
         line["score"] = time_score(torch, dev)
     if "tail" in sections:

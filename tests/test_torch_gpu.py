@@ -1167,9 +1167,62 @@ def test_rowprobe_smem_kernel_matches_plain(cuda, nb, w, n):
     reset_kernel_launches()
     got = rowprobe_smem(*dev)
     assert kernel_launches()["rowprobe_smem"] == 1
+    assert kernel_launches()["rowprobe_route"] == 1
     want = rowprobe_plain(*cpu)
     assert torch.equal(got.cpu(), want)
     assert int((want != 0).sum()) > n // 4            # planted hits
+
+
+def _routed_case(case, nb, n, device):
+    """(table, b, rem) of mb_pallas's world at W = 64, its rows set by
+    ``case``: every query in one row or one 32-row tile, or in every other
+    tile (half the keys empty)."""
+    from pangea_tpu_torch.experiments.mb_pallas import (make_world,
+                                                        world_tensors)
+    table, b, rem = world_tensors(make_world(5, nb, n, 64), "cpu")
+    g = torch.Generator().manual_seed(6)
+    if case == "one_row":
+        b[:] = nb // 2
+    elif case == "one_tile":
+        b[:] = torch.randint(32, 64, (n,), generator=g, dtype=torch.int32)
+    elif case == "half_empty":
+        b[:] = (torch.randint(0, nb // 64, (n,), generator=g) * 64
+                + torch.randint(0, 32, (n,), generator=g)).to(torch.int32)
+    return (table, b, rem), tuple(t.to(device) for t in (table, b, rem))
+
+
+@pytest.mark.parametrize("case,nb,n", [
+    ("one_row", 16384, 100_003),   # one key holds every record
+    ("one_tile", 16384, 70_001),
+    ("half_empty", 16384, 100_003),
+    ("uniform", 1, 5_000),         # NB = 1: one key
+    ("uniform", 257, 9_001),       # NB not a multiple of the k-tile
+    ("uniform", 16384, 0),         # no query: nothing launched
+])
+def test_routed_probes_match_plain(cuda, case, nb, n):
+    """The routing pass (by key, count and record multiset), K11 and K12
+    on skewed, half-empty and ragged worlds against the plain versions."""
+    from pangea_tpu_torch.kernels import (rowprobe_onehot, rowprobe_plain,
+                                          rowprobe_route,
+                                          rowprobe_route_plain,
+                                          rowprobe_smem)
+    cpu, dev = _routed_case(case, nb, n, cuda)
+    reset_kernel_launches()
+    records, totals = rowprobe_route(dev[1], dev[2], nb)
+    assert kernel_launches()["rowprobe_route"] == int(n > 0)
+    want, want_totals = rowprobe_route_plain(cpu[1], cpu[2], nb)
+    records = records.cpu()
+    assert torch.equal(totals.cpu(), want_totals)
+    keys = records[:, 1].long() >> 5
+    assert bool((keys[1:] >= keys[:-1]).all())
+    assert torch.equal(records[records[:, 0].long().argsort()],
+                       want[want[:, 0].long().argsort()])
+    expect = rowprobe_plain(*cpu)
+    for fn in (rowprobe_smem, rowprobe_onehot):
+        reset_kernel_launches()
+        assert torch.equal(fn(*dev).cpu(), expect), fn.__name__
+        counts = kernel_launches()
+        assert counts[fn.__name__] == counts["rowprobe_route"] == int(n > 0)
 
 
 @pytest.mark.parametrize("nb,w,n", [
@@ -1186,6 +1239,7 @@ def test_rowprobe_onehot_kernel_matches_plain(cuda, nb, w, n):
     reset_kernel_launches()
     got = rowprobe_onehot(*dev)
     assert kernel_launches()["rowprobe_onehot"] == 1
+    assert kernel_launches()["rowprobe_route"] == 1
     want = rowprobe_plain(*cpu)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(rowprobe_onehot_plain(*dev).cpu(), want)
