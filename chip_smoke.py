@@ -22,9 +22,12 @@ probes by bucket, then the sorted form of K2 (or K4) probes them; phases
 24-28 drive config 3's sharded index, phases 29-31 the repository's
 Pallas experiments (B16: K11-K13) through the port's `experiments` entry
 points, and phases 32-35 config 5's cohort run (trim, demux, resume and
-report) on the deep index. The CLI runs of phases 5, 9, 13, 18, 22, 28,
-32 and 33 take the fast path (the native reader, built with g++ from the
-checkout), phases 17's and 34's the general path:
+report) on the deep index. The CLI runs of phases 5, 5b-5d, 9, 13, 18,
+22, 28, 32 and 33 take the fast path (the native reader, built with g++
+from the checkout), phases 17's and 34's the general path (its launch/drain
+pipeline, PANGEA_INFLIGHT batches in flight). Each main step (phases 4, 8,
+12 and 21) is held on its first GOLDEN_READS reads to the port's golden
+model (pangea_tpu_torch.golden, the reference bench's parity check):
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -52,13 +55,22 @@ checkout), phases 17's and 34's the general path:
      lineage and from unrelated taxa), each world's mean and largest U and
      its reads that took the general branch logged; mismatches and times;
   4. the q8 Classifier on that batch: every kernel's launch count, the
-     outputs against the plain path and the reads' planted truth, and the
-     step time of both paths by CUDA events;
+     outputs against the plain path, the golden model and the reads'
+     planted truth, and the step time of both paths by CUDA events;
   5. the q8 main path as a user drives it: `python -m pangea_tpu_torch.cli
      classify` on config 2's file and 24,576 pairs in three batches of
      8192 (the fast path), with its kernel launches, its lines against
      phase 4's outputs, and its host time by phase;
-  6. torch.profiler over back-to-back q8 steps: the device time of each
+ 5b. the same CLI at PANGEA_INFLIGHT 1 and 8 (the fast path's drain queue;
+     phase 5 ran its default, 4): files byte for byte phase 5's, reads/s
+     at each depth;
+ 5c. the same CLI under PANGEA_LAYOUT=std (K4 on an index the auto policy
+     puts in q8), PANGEA_Q8_WAYS=32 (K2's generic body: the table laid out
+     at 32 slots a row in this process too, its plan's spec 0) and
+     PANGEA_PSCORE=ranked (K8 on the 32-probe pairs), run at once with
+     5d: lines equal to phase 5's, the kernel each knob selects launched;
+ 5d. PANGEA_PROFILE on the same CLI: the Chrome trace written, naming K1's,
+     K2's and K3's kernels;  6. torch.profiler over back-to-back q8 steps: the device time of each
      kernel (and a JSON line of it by kernel) and the device's busy share
      of the wall;
   7. K1 at w=1 on the std world's pairs, timed beside its bound (its
@@ -75,7 +87,7 @@ checkout), phases 17's and 34's the general path:
      5,000-node chain (13 lifting levels, the winners deep chain nodes);
   8. the std Classifier at full width: launch counts of K1, K4, K3 and K5
      (in K3's launch: four launches of their own), the outputs against
-     the plain path and the planted truth, step times;
+     the plain path, golden and the planted truth, step times;
   9. the CLI on the std index (written by the port's Index.save) with
      config 2's file and 24,576 pairs, its lines against phase 8's outputs;
  10. torch.profiler over back-to-back std steps;
@@ -94,8 +106,8 @@ checkout), phases 17's and 34's the general path:
      bound;
  12. the multi-k step at full width: launch counts (K1 four times, K2 and
      its q12 form, K3 twice, K7 in the second: eight launches of their
-     own), the outputs against the plain path and the planted truth, step
-     times;
+     own), the outputs against the plain path, golden (each index's calls
+     merged) and the planted truth, step times;
  13. the CLI on the two indexes (written by the port's Index.save) with
      config 4's file and 24,576 pairs, its lines against phase 12's;
  14. torch.profiler over back-to-back multi-k steps;
@@ -105,6 +117,8 @@ checkout), phases 17's and 34's the general path:
      sorted in a device scratch), q8 and taxon forms, with the direct LCA
      (the headline's 67-taxon tree) and K5's lifting (66,563 taxa), at two
      thresholds, and on scorer worlds of U = 1, 8, 64 and R at each shape;
+     K8 also at R = 32 (8,192 reads) and 260 (16,384) under
+     PANGEA_PSCORE=ranked, timed beside K3 on the same lanes;
      K1's packed form on the headline pairs as the native
      reader packs them (w=8 and w=1), held to its plain version and to K1
      on the codes, and timed at both w beside its bound;
@@ -114,9 +128,11 @@ checkout), phases 17's and 34's the general path:
      through the Classifier: launch counts (K8 at 2,400 bases and more, K3
      below), the outputs against the plain path and the planted lineage,
      each bucket's step time;
- 17. the CLI on that FASTQ with input.long_reads=true (the general path):
-     its lines against phase 16's, truncated_reads (reads past 16,384
-     bases), reads/s and host time by phase;
+ 17. the CLI on that FASTQ with input.long_reads=true (the general path),
+     at PANGEA_INFLIGHT 2 (its default) and 4 (17b): its lines against
+     phase 16's, truncated_reads (reads past 16,384 bases), the two runs'
+     files byte for byte alike, reads/s at each depth beside the serial
+     loop's figure, and host time by phase;
  18. the CLI on that FASTQ on the fast path: every read past 150 bases cut
      and counted, the 8,192 short reads' lines against phase 17's;
  19. the deep world built with `python -m pangea_tpu_torch.cli build` from
@@ -139,7 +155,7 @@ checkout), phases 17's and 34's the general path:
      on 65,536 (where the std gate engages): launch counts (K1, K9 and the
      sorted form; no unsorted lookup), the outputs against the plain path
      and the planted lineage, step times; then each with PANGEA_DEEP_SORT=0
-     (the unsorted lookup) in the same call;
+     (the unsorted lookup) in the same call; the q8 step against golden;
  22. the CLI on the deep index (the fast path, one batch of 16,384
      single-end reads): its launches, its lines against phase 21's;
  23. torch.profiler over back-to-back q8 deep steps;
@@ -199,7 +215,8 @@ checkout), phases 17's and 34's the general path:
      files byte for byte the whole run's, the manifest's paths aside; the
      resume's wall and reads/s;
  34. the general path (PANGEA_NO_NATIVE) on the cohort's first 65,536
-     reads: each sample's lines equal to phase 32's for those reads;
+     reads: each sample's lines equal to phase 32's for those reads, its
+     reads/s beside the serial loop's figure;
  35. `cli report` on phase 32's assignment files: its summaries, cohort
      table and stats.json byte for byte the run's;
  36. the launch summary.
@@ -314,6 +331,25 @@ MESH_SHAPES = ((1, 4), (2, 2))
 MESH_REPS = 5            # timed steps of each multi-rank case
 C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
+# The golden model holds each main step on its first GOLDEN_READS reads.
+GOLDEN_READS = 2048
+# K8 at the main paths' short-read shapes under PANGEA_PSCORE=ranked: (probes
+# a read, reads): the headline's 32-probe pairs, the wide std world's 260;
+# their scorer worlds of chosen U at RANKED_U_READS reads.
+RANKED_SMALL = ((32, 8192), (260, 16384))
+RANKED_U_READS = 1024
+# The general path's reads/s with one batch in flight (launch, fetch, write
+# and read in series): the long-read CLI and config 5's general run on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's.
+SERIAL_GENERAL_RPS = {"long": 27903.8, "cohort": 25090.8}
+# The headline CLI under the run knobs (phase 5c), run at once: the layout,
+# the q8 width, the pscore form, and the profiler's trace (phase 5d).
+KNOB_RUNS = {"layout_std": {"PANGEA_LAYOUT": "std"},
+             "q8_ways32": {"PANGEA_Q8_WAYS": "32"},
+             "pscore_ranked": {"PANGEA_PSCORE": "ranked"}}
+# The CUDA kernels of K1, K2 and K3 by name, as a trace shows them.
+TRACE_KERNELS = ("extract_probes_kernel", "lookup_quot_kernel",
+                 "score_kernel")
 # Config 5 (phases 32-35): its file on the deep index, C5_READS single-end
 # reads of a pooled cohort of C5_SAMPLES barcoded samples (bench.cohort_fastq
 # on the deep genomes: qualities falling toward the 3' end, barcode errors
@@ -719,7 +755,7 @@ def check_score(torch, res: Results, name: str, what: str, args, tax,
                                           score_ranked, score_reads_plain,
                                           score_reads_taxon, score_reads_tin,
                                           score_winners, score_winners_plain)
-    from pangea_tpu_torch.kernels.score import MAX_PROBES
+    from pangea_tpu_torch.kernels.score import takes_ranked
     R = args[0].shape[1]
     form = "taxon" if taxon_lanes else "q8"
     reset_general_reads()
@@ -727,7 +763,7 @@ def check_score(torch, res: Results, name: str, what: str, args, tax,
               score_winners_plain(*args, taxon_lanes),
               score_winners(*args, taxon_lanes))
     for thr in THRESHOLDS:
-        if R > MAX_PROBES:
+        if takes_ranked(R):
             got = score_ranked(*args, tax, thr, taxon_lanes)
         elif taxon_lanes:
             got = score_reads_taxon(*args, tax, thr)
@@ -1041,11 +1077,12 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
     return out
 
 
-def run_cli(world, tag: str, reads: list, mates: list | None = None,
-            extra=(), batch: int = CLI_BATCH) -> tuple[dict, list]:
-    """`python -m pangea_tpu_torch.cli classify` on the world's config
-    file and indexes (written by the port's Index.save, once a world);
-    returns the run's result line and its assignment lines, split."""
+def start_cli(world, tag: str, reads: list, mates: list | None = None,
+              extra=(), batch: int = CLI_BATCH, env=None) -> dict:
+    """Start `python -m pangea_tpu_torch.cli classify` on the world's
+    config file and indexes (written by the port's Index.save, once a
+    world), with ``env`` added to the environment; :func:`finish_cli`
+    waits for it."""
     work = ROOT / "build" / "chip_smoke" / world["name"]
     if "idx_dirs" not in world:
         shutil.rmtree(work, ignore_errors=True)
@@ -1055,24 +1092,39 @@ def run_cli(world, tag: str, reads: list, mates: list | None = None,
         for ix, d in zip(world["idxs"], world["idx_dirs"]):
             ix.save(d)
     out_dir = work / f"out{tag}"
+    shutil.rmtree(out_dir, ignore_errors=True)
     cmd = [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
            "--config", str(ROOT / "configs" / world["config"]),
            "--index", *world["idx_dirs"], "--reads", *reads,
            *(["--mates", *mates] if mates else []), "--samples", "smoke",
            "--out", str(out_dir), "--device", "cuda",
            f"input.batch_size={batch}", *extra]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=900)
-    if proc.returncode != 0:
-        raise AssertionError(f"the CLI returned {proc.returncode}:\n"
-                             f"{proc.stderr[-4000:]}")
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"[{tag}] CLI process in {time.time() - t0:.1f} s: "
+    full_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
+    return {"tag": tag, "out": out_dir, "t0": time.time(), "env": env,
+            "proc": subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=full_env, cwd=ROOT)}
+
+
+def finish_cli(run: dict) -> tuple[dict, list]:
+    """Wait for a CLI run of :func:`start_cli`: its result line and its
+    assignment lines, split."""
+    tag, out_dir = run["tag"], run["out"]
+    try:
+        stdout, stderr = run["proc"].communicate(timeout=900)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+    if run["proc"].returncode != 0:
+        raise AssertionError(f"the CLI ({tag}) returned "
+                             f"{run['proc'].returncode}:\n{stderr[-4000:]}")
+    result = json.loads(stdout.strip().splitlines()[-1])
+    env = f" with {json.dumps(run['env'])}" if run["env"] else ""
+    log(f"[{tag}] CLI process{env} in {time.time() - run['t0']:.1f} s: "
         f"{json.dumps(result)}")
     how = ("threads of the fast path, overlapping" if result["fast_path"]
-           else "the general path's one loop")
+           else "the general path's loop and its prefetch thread")
     log(f"[{tag}] CLI host time by phase ({how}): " + ", ".join(
         f"{k} {v} s ({100 * v / result['wall_sec']} % of the wall)"
         for k, v in result["host_sec"].items()))
@@ -1084,11 +1136,31 @@ def run_cli(world, tag: str, reads: list, mates: list | None = None,
     return result, rows
 
 
+def run_cli(world, tag: str, reads: list, mates: list | None = None,
+            extra=(), batch: int = CLI_BATCH, env=None) -> tuple[dict, list]:
+    """A CLI run of :func:`start_cli` to its end."""
+    return finish_cli(start_cli(world, tag, reads, mates, extra, batch, env))
+
+
+def same_files(a: Path, b: Path) -> list:
+    """The output files of two CLI runs that differ: every .tsv and
+    stats.json byte for byte, manifest.json with the run's directory
+    named alike."""
+    bad = [f.name for f in sorted(a.iterdir())
+           if f.name.endswith((".tsv", "stats.json"))
+           and f.read_bytes() != (b / f.name).read_bytes()]
+    man = (a / "manifest.json").read_text().replace(str(a), str(b))
+    if json.loads(man) != json.loads((b / "manifest.json").read_text()):
+        bad.append("manifest.json")
+    return bad
+
+
 def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
     """The CLI on the world's config file, its indexes and 24,576 pairs,
     on the fast path; returns the kernel launches of that run (the CLI's
     own counts, which start at 0 in its process)."""
     result, rows = run_cli(world, tag, [fastq[0]], [fastq[1]])
+    world["cli"] = (result, rows)
     launches = result["kernel_launches"]
     if not result["fast_path"] or result["truncated_reads"] \
             or launches["extract_packed"] < 1 or launches["extract_probes"]:
@@ -1104,6 +1176,113 @@ def phase_cli(world, out: dict, tag: str, fastq: tuple) -> dict:
         f"{ids_bad}; first {BATCH} vs the step: mismatches {step_bad}")
     if len(rows) != CLI_PAIRS or ids_bad or step_bad:
         raise AssertionError("the CLI's assignments are wrong")
+    return launches
+
+
+def check_golden(tag: str, out: dict, idxs: list, reads, thr: float,
+                 paired: bool = True) -> None:
+    """The step's outputs on its first GOLDEN_READS reads against the
+    port's golden model (the reference bench's parity check): each
+    index's golden calls, merged left to right over the first index's
+    taxonomy where there are several (config 4); 0 mismatches in taxon,
+    best and nvalid."""
+    from pangea_tpu_torch.golden import (classify_reads_golden,
+                                         merge_multik_golden)
+    n = GOLDEN_READS
+    t0 = time.time()
+    mates = reads.mates[:n] if paired else None
+    golds = [classify_reads_golden(reads.seqs[:n], ix, thr, mates=mates)
+             for ix in idxs]
+    gold = golds[0]
+    for more in golds[1:]:
+        gold = [merge_multik_golden(a, b, idxs[0].taxonomy)
+                for a, b in zip(gold, more)]
+    got = list(zip(*(out[k][:n].tolist() for k in ("taxon", "best",
+                                                    "nvalid"))))
+    bad = sum(g != (x.taxon, x.best, x.nvalid) for g, x in zip(got, gold))
+    log(f"[{tag}] golden model on the first {n} reads ({len(idxs)} "
+        f"index(es), threshold {thr}): mismatches {bad} in taxon, best and "
+        f"nvalid; {time.time() - t0:.1f} s on the host")
+    if bad or len(got) != n:
+        raise AssertionError(f"the {tag} step disagrees with golden")
+
+
+def phase_inflight_clis(world, fastq: tuple, card: str) -> dict:
+    """Phase 5b: the headline CLI at PANGEA_INFLIGHT 1 and 8 (phase 5 ran
+    the fast path's default, 4), one after another: files byte for byte
+    phase 5's; reads/s at each depth. Returns the runs' launches."""
+    result5, _ = world["cli"]
+    out5 = ROOT / "build" / "chip_smoke" / world["name"] / "out5"
+    rates, launches = {4: result5["reads_per_sec"]}, {}
+    for depth in (1, 8):
+        tag = f"5b-inflight{depth}"
+        result, _ = run_cli(world, tag, [fastq[0]], [fastq[1]],
+                            env={"PANGEA_INFLIGHT": str(depth)})
+        bad = same_files(out5, out5.parent / f"out{tag}")
+        rates[depth] = result["reads_per_sec"]
+        log(f"[5b] PANGEA_INFLIGHT={depth}: files unlike phase 5's: {bad}")
+        if bad or not result["fast_path"]:
+            raise AssertionError(f"the fast path at depth {depth} differs")
+        launches[f"fast_inflight{depth}"] = result["kernel_launches"]
+    log(f"[5b] the fast path's reads/s by PANGEA_INFLIGHT on {card}: "
+        f"{json.dumps(dict(sorted(rates.items())))}")
+    return launches
+
+
+def phase_knob_clis(torch, world, fastq: tuple) -> dict:
+    """Phases 5c and 5d: the headline CLI under KNOB_RUNS and under
+    PANGEA_PROFILE, the four processes at once: each run's lines equal
+    phase 5's, and the kernel each knob selects launched (K4 under
+    PANGEA_LAYOUT=std; K2 at 32 slots a row, its generic body; K8 on the
+    32-probe pairs under PANGEA_PSCORE=ranked); the profiler's trace
+    written and naming K1's, K2's and K3's kernels. Returns the runs'
+    launches."""
+    from pangea_tpu_torch.classify import DeviceIndex
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    _, rows5 = world["cli"]
+    with mock.patch.dict(os.environ, {"PANGEA_Q8_WAYS": "32"}):
+        di = DeviceIndex.from_index(world["idx"], world["di"].fused.device)
+    plan = quot_plan(CLI_BATCH * 32, di.cfg.ways, di.stash.shape[1], False,
+                     False, torch.cuda.get_device_properties(0)
+                     .multi_processor_count)
+    log(f"[5c] PANGEA_Q8_WAYS=32 lays the headline index out as "
+        f"{di.cfg.layout} rows of {di.cfg.ways} slots "
+        f"{tuple(di.fused.shape)}; K2's plan {plan} (spec 0: the generic "
+        f"body)")
+    if (di.cfg.layout, di.cfg.ways, di.fused.shape[1], plan.spec) != (
+            "q8", 32, 64, 0):
+        raise AssertionError("PANGEA_Q8_WAYS=32 did not reach the table")
+    del di
+    trace_dir = ROOT / "build" / "chip_smoke" / "profile5d"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    envs = {**KNOB_RUNS, "profile": {"PANGEA_PROFILE": str(trace_dir)}}
+    runs = {name: start_cli(world, f"5c-{name}", [fastq[0]], [fastq[1]],
+                            env=env) for name, env in envs.items()}
+    want = {"layout_std": ("lookup_std", "score_taxon"),
+            "q8_ways32": ("lookup_q8", "score_tin"),
+            "pscore_ranked": ("lookup_q8", "score_ranked"),
+            "profile": ("lookup_q8", "score_tin")}
+    launches = {}
+    for name, run in runs.items():
+        result, rows = finish_cli(run)
+        kl = result["kernel_launches"]
+        others = {k: v for k, v in kl.items()
+                  if v and k not in ("extract_packed", *want[name])}
+        log(f"[5c] {name}: lines unlike phase 5's: "
+            f"{sum(a != b for a, b in zip(rows, rows5))} of {len(rows)}; "
+            f"kernels launched: {json.dumps(kl)}")
+        if rows != rows5 or others or min(
+                kl[k] for k in ("extract_packed", *want[name])) < 1:
+            raise AssertionError(f"the headline CLI under {name} is wrong")
+        launches[name] = kl
+    trace = trace_dir / "trace_rank0.json"
+    text = trace.read_text() if trace.exists() else ""
+    named = {k: text.count(k) for k in TRACE_KERNELS}
+    log(f"[5d] PANGEA_PROFILE: {trace} ({len(text)} B) names "
+        f"{json.dumps(named)}")
+    if not json.loads(text or "{}").get("traceEvents") \
+            or min(named.values()) < 1:
+        raise AssertionError("the profiler's trace lacks a kernel")
     return launches
 
 
@@ -1720,6 +1899,29 @@ def phase_ranked_kernels(torch, wide, cuda, res: Results) -> None:
             bound_ms, by = bound(nbytes, ops)
             log(f"[15] score_ranked R={R} x {B}: kernel {ms} ms, plain "
                 f"{plain_ms} ms, bound {bound_ms} ms ({by})")
+    # K8 at every R under PANGEA_PSCORE=ranked: the main paths' short
+    # reads, beside K3 on the same lanes.
+    for R, B in RANKED_SMALL:
+        with mock.patch.dict(os.environ, {"PANGEA_PSCORE": "ranked"}):
+            for name, tax in trees.items():
+                taxon, t_in, t_out, valid = lineage_lanes(torch, tax, B, R,
+                                                          g)
+                for taxon_lanes in (True, False):
+                    lanes = (taxon if taxon_lanes
+                             else (taxon != 0).to(torch.int32))
+                    check_score(torch, res, "score_ranked",
+                                f"15 PANGEA_PSCORE=ranked R={R} x {B}, "
+                                f"{name}", (lanes, t_in, t_out, valid), tax,
+                                taxon_lanes)
+            check_u_worlds(torch, res, "score_ranked", "15 ranked",
+                           RANKED_U_READS, R, (True, False), cuda)
+            args = (taxon, t_in, t_out, valid)
+            ms = time_ms(torch, lambda: score_winners(*args, True),
+                         PIPELINED)
+        k3_ms = time_ms(torch, lambda: score_winners(*args, True), PIPELINED)
+        log(f"[15] R={R} x {B}, taxon lanes of the 66,563-taxon tree: K8 "
+            f"(PANGEA_PSCORE=ranked) {ms} ms, K3 {k3_ms} ms, bound "
+            f"{bound(B * R * 13 + B * 24, score_ops(*args[:3]))[0]} ms")
     res.assert_clean(("score_ranked",))
 
 
@@ -1791,30 +1993,48 @@ def phase_long_step(torch, wide, cuda, card: str, mix) -> dict:
     return outs
 
 
-def phase_long_cli(wide, mix, outs: dict, long_fastq: str):
+def phase_long_cli(wide, mix, outs: dict, long_fastq: str, card: str):
     """The CLI's general path (input.long_reads=true) on the long-read
-    FASTQ: its lines against phase 16's outputs, truncated_reads against
-    the reads past MAX_LONG bases. Returns its launches and lines."""
-    result, rows = run_cli(wide, "17", [long_fastq],
-                           extra=["input.long_reads=true",
-                                  f"input.max_long_read_len={MAX_LONG}"])
-    launches = result["kernel_launches"]
-    cut = sum(len(s) > MAX_LONG for s in mix.seqs)
-    if result["fast_path"] or result["truncated_reads"] != cut \
-            or launches["score_ranked"] < 1 or launches["extract_packed"]:
-        raise AssertionError(f"the long-read CLI run is wrong (want "
-                             f"{cut} truncated): {json.dumps(result)}")
-    bad = sum(
-        (r[1], int(r[2]), r[5]) != (
-            rid, int(outs["taxon"][i]),
-            f"{int(outs['best'][i])}/{int(outs['nvalid'][i])}")
-        for i, (r, rid) in enumerate(zip(rows, mix.ids)))
-    log(f"[17] {len(rows)} lines, {result['truncated_reads']} reads cut at "
-        f"{MAX_LONG} bases; lines vs phase 16: mismatches {bad}; "
-        f"{result['reads_per_sec']} reads/s")
-    if len(rows) != len(mix.ids) or bad:
-        raise AssertionError("the long-read CLI's assignments are wrong")
-    return launches, rows
+    FASTQ, at PANGEA_INFLIGHT 2 (its default) and 4: its lines against
+    phase 16's outputs, truncated_reads against the reads past MAX_LONG
+    bases, the two runs' files byte for byte alike; reads/s at each depth.
+    Returns the launches of each run and the lines."""
+    runs = {}
+    for depth in (2, 4):
+        tag = "17" if depth == 2 else "17b-inflight4"
+        result, rows = run_cli(wide, tag, [long_fastq],
+                               extra=["input.long_reads=true",
+                                      f"input.max_long_read_len={MAX_LONG}"],
+                               env=None if depth == 2 else
+                               {"PANGEA_INFLIGHT": str(depth)})
+        launches = result["kernel_launches"]
+        cut = sum(len(s) > MAX_LONG for s in mix.seqs)
+        if result["fast_path"] or result["truncated_reads"] != cut \
+                or launches["score_ranked"] < 1 or launches["extract_packed"]:
+            raise AssertionError(f"the long-read CLI run is wrong (want "
+                                 f"{cut} truncated): {json.dumps(result)}")
+        bad = sum(
+            (r[1], int(r[2]), r[5]) != (
+                rid, int(outs["taxon"][i]),
+                f"{int(outs['best'][i])}/{int(outs['nvalid'][i])}")
+            for i, (r, rid) in enumerate(zip(rows, mix.ids)))
+        log(f"[{tag}] {len(rows)} lines, {result['truncated_reads']} reads "
+            f"cut at {MAX_LONG} bases; lines vs phase 16: mismatches {bad}; "
+            f"{result['reads_per_sec']} reads/s at PANGEA_INFLIGHT={depth}")
+        if len(rows) != len(mix.ids) or bad:
+            raise AssertionError("the long-read CLI's assignments are wrong")
+        runs[depth] = (result, launches, rows,
+                       ROOT / "build" / "chip_smoke" / wide["name"]
+                       / f"out{tag}")
+    bad = same_files(runs[2][3], runs[4][3])
+    log(f"[17b] the general path's reads/s on {card}: "
+        f"{runs[2][0]['reads_per_sec']} at PANGEA_INFLIGHT=2, "
+        f"{runs[4][0]['reads_per_sec']} at 4 (one batch in flight before "
+        f"the pipeline: {SERIAL_GENERAL_RPS['long']} on an NVIDIA H100 "
+        f"80GB HBM3 at 700 W); files unlike between the depths: {bad}")
+    if bad:
+        raise AssertionError("the general path's files differ by depth")
+    return runs[2][1], runs[4][1], runs[2][2]
 
 
 def phase_fast_long_cli(wide, mix, rows17: list, long_fastq: str) -> dict:
@@ -3027,8 +3247,10 @@ def phase_cohort_general(deep: dict, whole: dict) -> dict:
             for s, rows in whole["rows"].items()}
     bad = sum(files.get(s, []) != rows for s, rows in want.items())
     log(f"[34] general path: {result['reads_in']} reads, "
-        f"{result['reads_kept']} kept, {result['reads_per_sec']} reads/s; "
-        f"samples whose lines differ from the fast path's: {bad}")
+        f"{result['reads_kept']} kept, {result['reads_per_sec']} reads/s "
+        f"(one batch in flight before the pipeline: "
+        f"{SERIAL_GENERAL_RPS['cohort']} on an NVIDIA H100 80GB HBM3 at 700 "
+        f"W); samples whose lines differ from the fast path's: {bad}")
     if result["fast_path"] or bad or set(files) != {
             s for s, rows in want.items() if rows}:
         raise AssertionError("the general path differs from the fast path")
@@ -3110,7 +3332,10 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     out = phase_step(torch, q8, card, "4", {**none, "extract_probes": 2,
                                             "lookup_q8": 1, "score_tin": 1},
                      plain_calls=PIPELINED, plain_reps=REPS)
+    check_golden("4", out, q8["idxs"], q8["reads"], 0.0)
     q8_cli = phase_cli(q8, out, "5", fastq)
+    knob_clis = {**phase_inflight_clis(q8, fastq, card),
+                 **phase_knob_clis(torch, q8, fastq)}
     phase_profile(torch, q8, card, "6", PROFILE_STEPS["q8"])
     del q8
 
@@ -3127,6 +3352,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     out = wide["out8"] = phase_step(torch, wide, card, "8", {
         **none, "extract_probes": 2, "lookup_std": 1, "score_taxon": 1,
         "lca_lift": 1}, plain_calls=1, plain_reps=PLAIN_REPS)
+    check_golden("8", out, wide["idxs"], wide["reads"], 0.0)
     std_cli = phase_cli(wide, out, "9", fastq)
     phase_profile(torch, wide, card, "10", PROFILE_STEPS["std"])
     del worlds                      # the wide world serves phases 15-18
@@ -3139,6 +3365,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
         **none, "extract_probes": 4, "lookup_q8": 1, "lookup_q12": 1,
         "score_tin": 2, "merge_multik": 1}, plain_calls=1,
         plain_reps=PLAIN_REPS)
+    check_golden("12", out, c4["idxs"], c4["reads"], C4_THRESHOLD)
     c4_cli = phase_cli(c4, out, "13", c4_fastq)
     phase_profile(torch, c4, card, "14", PROFILE_STEPS["multik"])
     del c4
@@ -3153,13 +3380,16 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     long_fastq = str(ROOT / "build" / "chip_smoke" / "long.fastq")
     datagen.write_fastq(long_fastq, mix, mate=1)
     outs = phase_long_step(torch, wide, cuda, card, mix)
-    long_cli, rows17 = phase_long_cli(wide, mix, outs, long_fastq)
+    long_cli, long_cli4, rows17 = phase_long_cli(wide, mix, outs,
+                                                 long_fastq, card)
     fast_long_cli = phase_fast_long_cli(wide, mix, rows17, long_fastq)
 
     # Phases 19-23: the deep-table path on the deep world.
     phase_deep_build(torch, cuda, deep)
     phase_deep_kernels(torch, deep, wide, res, card)
     q8_out = phase_deep_steps(torch, deep, card)
+    check_golden("21", q8_out, [deep["idx"]], deep["reads"], 0.0,
+                 paired=False)
     deep_cli = phase_deep_cli(deep, q8_out)
     phase_profile(torch, {"name": "deep q8", "model": deep["models"]["q8"],
                           "b1": deep["b16"], "b2": None}, card, "23",
@@ -3188,20 +3418,30 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     # The main paths' launches: each CLI run's own counts, the q12 and std
     # deep steps' (phase 21), the multi-rank steps' (phase 26), the
     # experiment entry points' (phase 31) and the cohort runs' (32-34).
-    clis = {"q8": q8_cli, "std": std_cli, "multik": c4_cli,
-            "long": long_cli, "fast_long": fast_long_cli, "deep": deep_cli,
+    clis = {"q8": q8_cli, **knob_clis, "std": std_cli, "multik": c4_cli,
+            "long": long_cli, "long_inflight4": long_cli4,
+            "fast_long": fast_long_cli, "deep": deep_cli,
             "deep_q12_step": deep["launches"]["q12"],
             "deep_std_step": deep["launches"]["std"], "mesh": mesh,
             "config3": c3_cli, **experiments, "cohort": c5["launches"],
             "cohort_resumed": c5_resumed, "cohort_general": c5_general}
     for path, kernels in (
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
+            ("fast_inflight1", ("extract_packed", "lookup_q8", "score_tin")),
+            ("fast_inflight8", ("extract_packed", "lookup_q8", "score_tin")),
+            ("layout_std", ("extract_packed", "lookup_std", "score_taxon")),
+            ("q8_ways32", ("extract_packed", "lookup_q8", "score_tin")),
+            ("pscore_ranked", ("extract_packed", "lookup_q8",
+                               "score_ranked")),
+            ("profile", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
                      "lca_lift")),
             ("multik", ("extract_packed", "lookup_q8", "lookup_q12",
                         "score_tin", "merge_multik")),
             ("long", ("extract_probes", "lookup_std", "score_taxon",
                       "score_ranked", "lca_lift")),
+            ("long_inflight4", ("extract_probes", "lookup_std",
+                                "score_taxon", "score_ranked", "lca_lift")),
             ("fast_long", ("extract_packed", "lookup_std", "score_taxon",
                            "lca_lift")),
             ("deep", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
@@ -3226,7 +3466,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[36] kernel launches of the seven CLI runs, the two deep steps, "
+    log(f"[36] kernel launches of the fourteen CLI runs, the two deep steps, "
         f"the multi-rank steps, the two experiment entry points and the "
         f"three cohort runs: {json.dumps(clis)}; whole run "
         f"{time.time() - t_start:.1f} s")

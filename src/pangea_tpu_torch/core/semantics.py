@@ -2,10 +2,11 @@
 §1-§4).
 
 The port's copy of ``pangea_tpu/core/semantics_np.py``, with the parts the
-index builder, the FASTQ reader and demultiplexing use: base codes
-(``encode_bases``), canonical k-mers, hash32 and the build-side minimizer
-mask. ``tests/test_torch_host.py``
-holds it equal to the reference.
+index builder, the FASTQ reader, demultiplexing and the golden model use:
+base codes (``encode_bases``, ``revcomp_codes``), canonical k-mers, hash32,
+the build-side minimizer mask and the classify-side disjoint minimizers.
+``tests/test_torch_host.py`` and ``tests/test_torch_golden.py`` hold it
+equal to the reference.
 """
 from __future__ import annotations
 
@@ -26,6 +27,14 @@ def encode_bases(seq) -> np.ndarray:
         seq = seq.encode("ascii", errors="replace")
     raw = np.frombuffer(bytes(seq), dtype=np.uint8)
     return _BASE_LUT[raw]
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse-complement a code array (AMBIG maps to AMBIG)."""
+    out = codes[::-1].copy()
+    acgt = out <= 3
+    out[acgt] = 3 - out[acgt]
+    return out
 
 
 def canonical_kmers(codes: np.ndarray, k: int):
@@ -85,6 +94,28 @@ def hash32_np(canon: np.ndarray) -> np.ndarray:
     h = mix32_np(lo ^ np.uint32(0x9E3779B9))
     h = mix32_np(h ^ hi)
     return h
+
+
+def disjoint_query_minimizers(canon: np.ndarray, valid: np.ndarray, w: int):
+    """Classify-side minimizer selection for w > 1 (SEMANTICS.md §3 v4).
+
+    The read's P k-mer positions are cut into NW = floor(P/w) consecutive
+    disjoint FULL windows (a tail of fewer than w positions is ignored); a
+    window is valid iff all its w positions are valid; each valid window
+    probes its hash32-argmin position (ties → leftmost). Returns
+    (pos: int64[NW] selected position per window, wvalid: bool[NW]).
+    """
+    P = canon.shape[0]
+    if w <= 1:
+        raise ValueError("disjoint_query_minimizers requires w>1")
+    NW = P // w
+    h = hash32_np(canon)[:NW * w]
+    hw = h.reshape(NW, w)
+    vw = np.asarray(valid[:NW * w], dtype=bool).reshape(NW, w)
+    wvalid = vw.all(axis=1)
+    sel = np.argmin(hw, axis=1)  # first occurrence = leftmost tie
+    pos = np.arange(NW, dtype=np.int64) * w + sel
+    return pos, wvalid
 
 
 def minimizer_mask(canon: np.ndarray, valid: np.ndarray, w: int) -> np.ndarray:

@@ -62,6 +62,31 @@ class Index:
                       if stash is not None else np.zeros((3, 0), np.uint32))
         self.taxonomy = taxonomy
 
+    def lookup_np(self, canon: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Host-side lookup (the golden model's). canon uint64 → taxon
+        int32 (0 = miss), per SEMANTICS.md §5 v5: gather the bucket row,
+        compare all its lanes, then scan the stash."""
+        from .build import bucket_of_np
+        canon = np.asarray(canon, dtype=np.uint64)
+        hi = (canon >> np.uint64(32)).astype(np.uint32)
+        lo = (canon & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        b = bucket_of_np(canon, self.meta.n_buckets)
+        out = np.zeros(canon.shape, dtype=np.int32)
+        idx = np.flatnonzero(np.asarray(valid, dtype=bool))
+        hitlane = ((self.key_hi[b[idx]] == hi[idx, None])
+                   & (self.key_lo[b[idx]] == lo[idx, None]))
+        anyhit = hitlane.any(axis=1)
+        lane = np.argmax(hitlane, axis=1)
+        out[idx[anyhit]] = self.val[b[idx[anyhit]], lane[anyhit]]
+        if self.stash.shape[1]:
+            s_hi, s_lo, s_val = self.stash
+            shit = (hi[idx, None] == s_hi[None, :]) \
+                & (lo[idx, None] == s_lo[None, :])
+            sany = shit.any(axis=1)
+            sl = np.argmax(shit, axis=1)
+            out[idx[sany]] = s_val.view(np.int32)[sl[sany]]
+        return out
+
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "meta.json"), "w") as fh:

@@ -10,7 +10,9 @@ with ``g++ ... -lz`` at first use into ``build/native/<hash>/`` of the
 checkout (``$XDG_CACHE_HOME/pangea_tpu_torch/native/<hash>/`` outside
 one), named by the hash of the source and flags. If it cannot be built,
 the first use raises with the compiler's message: there is no fallback to
-the Python reader.
+the Python reader. ``PANGEA_IO_LIB`` names a library to load in its place
+(as the reference reads it): then nothing is built, and a missing or
+unloadable file raises.
 """
 from __future__ import annotations
 
@@ -80,8 +82,19 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The built native library, with its C signatures set."""
-    lib = ctypes.CDLL(str(build()))
+    """The native library, with its C signatures set: the file
+    ``PANGEA_IO_LIB`` names, else the one :func:`build` makes."""
+    path = os.environ.get("PANGEA_IO_LIB")
+    if path:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"PANGEA_IO_LIB={path}: no such file")
+        try:
+            lib = ctypes.CDLL(os.path.abspath(path))
+        except OSError as e:
+            raise OSError(f"PANGEA_IO_LIB={path}: cannot load it: {e}") \
+                from e
+    else:
+        lib = ctypes.CDLL(str(build()))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype

@@ -5,7 +5,8 @@ checkout of it.
 
     PYTHONPATH=<checkout>/src python \\
         src/pangea_tpu_torch/kernels/ab_timing.py [--deep DIR] [--split] \\
-        [--sections k1,block_copy,k2,k4,sort,rowprobe,score,tail,steps]
+        [--cli DIR] \\
+        [--sections k1,block_copy,k2,k4,sort,rowprobe,score,tail,steps,cli]
 
 The file imports ``pangea_tpu_torch`` by its absolute name, from whichever
 checkout ``PYTHONPATH`` names: run it on two checkouts in turns (A, B, B,
@@ -91,6 +92,18 @@ with the sections asked for (all by default):
   also the deep
   q8 and q12 steps on 16,384 single-end reads and the std step on 65,536,
   sorted (the reference's gate) and with ``PANGEA_DEEP_SORT=0``;
+- ``cli``: with ``--cli DIR``, the ``classify`` CLI's general path as a
+  user runs it (``python -m pangea_tpu_torch.cli`` processes on the
+  card, the checkout's own), CLI_REPS runs at ``PANGEA_INFLIGHT`` 2 (the
+  general path's default) and 4 each: the long-read FASTQ (the headline
+  world's first CLI_LONG[0] first mates and CLI_LONG[1] genome slices of
+  1-20 kb, ``input.long_reads=true``, batches of 8,192) on the headline
+  q8 index, and config 5's file with its trim and demux on CLI_COHORT
+  reads of ``bench.cohort_fastq`` on the headline genomes
+  (``PANGEA_NO_NATIVE``, batches of CLI_COHORT_BATCH); each run's
+  ``reads_per_sec``, ``wall_sec`` and ``host_sec``. The inputs and the
+  index are written into DIR by the first run and read by later ones, so
+  that every checkout classifies the same files;
 - with ``--split``, ``split``: the block copy's host time a call in parts,
   by ``time.perf_counter_ns`` over SPLIT_CALLS calls: the whole call; the
   wrapper's checks, plan and ``torch.empty``; the device guard and stream
@@ -131,7 +144,12 @@ BUCKET, RANKED = (1180, 64), ((16364, 75), (32728, 75))
 LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
 SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "rowprobe", "score",
-            "tail", "steps")
+            "tail", "steps", "cli")
+# The cli section: runs at each in-flight depth; the long-read FASTQ's short
+# and long reads; the cohort's reads and its batch.
+CLI_REPS = 2
+CLI_LONG = (32768, 2048)
+CLI_COHORT, CLI_COHORT_BATCH = 262144, 65536
 Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
@@ -783,6 +801,75 @@ def time_steps(torch, dev, deep: Path | None) -> dict:
     return out
 
 
+def cli_inputs(cache: Path) -> dict:
+    """The cli section's index and FASTQs in ``cache``, written once."""
+    from pangea_tpu_torch.bench import (cohort_barcodes, cohort_fastq,
+                                        long_read_mix, make_bench_world)
+    from pangea_tpu_torch.utils import datagen
+    paths = {"idx": cache / "idx", "long": cache / "long.fastq",
+             "cohort": cache / "cohort.fastq"}
+    if not (cache / "done").exists():
+        cache.mkdir(parents=True, exist_ok=True)
+        bw = make_bench_world(n_reads=CLI_LONG[0], read_len=READ_LEN,
+                              **HEADLINE)
+        bw.index.save(str(paths["idx"]))
+        mix = long_read_mix(bw.reads, CLI_LONG[0], bw.genomes, CLI_LONG[1],
+                            1_000, 20_000, 16)
+        datagen.write_fastq(str(paths["long"]), mix, mate=1)
+        cohort_fastq(str(paths["cohort"]), bw.genomes, CLI_COHORT, 4)
+        (cache / "done").write_text("")
+    paths["barcodes"] = [[f"sample{i}", bc]
+                         for i, bc in enumerate(cohort_barcodes(4))]
+    return paths
+
+
+def time_cli(cache: Path) -> dict:
+    """The general path's CLI runs of the ``cli`` section: reads/s, wall
+    and host time by phase of each run, by workload and depth."""
+    import os
+    import shutil
+    import subprocess
+    paths = cli_inputs(cache)
+    root = Path(__file__).resolve().parents[3]
+    runs = {
+        "long": ["--index", str(paths["idx"]), "--reads", str(paths["long"]),
+                 "input.long_reads=true", "input.max_long_read_len=16384",
+                 "input.batch_size=8192"],
+        "cohort": ["--config", str(root / "configs" / "config5_cohort.json"),
+                   "--index", str(paths["idx"]), "--reads",
+                   str(paths["cohort"]),
+                   f"input.batch_size={CLI_COHORT_BATCH}", "trim.min_qual=20",
+                   "trim.window=4", "trim.min_len=60", "demux.max_mismatch=1",
+                   "demux.barcodes=" + json.dumps(paths["barcodes"])]}
+    out = {}
+    for name, args in runs.items():
+        for depth in (2, 4):
+            rows = []
+            for rep in range(CLI_REPS):
+                out_dir = cache / f"out_{name}_{depth}_{rep}"
+                shutil.rmtree(out_dir, ignore_errors=True)  # no resume
+                env = dict(os.environ, PANGEA_INFLIGHT=str(depth),
+                           **({"PANGEA_NO_NATIVE": "1"} if name == "cohort"
+                              else {}))
+                proc = subprocess.run(
+                    [sys.executable, "-m", "pangea_tpu_torch.cli",
+                     "classify", *args, "--out", str(out_dir), "--device",
+                     "cuda"], capture_output=True, text=True, env=env,
+                    timeout=900)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"cli {name} at {depth}:\n"
+                                       f"{proc.stderr[-3000:]}")
+                r = json.loads(proc.stdout.strip().splitlines()[-1])
+                if r["fast_path"]:
+                    raise RuntimeError(f"cli {name} took the fast path")
+                rows.append({"reads_per_sec": r["reads_per_sec"],
+                             "wall_sec": r["wall_sec"],
+                             "reads": r["reads_in"],
+                             "host_sec": r["host_sec"]})
+            out[f"{name}_inflight{depth}"] = rows
+    return out
+
+
 def split(torch, dev) -> dict:
     """The block copy's host time a call, in parts (see the docstring)."""
     from pangea_tpu_torch.experiments import mb_gather as MG
@@ -892,6 +979,9 @@ def main(argv=None) -> int:
     ap.add_argument("--deep", type=Path, default=None,
                     help="time K2, K4, K9, K10 and the deep steps on the "
                          "deep world, its index in DIR")
+    ap.add_argument("--cli", type=Path, default=None,
+                    help="time the general path's CLI runs, their inputs "
+                         "in DIR")
     ap.add_argument("--split", action="store_true",
                     help="split the block copy's host time into parts")
     ap.add_argument("--sections", default=",".join(SECTIONS),
@@ -928,6 +1018,8 @@ def main(argv=None) -> int:
         line["tail"] = time_tail(torch, dev)
     if "steps" in sections:
         line["steps"] = time_steps(torch, dev, args.deep)
+    if "cli" in sections and args.cli is not None:
+        line["cli"] = time_cli(args.cli)
     print(json.dumps(line), flush=True)
     return 0
 

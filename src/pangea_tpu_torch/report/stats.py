@@ -1,9 +1,10 @@
 """Per-sample diversity statistics, numpy only.
 
-The port's copy of the parts of ``pangea_tpu/report/stats.py`` that a
-classify run writes into ``stats.json`` (:func:`sample_stats`). All
-functions take per-taxon direct count vectors restricted to classified
-taxa.
+The port's copy of ``pangea_tpu/report/stats.py``: the statistics a
+classify run writes into ``stats.json`` (:func:`sample_stats`), the
+expected richness at subsampling depths (:func:`rarefaction`) and the
+Bray-Curtis dissimilarity of two samples. All functions take per-taxon
+direct count vectors restricted to classified taxa.
 """
 from __future__ import annotations
 
@@ -67,6 +68,41 @@ def ace(counts, rare_threshold: int = 10) -> float:
     gamma = max((s_rare / c_ace) * (ks * (ks - 1) @ fk)
                 / (n_rare * (n_rare - 1)) - 1.0, 0.0) if n_rare > 1 else 0.0
     return float(s_abund + s_rare / c_ace + (f1 / c_ace) * gamma)
+
+
+def rarefaction(counts, depths, seed: int = 0) -> list[tuple[int, float]]:
+    """Expected richness at each subsampling depth (the analytic
+    hypergeometric expectation: deterministic, no resampling; ``seed`` is
+    unused, as in the reference)."""
+    from scipy.special import gammaln
+
+    def logc(a, b):
+        return gammaln(a + 1) - gammaln(b + 1) - gammaln(a - b + 1)
+
+    c = _counts(counts).astype(np.float64)
+    n = c.sum()
+    out = []
+    for d in depths:
+        d = min(int(d), int(n))
+        if d <= 0 or n <= 0:
+            out.append((d, 0.0))
+            continue
+        # E[S_d] = sum_i (1 - C(n - c_i, d) / C(n, d)), by log-gammas.
+        with np.errstate(all="ignore"):
+            term = np.where(n - c >= d,
+                            np.exp(logc(n - c, d) - logc(n, d)), 0.0)
+        out.append((d, float((1.0 - term).sum())))
+    return out
+
+
+def bray_curtis(a, b) -> float:
+    """Bray-Curtis dissimilarity between two count vectors (same length)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    denom = a.sum() + b.sum()
+    if denom == 0:
+        return 0.0
+    return float(np.abs(a - b).sum() / denom)
 
 
 def sample_stats(counts) -> dict:

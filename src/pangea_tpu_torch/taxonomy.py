@@ -92,6 +92,37 @@ class Taxonomy:
     def num_taxa(self) -> int:
         return self.parent.shape[0] - 1
 
+    def is_ancestor_or_self(self, a, t):
+        """Vectorized ancestor-or-self test per SEMANTICS.md §6."""
+        a = np.asarray(a)
+        t = np.asarray(t)
+        return (self.tin[a] <= self.tin[t]) & (self.tin[t] < self.tout[a])
+
+    def lca(self, a: int, b: int) -> int:
+        """LCA of two taxa by walking up; 0 acts as identity (SEMANTICS.md
+        §6)."""
+        if a == 0:
+            return int(b)
+        if b == 0:
+            return int(a)
+        da, db = int(self.depth[a]), int(self.depth[b])
+        while da > db:
+            a = int(self.parent[a])
+            da -= 1
+        while db > da:
+            b = int(self.parent[b])
+            db -= 1
+        while a != b:
+            a = int(self.parent[a])
+            b = int(self.parent[b])
+        return int(a)
+
+    def lca_many(self, taxa) -> int:
+        out = 0
+        for t in taxa:
+            out = self.lca(out, int(t))
+        return out
+
     def lca_pairs_np(self, u, v) -> np.ndarray:
         """Vectorized pairwise LCA by binary lifting (SEMANTICS.md §6); 0
         acts as identity. Used by the index builder to LCA-fold duplicate
@@ -136,8 +167,25 @@ class Taxonomy:
             self._up_cache = up
         return up
 
+    def ancestors(self, t: int) -> list[int]:
+        """Root→t path, inclusive."""
+        path = []
+        while True:
+            path.append(t)
+            if t == 1:
+                break
+            t = int(self.parent[t])
+        return path[::-1]
+
+    def rank_name(self, t: int) -> str:
+        return RANK_NAMES[int(self.rank[t])]
+
     def name(self, t: int) -> str:
         return self.names[t]
+
+    @classmethod
+    def from_tables(cls, parent, rank, names) -> "Taxonomy":
+        return cls(parent=parent, rank=rank, names=list(names))
 
     # ------------------------------------------------------------- loaders
     @classmethod

@@ -11,8 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from pangea_tpu.golden import (GoldenResult, classify_read_golden,
-                               classify_reads_golden, merge_multik_golden)
 from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
@@ -24,6 +22,9 @@ from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
                                        merge_multik_plain, pad_batch)
+from pangea_tpu_torch.golden import (GoldenResult, classify_read_golden,
+                                     classify_reads_golden,
+                                     merge_multik_golden)
 from pangea_tpu_torch.index import relayout_q8, relayout_q12
 from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.index.quot import Q12_WAYS
@@ -631,13 +632,18 @@ def _lineage_lanes(tax, B, R, seed):
     return taxon, t_in, t_out, valid
 
 
-@pytest.mark.parametrize("B,R", [(40, 2049), (70, 16364), (6, 32728)],
-                         ids=["2049", "16364_shared", "32728_scratch"])
+@pytest.mark.parametrize("B,R", [(300, 32), (200, 260), (40, 2049),
+                                 (70, 16364), (6, 32728)],
+                         ids=["32_ranked", "260_ranked", "2049",
+                              "16364_shared", "32728_scratch"])
 @pytest.mark.parametrize("tree", [None, (64, 40)], ids=["direct",
                                                         "lifting"])
-def test_score_ranked_kernel_matches_plain(cuda, tree, B, R):
+def test_score_ranked_kernel_matches_plain(cuda, monkeypatch, tree, B, R):
     """K8 in both forms, with the direct LCA and with K5's lifting, at two
-    thresholds, its sort in shared memory and in the device scratch."""
+    thresholds, its sort in shared memory and in the device scratch; at R
+    = 32 and 260 under PANGEA_PSCORE=ranked (K8 at every R)."""
+    if R <= MAX_PROBES:
+        monkeypatch.setenv("PANGEA_PSCORE", "ranked")
     tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
     taxon, t_in, t_out, valid = _lineage_lanes(tax, B, R, seed=R)
     for lanes, taxon_lanes in ((taxon, True),
@@ -1601,3 +1607,39 @@ def test_k2_generic_body_off_16_bytes(cuda, name):
                       *((f.shape[1],) if q12 else ()), on[4].data_ptr(),
                       on[4].shape[1], k, None, None,
                       *(o.data_ptr() for o in outs), *plan)
+
+
+@pytest.mark.parametrize("k,env,layout,ways,kernel", [
+    (21, {"PANGEA_LAYOUT": "std"}, "std", 16, "lookup_std"),
+    (21, {"PANGEA_Q8_WAYS": "32"}, "q8", 32, "lookup_q8"),
+    (31, {"PANGEA_LAYOUT": "q12", "PANGEA_Q12_WAYS": "30"}, "q12", 30,
+     "lookup_q12")], ids=["std_on_q8_index", "q8_w32", "q12_w30"])
+def test_layout_knobs_on_the_card_match_plain_and_golden(
+        cuda, monkeypatch, k, env, layout, ways, kernel):
+    """PANGEA_LAYOUT=std on an index the auto policy puts in q8 (K4), and
+    q8 at 32 and q12 at 30 slots a row (K2's generic body: its plan's
+    specialised width 0; the q12 rows padded to 128 lanes): the Classifier
+    launches the layout's kernel and equals the plain path and golden."""
+    from pangea_tpu_torch.kernels.lookup import quot_plan
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    tax, genomes, idx, rs = small_world(k=k, seed=2, genome_len=3000,
+                                        n_reads=256, read_len=120,
+                                        paired=True, w=8 if k == 21 else 1)
+    di = DeviceIndex.from_index(idx, cuda, 0.05)
+    assert (di.cfg.layout, di.cfg.ways) == (layout, ways)
+    if layout != "std":
+        assert di.fused.shape[1] == (2 * ways if layout == "q8" else 128)
+        assert quot_plan(1 << 16, ways, di.stash.shape[1], layout == "q12",
+                         False, 132).spec == 0
+    b1, b2 = (torch.from_numpy(pad_batch(s, 256, 120)).to(cuda)
+              for s in (rs.seqs, rs.mates))
+    reset_kernel_launches()
+    got = Classifier(di)(b1, b2)
+    assert kernel_launches()[kernel] == 1
+    want = classify_reads(di.tables, b1, di.cfg, mate_bases=b2, plain=True)
+    for key in ("taxon", "best", "nvalid"):
+        assert torch.equal(want[key], got[key])
+    gold = classify_reads_golden(rs.seqs, idx, 0.05, mates=rs.mates)
+    assert got["taxon"].cpu().tolist() == [g.taxon for g in gold]
+    assert got["nvalid"].cpu().tolist() == [g.nvalid for g in gold]
