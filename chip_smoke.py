@@ -22,12 +22,12 @@ probes by bucket, then the sorted form of K2 (or K4) probes them; phases
 24-28 drive config 3's sharded index, phases 29-31 the repository's
 Pallas experiments (B16: K11-K13) through the port's `experiments` entry
 points, and phases 32-35 config 5's cohort run (trim, demux, resume and
-report) on the deep index. The CLI runs of phases 5, 5b-5d, 9, 13, 18,
+report) on the deep index. The CLI runs of phases 5, 5b, 5c, 9, 13, 18,
 22, 28, 32 and 33 take the fast path (the native reader, built with g++
-from the checkout), phases 17's and 34's the general path (its launch/drain
-pipeline, PANGEA_INFLIGHT batches in flight). Each main step (phases 4, 8,
-12 and 21) is held on its first GOLDEN_READS reads to the port's golden
-model (pangea_tpu_torch.golden, the reference bench's parity check):
+from the checkout), phases 17's and 34's the general path. Each main
+step (phases 4, 8, 12 and 21) is held on its first GOLDEN_READS reads to
+the port's golden model (pangea_tpu_torch.golden, the reference bench's
+parity check):
 
   1. device check: torch and CUDA versions, the card's name and power limit;
   2. build: one nvcc a source of src/pangea_tpu_torch/csrc, all at once,
@@ -64,13 +64,9 @@ model (pangea_tpu_torch.golden, the reference bench's parity check):
  5b. the same CLI at PANGEA_INFLIGHT 1 and 8 (the fast path's drain queue;
      phase 5 ran its default, 4): files byte for byte phase 5's, reads/s
      at each depth;
- 5c. the same CLI under PANGEA_LAYOUT=std (K4 on an index the auto policy
-     puts in q8), PANGEA_Q8_WAYS=32 (K2's generic body: the table laid out
-     at 32 slots a row in this process too, its plan's spec 0) and
-     PANGEA_PSCORE=ranked (K8 on the 32-probe pairs), run at once with
-     5d: lines equal to phase 5's, the kernel each knob selects launched;
- 5d. PANGEA_PROFILE on the same CLI: the Chrome trace written, naming K1's,
-     K2's and K3's kernels;  6. torch.profiler over back-to-back q8 steps: the device time of each
+ 5c. PANGEA_PROFILE on the same CLI: its lines equal to phase 5's, the
+     Chrome trace written, naming K1's, K2's and K3's kernels;
+  6. torch.profiler over back-to-back q8 steps: the device time of each
      kernel (and a JSON line of it by kernel) and the device's busy share
      of the wall;
   7. K1 at w=1 on the std world's pairs, timed beside its bound (its
@@ -117,8 +113,6 @@ model (pangea_tpu_torch.golden, the reference bench's parity check):
      sorted in a device scratch), q8 and taxon forms, with the direct LCA
      (the headline's 67-taxon tree) and K5's lifting (66,563 taxa), at two
      thresholds, and on scorer worlds of U = 1, 8, 64 and R at each shape;
-     K8 also at R = 32 (8,192 reads) and 260 (16,384) under
-     PANGEA_PSCORE=ranked, timed beside K3 on the same lanes;
      K1's packed form on the headline pairs as the native
      reader packs them (w=8 and w=1), held to its plain version and to K1
      on the codes, and timed at both w beside its bound;
@@ -128,11 +122,9 @@ model (pangea_tpu_torch.golden, the reference bench's parity check):
      through the Classifier: launch counts (K8 at 2,400 bases and more, K3
      below), the outputs against the plain path and the planted lineage,
      each bucket's step time;
- 17. the CLI on that FASTQ with input.long_reads=true (the general path),
-     at PANGEA_INFLIGHT 2 (its default) and 4 (17b): its lines against
-     phase 16's, truncated_reads (reads past 16,384 bases), the two runs'
-     files byte for byte alike, reads/s at each depth beside the serial
-     loop's figure, and host time by phase;
+ 17. the CLI on that FASTQ with input.long_reads=true (the general path):
+     its lines against phase 16's, truncated_reads (reads past 16,384
+     bases), reads/s and host time by phase;
  18. the CLI on that FASTQ on the fast path: every read past 150 bases cut
      and counted, the 8,192 short reads' lines against phase 17's;
  19. the deep world built with `python -m pangea_tpu_torch.cli build` from
@@ -215,8 +207,7 @@ model (pangea_tpu_torch.golden, the reference bench's parity check):
      files byte for byte the whole run's, the manifest's paths aside; the
      resume's wall and reads/s;
  34. the general path (PANGEA_NO_NATIVE) on the cohort's first 65,536
-     reads: each sample's lines equal to phase 32's for those reads, its
-     reads/s beside the serial loop's figure;
+     reads: each sample's lines equal to phase 32's for those reads;
  35. `cli report` on phase 32's assignment files: its summaries, cohort
      table and stats.json byte for byte the run's;
  36. the launch summary.
@@ -333,20 +324,6 @@ C3_READS = 1_048_576
 THRESHOLDS = (0.0, 0.05)
 # The golden model holds each main step on its first GOLDEN_READS reads.
 GOLDEN_READS = 2048
-# K8 at the main paths' short-read shapes under PANGEA_PSCORE=ranked: (probes
-# a read, reads): the headline's 32-probe pairs, the wide std world's 260;
-# their scorer worlds of chosen U at RANKED_U_READS reads.
-RANKED_SMALL = ((32, 8192), (260, 16384))
-RANKED_U_READS = 1024
-# The general path's reads/s with one batch in flight (launch, fetch, write
-# and read in series): the long-read CLI and config 5's general run on an
-# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's.
-SERIAL_GENERAL_RPS = {"long": 27903.8, "cohort": 25090.8}
-# The headline CLI under the run knobs (phase 5c), run at once: the layout,
-# the q8 width, the pscore form, and the profiler's trace (phase 5d).
-KNOB_RUNS = {"layout_std": {"PANGEA_LAYOUT": "std"},
-             "q8_ways32": {"PANGEA_Q8_WAYS": "32"},
-             "pscore_ranked": {"PANGEA_PSCORE": "ranked"}}
 # The CUDA kernels of K1, K2 and K3 by name, as a trace shows them.
 TRACE_KERNELS = ("extract_probes_kernel", "lookup_quot_kernel",
                  "score_kernel")
@@ -755,7 +732,7 @@ def check_score(torch, res: Results, name: str, what: str, args, tax,
                                           score_ranked, score_reads_plain,
                                           score_reads_taxon, score_reads_tin,
                                           score_winners, score_winners_plain)
-    from pangea_tpu_torch.kernels.score import takes_ranked
+    from pangea_tpu_torch.kernels.score import MAX_PROBES
     R = args[0].shape[1]
     form = "taxon" if taxon_lanes else "q8"
     reset_general_reads()
@@ -763,7 +740,7 @@ def check_score(torch, res: Results, name: str, what: str, args, tax,
               score_winners_plain(*args, taxon_lanes),
               score_winners(*args, taxon_lanes))
     for thr in THRESHOLDS:
-        if takes_ranked(R):
+        if R > MAX_PROBES:
             got = score_ranked(*args, tax, thr, taxon_lanes)
         elif taxon_lanes:
             got = score_reads_taxon(*args, tax, thr)
@@ -1077,12 +1054,12 @@ def phase_step(torch, world, card: str, tag: str, want_launches: dict,
     return out
 
 
-def start_cli(world, tag: str, reads: list, mates: list | None = None,
-              extra=(), batch: int = CLI_BATCH, env=None) -> dict:
-    """Start `python -m pangea_tpu_torch.cli classify` on the world's
-    config file and indexes (written by the port's Index.save, once a
-    world), with ``env`` added to the environment; :func:`finish_cli`
-    waits for it."""
+def run_cli(world, tag: str, reads: list, mates: list | None = None,
+            extra=(), batch: int = CLI_BATCH, env=None) -> tuple[dict, list]:
+    """`python -m pangea_tpu_torch.cli classify` on the world's config
+    file and indexes (written by the port's Index.save, once a world),
+    with ``env`` added to the environment; returns the run's result line
+    and its assignment lines, split."""
     work = ROOT / "build" / "chip_smoke" / world["name"]
     if "idx_dirs" not in world:
         shutil.rmtree(work, ignore_errors=True)
@@ -1100,31 +1077,18 @@ def start_cli(world, tag: str, reads: list, mates: list | None = None,
            "--out", str(out_dir), "--device", "cuda",
            f"input.batch_size={batch}", *extra]
     full_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
-    return {"tag": tag, "out": out_dir, "t0": time.time(), "env": env,
-            "proc": subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True,
-                                     env=full_env, cwd=ROOT)}
-
-
-def finish_cli(run: dict) -> tuple[dict, list]:
-    """Wait for a CLI run of :func:`start_cli`: its result line and its
-    assignment lines, split."""
-    tag, out_dir = run["tag"], run["out"]
-    try:
-        stdout, stderr = run["proc"].communicate(timeout=900)
-    finally:
-        if run["proc"].poll() is None:
-            run["proc"].kill()
-            run["proc"].wait()
-    if run["proc"].returncode != 0:
-        raise AssertionError(f"the CLI ({tag}) returned "
-                             f"{run['proc'].returncode}:\n{stderr[-4000:]}")
-    result = json.loads(stdout.strip().splitlines()[-1])
-    env = f" with {json.dumps(run['env'])}" if run["env"] else ""
-    log(f"[{tag}] CLI process{env} in {time.time() - run['t0']:.1f} s: "
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=full_env,
+                          cwd=ROOT, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI ({tag}) returned {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    with_env = f" with {json.dumps(env)}" if env else ""
+    log(f"[{tag}] CLI process{with_env} in {time.time() - t0:.1f} s: "
         f"{json.dumps(result)}")
     how = ("threads of the fast path, overlapping" if result["fast_path"]
-           else "the general path's loop and its prefetch thread")
+           else "the general path's one loop")
     log(f"[{tag}] CLI host time by phase ({how}): " + ", ".join(
         f"{k} {v} s ({100 * v / result['wall_sec']} % of the wall)"
         for k, v in result["host_sec"].items()))
@@ -1134,12 +1098,6 @@ def finish_cli(run: dict) -> tuple[dict, list]:
     rows = [line.split("\t") for line in
             (out_dir / "smoke.assign.tsv").read_text().splitlines()]
     return result, rows
-
-
-def run_cli(world, tag: str, reads: list, mates: list | None = None,
-            extra=(), batch: int = CLI_BATCH, env=None) -> tuple[dict, list]:
-    """A CLI run of :func:`start_cli` to its end."""
-    return finish_cli(start_cli(world, tag, reads, mates, extra, batch, env))
 
 
 def same_files(a: Path, b: Path) -> list:
@@ -1229,61 +1187,30 @@ def phase_inflight_clis(world, fastq: tuple, card: str) -> dict:
     return launches
 
 
-def phase_knob_clis(torch, world, fastq: tuple) -> dict:
-    """Phases 5c and 5d: the headline CLI under KNOB_RUNS and under
-    PANGEA_PROFILE, the four processes at once: each run's lines equal
-    phase 5's, and the kernel each knob selects launched (K4 under
-    PANGEA_LAYOUT=std; K2 at 32 slots a row, its generic body; K8 on the
-    32-probe pairs under PANGEA_PSCORE=ranked); the profiler's trace
-    written and naming K1's, K2's and K3's kernels. Returns the runs'
-    launches."""
-    from pangea_tpu_torch.classify import DeviceIndex
-    from pangea_tpu_torch.kernels.lookup import quot_plan
+def phase_profile_cli(world, fastq: tuple) -> dict:
+    """Phase 5c: the headline CLI under PANGEA_PROFILE: its lines equal
+    phase 5's, and the profiler's trace written and naming K1's, K2's and
+    K3's kernels. Returns the run's launches."""
     _, rows5 = world["cli"]
-    with mock.patch.dict(os.environ, {"PANGEA_Q8_WAYS": "32"}):
-        di = DeviceIndex.from_index(world["idx"], world["di"].fused.device)
-    plan = quot_plan(CLI_BATCH * 32, di.cfg.ways, di.stash.shape[1], False,
-                     False, torch.cuda.get_device_properties(0)
-                     .multi_processor_count)
-    log(f"[5c] PANGEA_Q8_WAYS=32 lays the headline index out as "
-        f"{di.cfg.layout} rows of {di.cfg.ways} slots "
-        f"{tuple(di.fused.shape)}; K2's plan {plan} (spec 0: the generic "
-        f"body)")
-    if (di.cfg.layout, di.cfg.ways, di.fused.shape[1], plan.spec) != (
-            "q8", 32, 64, 0):
-        raise AssertionError("PANGEA_Q8_WAYS=32 did not reach the table")
-    del di
-    trace_dir = ROOT / "build" / "chip_smoke" / "profile5d"
+    trace_dir = ROOT / "build" / "chip_smoke" / "profile5c"
     shutil.rmtree(trace_dir, ignore_errors=True)
-    envs = {**KNOB_RUNS, "profile": {"PANGEA_PROFILE": str(trace_dir)}}
-    runs = {name: start_cli(world, f"5c-{name}", [fastq[0]], [fastq[1]],
-                            env=env) for name, env in envs.items()}
-    want = {"layout_std": ("lookup_std", "score_taxon"),
-            "q8_ways32": ("lookup_q8", "score_tin"),
-            "pscore_ranked": ("lookup_q8", "score_ranked"),
-            "profile": ("lookup_q8", "score_tin")}
-    launches = {}
-    for name, run in runs.items():
-        result, rows = finish_cli(run)
-        kl = result["kernel_launches"]
-        others = {k: v for k, v in kl.items()
-                  if v and k not in ("extract_packed", *want[name])}
-        log(f"[5c] {name}: lines unlike phase 5's: "
-            f"{sum(a != b for a, b in zip(rows, rows5))} of {len(rows)}; "
-            f"kernels launched: {json.dumps(kl)}")
-        if rows != rows5 or others or min(
-                kl[k] for k in ("extract_packed", *want[name])) < 1:
-            raise AssertionError(f"the headline CLI under {name} is wrong")
-        launches[name] = kl
+    result, rows = run_cli(world, "5c-profile", [fastq[0]], [fastq[1]],
+                           env={"PANGEA_PROFILE": str(trace_dir)})
+    kl = result["kernel_launches"]
+    log(f"[5c] lines unlike phase 5's: "
+        f"{sum(a != b for a, b in zip(rows, rows5))} of {len(rows)}")
+    if rows != rows5:
+        raise AssertionError("the headline CLI under PANGEA_PROFILE is "
+                             "wrong")
     trace = trace_dir / "trace_rank0.json"
     text = trace.read_text() if trace.exists() else ""
     named = {k: text.count(k) for k in TRACE_KERNELS}
-    log(f"[5d] PANGEA_PROFILE: {trace} ({len(text)} B) names "
+    log(f"[5c] PANGEA_PROFILE: {trace} ({len(text)} B) names "
         f"{json.dumps(named)}")
     if not json.loads(text or "{}").get("traceEvents") \
             or min(named.values()) < 1:
         raise AssertionError("the profiler's trace lacks a kernel")
-    return launches
+    return {"profile": kl}
 
 
 def phase_profile(torch, world, card: str, tag: str, steps: int) -> None:
@@ -1899,29 +1826,6 @@ def phase_ranked_kernels(torch, wide, cuda, res: Results) -> None:
             bound_ms, by = bound(nbytes, ops)
             log(f"[15] score_ranked R={R} x {B}: kernel {ms} ms, plain "
                 f"{plain_ms} ms, bound {bound_ms} ms ({by})")
-    # K8 at every R under PANGEA_PSCORE=ranked: the main paths' short
-    # reads, beside K3 on the same lanes.
-    for R, B in RANKED_SMALL:
-        with mock.patch.dict(os.environ, {"PANGEA_PSCORE": "ranked"}):
-            for name, tax in trees.items():
-                taxon, t_in, t_out, valid = lineage_lanes(torch, tax, B, R,
-                                                          g)
-                for taxon_lanes in (True, False):
-                    lanes = (taxon if taxon_lanes
-                             else (taxon != 0).to(torch.int32))
-                    check_score(torch, res, "score_ranked",
-                                f"15 PANGEA_PSCORE=ranked R={R} x {B}, "
-                                f"{name}", (lanes, t_in, t_out, valid), tax,
-                                taxon_lanes)
-            check_u_worlds(torch, res, "score_ranked", "15 ranked",
-                           RANKED_U_READS, R, (True, False), cuda)
-            args = (taxon, t_in, t_out, valid)
-            ms = time_ms(torch, lambda: score_winners(*args, True),
-                         PIPELINED)
-        k3_ms = time_ms(torch, lambda: score_winners(*args, True), PIPELINED)
-        log(f"[15] R={R} x {B}, taxon lanes of the 66,563-taxon tree: K8 "
-            f"(PANGEA_PSCORE=ranked) {ms} ms, K3 {k3_ms} ms, bound "
-            f"{bound(B * R * 13 + B * 24, score_ops(*args[:3]))[0]} ms")
     res.assert_clean(("score_ranked",))
 
 
@@ -1993,48 +1897,30 @@ def phase_long_step(torch, wide, cuda, card: str, mix) -> dict:
     return outs
 
 
-def phase_long_cli(wide, mix, outs: dict, long_fastq: str, card: str):
+def phase_long_cli(wide, mix, outs: dict, long_fastq: str):
     """The CLI's general path (input.long_reads=true) on the long-read
-    FASTQ, at PANGEA_INFLIGHT 2 (its default) and 4: its lines against
-    phase 16's outputs, truncated_reads against the reads past MAX_LONG
-    bases, the two runs' files byte for byte alike; reads/s at each depth.
-    Returns the launches of each run and the lines."""
-    runs = {}
-    for depth in (2, 4):
-        tag = "17" if depth == 2 else "17b-inflight4"
-        result, rows = run_cli(wide, tag, [long_fastq],
-                               extra=["input.long_reads=true",
-                                      f"input.max_long_read_len={MAX_LONG}"],
-                               env=None if depth == 2 else
-                               {"PANGEA_INFLIGHT": str(depth)})
-        launches = result["kernel_launches"]
-        cut = sum(len(s) > MAX_LONG for s in mix.seqs)
-        if result["fast_path"] or result["truncated_reads"] != cut \
-                or launches["score_ranked"] < 1 or launches["extract_packed"]:
-            raise AssertionError(f"the long-read CLI run is wrong (want "
-                                 f"{cut} truncated): {json.dumps(result)}")
-        bad = sum(
-            (r[1], int(r[2]), r[5]) != (
-                rid, int(outs["taxon"][i]),
-                f"{int(outs['best'][i])}/{int(outs['nvalid'][i])}")
-            for i, (r, rid) in enumerate(zip(rows, mix.ids)))
-        log(f"[{tag}] {len(rows)} lines, {result['truncated_reads']} reads "
-            f"cut at {MAX_LONG} bases; lines vs phase 16: mismatches {bad}; "
-            f"{result['reads_per_sec']} reads/s at PANGEA_INFLIGHT={depth}")
-        if len(rows) != len(mix.ids) or bad:
-            raise AssertionError("the long-read CLI's assignments are wrong")
-        runs[depth] = (result, launches, rows,
-                       ROOT / "build" / "chip_smoke" / wide["name"]
-                       / f"out{tag}")
-    bad = same_files(runs[2][3], runs[4][3])
-    log(f"[17b] the general path's reads/s on {card}: "
-        f"{runs[2][0]['reads_per_sec']} at PANGEA_INFLIGHT=2, "
-        f"{runs[4][0]['reads_per_sec']} at 4 (one batch in flight before "
-        f"the pipeline: {SERIAL_GENERAL_RPS['long']} on an NVIDIA H100 "
-        f"80GB HBM3 at 700 W); files unlike between the depths: {bad}")
-    if bad:
-        raise AssertionError("the general path's files differ by depth")
-    return runs[2][1], runs[4][1], runs[2][2]
+    FASTQ: its lines against phase 16's outputs, truncated_reads against
+    the reads past MAX_LONG bases. Returns its launches and lines."""
+    result, rows = run_cli(wide, "17", [long_fastq],
+                           extra=["input.long_reads=true",
+                                  f"input.max_long_read_len={MAX_LONG}"])
+    launches = result["kernel_launches"]
+    cut = sum(len(s) > MAX_LONG for s in mix.seqs)
+    if result["fast_path"] or result["truncated_reads"] != cut \
+            or launches["score_ranked"] < 1 or launches["extract_packed"]:
+        raise AssertionError(f"the long-read CLI run is wrong (want "
+                             f"{cut} truncated): {json.dumps(result)}")
+    bad = sum(
+        (r[1], int(r[2]), r[5]) != (
+            rid, int(outs["taxon"][i]),
+            f"{int(outs['best'][i])}/{int(outs['nvalid'][i])}")
+        for i, (r, rid) in enumerate(zip(rows, mix.ids)))
+    log(f"[17] {len(rows)} lines, {result['truncated_reads']} reads cut at "
+        f"{MAX_LONG} bases; lines vs phase 16: mismatches {bad}; "
+        f"{result['reads_per_sec']} reads/s")
+    if len(rows) != len(mix.ids) or bad:
+        raise AssertionError("the long-read CLI's assignments are wrong")
+    return launches, rows
 
 
 def phase_fast_long_cli(wide, mix, rows17: list, long_fastq: str) -> dict:
@@ -3247,10 +3133,8 @@ def phase_cohort_general(deep: dict, whole: dict) -> dict:
             for s, rows in whole["rows"].items()}
     bad = sum(files.get(s, []) != rows for s, rows in want.items())
     log(f"[34] general path: {result['reads_in']} reads, "
-        f"{result['reads_kept']} kept, {result['reads_per_sec']} reads/s "
-        f"(one batch in flight before the pipeline: "
-        f"{SERIAL_GENERAL_RPS['cohort']} on an NVIDIA H100 80GB HBM3 at 700 "
-        f"W); samples whose lines differ from the fast path's: {bad}")
+        f"{result['reads_kept']} kept, {result['reads_per_sec']} reads/s; "
+        f"samples whose lines differ from the fast path's: {bad}")
     if result["fast_path"] or bad or set(files) != {
             s for s, rows in want.items() if rows}:
         raise AssertionError("the general path differs from the fast path")
@@ -3335,7 +3219,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     check_golden("4", out, q8["idxs"], q8["reads"], 0.0)
     q8_cli = phase_cli(q8, out, "5", fastq)
     knob_clis = {**phase_inflight_clis(q8, fastq, card),
-                 **phase_knob_clis(torch, q8, fastq)}
+                 **phase_profile_cli(q8, fastq)}
     phase_profile(torch, q8, card, "6", PROFILE_STEPS["q8"])
     del q8
 
@@ -3380,8 +3264,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     long_fastq = str(ROOT / "build" / "chip_smoke" / "long.fastq")
     datagen.write_fastq(long_fastq, mix, mate=1)
     outs = phase_long_step(torch, wide, cuda, card, mix)
-    long_cli, long_cli4, rows17 = phase_long_cli(wide, mix, outs,
-                                                 long_fastq, card)
+    long_cli, rows17 = phase_long_cli(wide, mix, outs, long_fastq)
     fast_long_cli = phase_fast_long_cli(wide, mix, rows17, long_fastq)
 
     # Phases 19-23: the deep-table path on the deep world.
@@ -3419,7 +3302,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
     # deep steps' (phase 21), the multi-rank steps' (phase 26), the
     # experiment entry points' (phase 31) and the cohort runs' (32-34).
     clis = {"q8": q8_cli, **knob_clis, "std": std_cli, "multik": c4_cli,
-            "long": long_cli, "long_inflight4": long_cli4,
+            "long": long_cli,
             "fast_long": fast_long_cli, "deep": deep_cli,
             "deep_q12_step": deep["launches"]["q12"],
             "deep_std_step": deep["launches"]["std"], "mesh": mesh,
@@ -3429,10 +3312,6 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             ("q8", ("extract_packed", "lookup_q8", "score_tin")),
             ("fast_inflight1", ("extract_packed", "lookup_q8", "score_tin")),
             ("fast_inflight8", ("extract_packed", "lookup_q8", "score_tin")),
-            ("layout_std", ("extract_packed", "lookup_std", "score_taxon")),
-            ("q8_ways32", ("extract_packed", "lookup_q8", "score_tin")),
-            ("pscore_ranked", ("extract_packed", "lookup_q8",
-                               "score_ranked")),
             ("profile", ("extract_packed", "lookup_q8", "score_tin")),
             ("std", ("extract_packed", "lookup_std", "score_taxon",
                      "lca_lift")),
@@ -3440,8 +3319,6 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
                         "score_tin", "merge_multik")),
             ("long", ("extract_probes", "lookup_std", "score_taxon",
                       "score_ranked", "lca_lift")),
-            ("long_inflight4", ("extract_probes", "lookup_std",
-                                "score_taxon", "score_ranked", "lca_lift")),
             ("fast_long", ("extract_packed", "lookup_std", "score_taxon",
                            "lca_lift")),
             ("deep", ("extract_packed", "bucket_sort", "lookup_q8_sorted",
@@ -3466,7 +3343,7 @@ def run_phases(torch, cuda, card: str, deep: dict, t_start: float) -> int:
             raise AssertionError(f"the {path} path bypassed a kernel: "
                                  f"{clis[path]}")
     launches = {k: sum(c[k] for c in clis.values()) for k in KERNELS}
-    log(f"[36] kernel launches of the fourteen CLI runs, the two deep steps, "
+    log(f"[36] kernel launches of the ten CLI runs, the two deep steps, "
         f"the multi-rank steps, the two experiment entry points and the "
         f"three cohort runs: {json.dumps(clis)}; whole run "
         f"{time.time() - t_start:.1f} s")

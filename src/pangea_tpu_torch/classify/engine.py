@@ -26,7 +26,6 @@ that on CUDA tensors its scorer's launch merges (K7).
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -94,15 +93,9 @@ class DeviceIndex:
         """Lay shard ``shard_id`` of an index split ``n_shards`` ways out as
         the device table :func:`~pangea_tpu_torch.index.pick_layout`
         chooses for it (q8, q12 or std; ``layout`` requests one, as the
-        reference's ``layout=`` does, and None reads ``PANGEA_LAYOUT``,
-        "auto" when unset) and place it on ``device``: the
+        reference's ``layout=`` does) and place it on ``device``: the
         slice of the reference's [S, ...] tables that a rank of a mesh
-        with S shards holds (``place_index``, ``dist/mesh.py:79``). The
-        q8 and q12 bucket widths are ``PANGEA_Q8_WAYS`` and
-        ``PANGEA_Q12_WAYS`` (default ``Q8_WAYS``, ``Q12_WAYS``), which
-        the layout policy, the relayouts and the streaming placement all
-        take, as in the reference; K2 runs its specialised body at 64 and
-        42 slots a row and its generic body at any other width.
+        with S shards holds (``place_index``, ``dist/mesh.py:79``).
 
         ``index`` is an :class:`~pangea_tpu_torch.index.Index` or a
         :class:`~pangea_tpu_torch.index.ShardedIndex`. A sharded index of
@@ -115,17 +108,13 @@ class DeviceIndex:
         places every shard, which then reads every shard's count). Any
         other index is laid out whole and sliced."""
         tax = index.taxonomy
-        q8_ways = int(os.environ.get("PANGEA_Q8_WAYS", Q8_WAYS))
-        q12_ways = int(os.environ.get("PANGEA_Q12_WAYS", Q12_WAYS))
         layout = pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
                              int(tax.tout.max(initial=0)),
-                             requested=layout or os.environ.get(
-                                 "PANGEA_LAYOUT", "auto"),
-                             q8_ways=q8_ways, q12_ways=q12_ways)
+                             requested=layout or "auto")
         streaming = (isinstance(index, ShardedIndex)
                      and index.meta.n_shards == n_shards)
         if layout in ("q8", "q12"):
-            ways = q8_ways if layout == "q8" else q12_ways
+            ways = Q8_WAYS if layout == "q8" else Q12_WAYS
             if streaming:
                 fused, stash3 = _stream_quot(index, shard_id, layout, ways,
                                              agree)

@@ -1,10 +1,9 @@
-// K8: the per-read score by ranks: of long reads (R > 2048 probes), and of
-// reads of any R under PANGEA_PSCORE=ranked.
+// K8: the per-read score of long reads (R > 2048 probes), by ranks.
 //
 // Replaces the XLA-compiled reference function
 //   src/pangea_tpu/kernels/score.py:71  _pscore_ranked (B11)
-// as _score_impl :176 runs it for the long-read buckets, or at any R
-// under PANGEA_PSCORE=ranked (chosen at :105-124), in both of K3's forms. The reference sorts [B, R] tin and tout
+// as _score_impl :176 runs it for the long-read buckets (chosen at
+// :105-124), in both of K3's forms. The reference sorts [B, R] tin and tout
 // arrays with lax.sort and ranks every probe with two searchsorted calls:
 // pscore_i = #{j hit : tin_j <= tin_i} - #{j hit : tout_j <= tin_i}, which
 // is K3's #{j hit : tin_j <= tin_i < tout_j} wherever every hit's tin_j <
@@ -34,6 +33,7 @@
 
 namespace {
 
+constexpr int kMinR = 2049;          // K3 scores R <= 2048
 
 // Ascending bitonic sort of a[0, n) and c[0, n) together (n a power of
 // two), by the group; ends with the group's barrier.
@@ -122,7 +122,7 @@ struct Ranked {
 
 }  // namespace
 
-// K3's contract (pangea_score in score_tin.cu) for any R >= 1, with rpad (a
+// K3's contract (pangea_score in score_tin.cu) for R > 2048, with rpad (a
 // power of two >= R) and scratch: null to sort in 12 * rpad bytes of shared
 // memory a read, else int32 [B, 3, rpad] in device memory.
 extern "C" int pangea_score_ranked(
@@ -135,7 +135,7 @@ extern "C" int pangea_score_ranked(
     const void* m_parent, const void* m_depth, const void* m_up,
     int m_levels, int m_T1, int wpr, int rpb, int cap, int per_read,
     int rpad, void* scratch, void* stream) {
-  if (R < 1 || rpad < R || (rpad & (rpad - 1)) != 0) {
+  if (R < kMinR || rpad < R || (rpad & (rpad - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ScoreArgs a =

@@ -92,18 +92,21 @@ with the sections asked for (all by default):
   also the deep
   q8 and q12 steps on 16,384 single-end reads and the std step on 65,536,
   sorted (the reference's gate) and with ``PANGEA_DEEP_SORT=0``;
-- ``cli``: with ``--cli DIR``, the ``classify`` CLI's general path as a
-  user runs it (``python -m pangea_tpu_torch.cli`` processes on the
-  card, the checkout's own), CLI_REPS runs at ``PANGEA_INFLIGHT`` 2 (the
-  general path's default) and 4 each: the long-read FASTQ (the headline
-  world's first CLI_LONG[0] first mates and CLI_LONG[1] genome slices of
-  1-20 kb, ``input.long_reads=true``, batches of 8,192) on the headline
-  q8 index, and config 5's file with its trim and demux on CLI_COHORT
-  reads of ``bench.cohort_fastq`` on the headline genomes
-  (``PANGEA_NO_NATIVE``, batches of CLI_COHORT_BATCH); each run's
+- ``cli``: with ``--cli DIR``, the ``classify`` CLI as a user runs it
+  (``python -m pangea_tpu_torch.cli`` processes on the card, the
+  checkout's own), CLI_REPS runs of each workload: on the general path,
+  the long-read FASTQ (the headline world's first CLI_LONG[0] first
+  mates and CLI_LONG[1] genome slices of 1-20 kb,
+  ``input.long_reads=true``, batches of 8,192) on the headline q8 index
+  and config 5's file with its trim and demux on CLI_COHORT reads of
+  ``bench.cohort_fastq`` on the headline genomes (``PANGEA_NO_NATIVE``,
+  batches of CLI_COHORT_BATCH); on the fast path, CLI_STD pairs of the
+  std world (``WIDE``) in batches of BATCH, and CLI_DEEP single-end reads
+  of the deep world (its k=21, w=1 index built into DIR, the q8 layout
+  and the sorted lookup) in batches of BATCH; each run's
   ``reads_per_sec``, ``wall_sec`` and ``host_sec``. The inputs and the
-  index are written into DIR by the first run and read by later ones, so
-  that every checkout classifies the same files;
+  indexes are written into DIR by the first run and read by later ones,
+  so that every checkout classifies the same files;
 - with ``--split``, ``split``: the block copy's host time a call in parts,
   by ``time.perf_counter_ns`` over SPLIT_CALLS calls: the whole call; the
   wrapper's checks, plan and ``torch.empty``; the device guard and stream
@@ -145,11 +148,13 @@ LINEAGE_TAXA, SCORE_SEED = 4, 15
 PROFILED = 20            # calls the profiler's device time is taken over
 SECTIONS = ("k1", "block_copy", "k2", "k4", "sort", "rowprobe", "score",
             "tail", "steps", "cli")
-# The cli section: runs at each in-flight depth; the long-read FASTQ's short
-# and long reads; the cohort's reads and its batch.
+# The cli section: runs of each workload; the long-read FASTQ's short and
+# long reads; the cohort's reads and its batch; the std pairs; the deep
+# reads.
 CLI_REPS = 2
 CLI_LONG = (32768, 2048)
 CLI_COHORT, CLI_COHORT_BATCH = 262144, 65536
+CLI_STD, CLI_DEEP = 131072, 65536
 Q8_LIFT = {"k": 21, "w": 1, "tree": (64, 40)}
 # K1's shapes: (name, k, w, packed) on the bench's 16,384 first mates, and
 # the long-read bucket's reads, length and seed.
@@ -802,12 +807,16 @@ def time_steps(torch, dev, deep: Path | None) -> dict:
 
 
 def cli_inputs(cache: Path) -> dict:
-    """The cli section's index and FASTQs in ``cache``, written once."""
+    """The cli section's indexes and FASTQs in ``cache``, written once."""
     from pangea_tpu_torch.bench import (cohort_barcodes, cohort_fastq,
+                                        deep_genomes, deep_reads,
                                         long_read_mix, make_bench_world)
+    from pangea_tpu_torch.index import build_index
     from pangea_tpu_torch.utils import datagen
     paths = {"idx": cache / "idx", "long": cache / "long.fastq",
-             "cohort": cache / "cohort.fastq"}
+             "cohort": cache / "cohort.fastq", "std_idx": cache / "std_idx",
+             "std": (cache / "std_1.fastq", cache / "std_2.fastq"),
+             "deep_idx": cache / "deep_idx", "deep": cache / "deep.fastq"}
     if not (cache / "done").exists():
         cache.mkdir(parents=True, exist_ok=True)
         bw = make_bench_world(n_reads=CLI_LONG[0], read_len=READ_LEN,
@@ -817,6 +826,14 @@ def cli_inputs(cache: Path) -> dict:
                             1_000, 20_000, 16)
         datagen.write_fastq(str(paths["long"]), mix, mate=1)
         cohort_fastq(str(paths["cohort"]), bw.genomes, CLI_COHORT, 4)
+        sw = make_bench_world(n_reads=CLI_STD, read_len=READ_LEN, **WIDE)
+        sw.index.save(str(paths["std_idx"]))
+        for mate, path in enumerate(paths["std"], 1):
+            datagen.write_fastq(str(path), sw.reads, mate=mate)
+        tax, genomes = deep_genomes()
+        build_index(genomes, tax, k=21, w=1).save(str(paths["deep_idx"]))
+        datagen.write_fastq(str(paths["deep"]),
+                            deep_reads(genomes, CLI_DEEP, READ_LEN), mate=1)
         (cache / "done").write_text("")
     paths["barcodes"] = [[f"sample{i}", bc]
                          for i, bc in enumerate(cohort_barcodes(4))]
@@ -824,8 +841,8 @@ def cli_inputs(cache: Path) -> dict:
 
 
 def time_cli(cache: Path) -> dict:
-    """The general path's CLI runs of the ``cli`` section: reads/s, wall
-    and host time by phase of each run, by workload and depth."""
+    """The CLI runs of the ``cli`` section: reads/s, wall and host time by
+    phase of each run, by workload."""
     import os
     import shutil
     import subprocess
@@ -840,33 +857,34 @@ def time_cli(cache: Path) -> dict:
                    str(paths["cohort"]),
                    f"input.batch_size={CLI_COHORT_BATCH}", "trim.min_qual=20",
                    "trim.window=4", "trim.min_len=60", "demux.max_mismatch=1",
-                   "demux.barcodes=" + json.dumps(paths["barcodes"])]}
+                   "demux.barcodes=" + json.dumps(paths["barcodes"])],
+        "std": ["--index", str(paths["std_idx"]), "--reads",
+                str(paths["std"][0]), "--mates", str(paths["std"][1]),
+                f"input.batch_size={BATCH}"],
+        "deep": ["--index", str(paths["deep_idx"]), "--reads",
+                 str(paths["deep"]), f"input.batch_size={BATCH}"]}
+    general = {"long", "cohort"}
     out = {}
     for name, args in runs.items():
-        for depth in (2, 4):
-            rows = []
-            for rep in range(CLI_REPS):
-                out_dir = cache / f"out_{name}_{depth}_{rep}"
-                shutil.rmtree(out_dir, ignore_errors=True)  # no resume
-                env = dict(os.environ, PANGEA_INFLIGHT=str(depth),
-                           **({"PANGEA_NO_NATIVE": "1"} if name == "cohort"
-                              else {}))
-                proc = subprocess.run(
-                    [sys.executable, "-m", "pangea_tpu_torch.cli",
-                     "classify", *args, "--out", str(out_dir), "--device",
-                     "cuda"], capture_output=True, text=True, env=env,
-                    timeout=900)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"cli {name} at {depth}:\n"
-                                       f"{proc.stderr[-3000:]}")
-                r = json.loads(proc.stdout.strip().splitlines()[-1])
-                if r["fast_path"]:
-                    raise RuntimeError(f"cli {name} took the fast path")
-                rows.append({"reads_per_sec": r["reads_per_sec"],
-                             "wall_sec": r["wall_sec"],
-                             "reads": r["reads_in"],
-                             "host_sec": r["host_sec"]})
-            out[f"{name}_inflight{depth}"] = rows
+        rows = []
+        for rep in range(CLI_REPS):
+            out_dir = cache / f"out_{name}_{rep}"
+            shutil.rmtree(out_dir, ignore_errors=True)      # no resume
+            env = dict(os.environ, **({"PANGEA_NO_NATIVE": "1"}
+                                      if name == "cohort" else {}))
+            proc = subprocess.run(
+                [sys.executable, "-m", "pangea_tpu_torch.cli", "classify",
+                 *args, "--out", str(out_dir), "--device", "cuda"],
+                capture_output=True, text=True, env=env, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"cli {name}:\n{proc.stderr[-3000:]}")
+            r = json.loads(proc.stdout.strip().splitlines()[-1])
+            if r["fast_path"] == (name in general):
+                raise RuntimeError(f"cli {name}: fast_path {r['fast_path']}")
+            rows.append({"reads_per_sec": r["reads_per_sec"],
+                         "wall_sec": r["wall_sec"], "reads": r["reads_in"],
+                         "host_sec": r["host_sec"]})
+        out[name] = rows
     return out
 
 
@@ -980,8 +998,8 @@ def main(argv=None) -> int:
                     help="time K2, K4, K9, K10 and the deep steps on the "
                          "deep world, its index in DIR")
     ap.add_argument("--cli", type=Path, default=None,
-                    help="time the general path's CLI runs, their inputs "
-                         "in DIR")
+                    help="time the classify CLI's runs, their inputs in "
+                         "DIR")
     ap.add_argument("--split", action="store_true",
                     help="split the block copy's host time into parts")
     ap.add_argument("--sections", default=",".join(SECTIONS),

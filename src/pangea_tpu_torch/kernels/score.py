@@ -20,16 +20,9 @@ taxonomy arrays of its merge, the read's call is merged with it as
 ``pangea_tpu/classify/merge.py`` ``merge_multik_jnp`` merges two calls,
 the earlier one as res1 (the multi-k step's fold).
 
-``PANGEA_PSCORE`` picks the form as the reference's ``_pscore`` reads it
-(:func:`takes_ranked`): ``auto`` (the default) as above, ``quad`` the
-quadratic count at every R (past MAX_PROBES it raises, where the reference
-would run its chunked quadratic form), and ``ranked`` (or any other value)
-the sort-rank form at every R.
-
 On CUDA tensors :func:`score_reads_tin` and :func:`score_reads_taxon` run
-kernel K3 (``csrc/score_tin.cu``) where the quadratic form is taken and K8
-(``csrc/score_ranked.cu``, counted on :func:`score_ranked`) where the
-ranked one is: by default up to MAX_PROBES probes and above, one
+kernel K3 (``csrc/score_tin.cu``) up to MAX_PROBES probes and K8
+(``csrc/score_ranked.cu``, counted on :func:`score_ranked`) above, one
 launch whatever the tail: the direct scan, the lifted LCA (K5, counted on
 :func:`lca_lift`) and the merge (K7, counted on :func:`merge_multik`) run
 in the launch's tail (``csrc/common.cuh`` ``score_tail``). On CPU tensors
@@ -48,7 +41,6 @@ the shared memory.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import torch
@@ -83,24 +75,6 @@ SCORE_SMEM_MAX = 232448 - 4096
 # A block of one-warp reads takes at most this many of them, so that an SM
 # holds four such blocks.
 SCORE_BLOCK_SMEM = SCORE_SMEM_MAX // 4
-
-
-def takes_ranked(R: int) -> bool:
-    """Whether reads of R probes take the sort-rank pscore (K8) rather
-    than the quadratic count (K3), by ``PANGEA_PSCORE`` as the reference's
-    ``_pscore`` reads it: ``auto`` (the default) past MAX_PROBES, ``quad``
-    never (past MAX_PROBES it raises: K3 scores at most MAX_PROBES probes a
-    read), any other value (``ranked``) always."""
-    impl = os.environ.get("PANGEA_PSCORE", "auto")
-    if impl == "auto":
-        return R > MAX_PROBES
-    if impl == "quad":
-        if R > MAX_PROBES:
-            raise ValueError(f"PANGEA_PSCORE=quad: reads of {R} probes; the "
-                             f"quadratic scorer (K3) takes at most "
-                             f"{MAX_PROBES} probes a read")
-        return False
-    return True
 
 
 class ScorePlan(NamedTuple):
@@ -140,12 +114,11 @@ def score_cap(R: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def score_plan(B: int, R: int, sms: int, cap: int | None = None,
-               ranked: bool | None = None) -> ScorePlan:
+def score_plan(B: int, R: int, sms: int, cap: int | None = None
+               ) -> ScorePlan:
     """The scorer's launch for B reads of R probes on a card of ``sms``
-    SMs, with a table of ``cap`` distinct intervals (None: score_cap(R)),
-    for K8 if ``ranked`` (None: R > MAX_PROBES), else for K3.
-    K3 gives a read one warp and a block SCORE_READS
+    SMs, with a table of ``cap`` distinct intervals (None: score_cap(R)).
+    K3 (R <= MAX_PROBES) gives a read one warp and a block SCORE_READS
     reads where B fills the card with SCORE_SM_WARPS warps an SM, else
     enough warps a read (a power of two, at most one a 32-probe chunk and
     32) and one read a block; K8 gives a read a block of RANKED_WARPS. A
@@ -160,8 +133,7 @@ def score_plan(B: int, R: int, sms: int, cap: int | None = None,
     if B < 0 or R < 1 or sms < 1 or not 1 <= cap <= SCORE_MAX_CAP:
         raise ValueError(f"B={B}, R={R}, sms={sms}, cap={cap}")
     chunks = -(-R // 32)
-    if ranked is None:
-        ranked = R > MAX_PROBES
+    ranked = R > MAX_PROBES
     if ranked:
         warps = RANKED_WARPS
     else:
@@ -220,7 +192,7 @@ def score_winners_plain(lanes, t_in, t_out, valid, taxon_lanes: bool):
     node ids (q8: 1 if the read has a winner, else 0) and tins (INT_MAX and
     -2 without a winner), the best pscore and the valid-probe count."""
     hit = lanes != 0
-    pscore_fn = (pscore_ranked_plain if takes_ranked(lanes.shape[1])
+    pscore_fn = (pscore_ranked_plain if lanes.shape[1] > MAX_PROBES
                  else _pscore_plain)
     pscore = torch.where(hit, pscore_fn(t_in, t_out, hit), 0)
     best = pscore.max(dim=1).values
@@ -439,7 +411,7 @@ def _tail_tensors(tax: dict | None, prior) -> list:
 def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
                   tax: dict | None = None, thr: float = 0.0, prior=None,
                   plan: ScorePlan | None = None):
-    """One launch of K3 or K8 (:func:`takes_ranked`). Without ``tax``, the
+    """One launch of K3 (R <= MAX_PROBES) or K8. Without ``tax``, the
     winners form (u, v, tin_u, tin_v, best, nvalid); with it, (taxon, best,
     nvalid) by the direct LCA up to DIRECT_LCA_MAX_TAXA taxa, else by the
     lifted one (K5), merged with ``prior`` where given (K7; as
@@ -476,12 +448,12 @@ def _launch_score(dev, lanes, t_in, t_out, valid, taxon_lanes: bool,
         merge = (*(call[k].data_ptr() for k in _KEYS),
                  *(merge_tax[n].data_ptr() for n in _MERGE),
                  merge_tax["up"].shape[0], mT1)
-    ranked = takes_ranked(R) if plan is None else plan.rpad > 0
     if plan is None:
-        plan = score_plan(B, R, _build.sm_count(dev.index), ranked=ranked)
+        plan = score_plan(B, R, _build.sm_count(dev.index))
     out = torch.empty((6 if tax is None else 3, B), dtype=torch.int32,
                       device=dev)
     ptrs = [o.data_ptr() for o in out] + [0] * (6 - out.shape[0])
+    ranked = R > MAX_PROBES
     fn = score_ranked if ranked else (score_reads_taxon if taxon_lanes
                                       else score_reads_tin)
     scratch = (torch.empty((B, 3, plan.rpad), dtype=torch.int32, device=dev)
@@ -552,17 +524,15 @@ def score_reads_taxon(taxon, t_in, t_out, valid, tax: dict,
 def score_ranked(lanes, t_in, t_out, valid, tax: dict,
                  confidence_threshold: float, taxon_lanes: bool,
                  prior=None):
-    """Score reads that take the ranked pscore (:func:`takes_ranked`: the
-    long-read buckets past MAX_PROBES probes, any R under
-    PANGEA_PSCORE=ranked): the plain version for CPU tensors, kernel K8 for
-    CUDA tensors, its tail as :func:`score_reads_tin`'s. Same contract as
+    """Score reads of more than MAX_PROBES probes (the long-read buckets):
+    the plain version for CPU tensors, kernel K8 for CUDA tensors, its
+    tail as :func:`score_reads_tin`'s. Same contract as
     :func:`score_reads_plain`. Every K8 launch counts here, also those of
     :func:`score_reads_tin`, :func:`score_reads_taxon` and
-    :func:`score_winners` that take the ranked form."""
-    if lanes.dim() != 2 or not takes_ranked(lanes.shape[1]):
+    :func:`score_winners` past MAX_PROBES."""
+    if lanes.dim() != 2 or lanes.shape[1] <= MAX_PROBES:
         raise ValueError(f"lanes {tuple(lanes.shape)}: the ranked scorer "
-                         f"takes more than {MAX_PROBES} probes a read, or "
-                         f"any under PANGEA_PSCORE=ranked")
+                         f"takes more than {MAX_PROBES} probes a read")
     return _score(lanes, t_in, t_out, valid, tax, confidence_threshold,
                   taxon_lanes, prior)
 

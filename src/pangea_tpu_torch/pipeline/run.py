@@ -37,20 +37,20 @@ Like ``run_classify`` (its lines 729-734), it takes one of two loops:
 - the general path, when ``input.long_reads`` is true, ``PANGEA_NO_NATIVE``
   is set or a barcode is longer than 32 bases: batches of ReadBatches
   (``io.fastx.read_batches``, whole reads; or, for the long barcodes
-  alone, the native reader's ``read_batches_native``), parsed on a
-  prefetch thread (two batches ahead), trimmed (``io/trim.py``) and
-  demultiplexed (``io/demux.py``) read by read, each sample's part
-  launched in turn: reads of up to L bases as one [n, L] batch, longer
-  ones exactly, in power-of-two length buckets L * 2^j up to
-  max(``input.max_long_read_len``, L), max(64, B * L // Lj) reads a
-  launch (reads past that cap are cut to it, counted and warned about).
-  A launched batch's outputs stay on the device in an in-flight deque of
-  ``PANGEA_INFLIGHT`` batches (at least and by default 2, the
-  reference's); when it is full the oldest batch is drained (its outputs
-  fetched back into input order, written, fsync'd, then recorded by the
-  manifest), and at the end every batch left, oldest first. The fast
-  path's drain queue holds ``PANGEA_INFLIGHT`` batches too (by default
-  4, at least 1).
+  alone, the native reader's ``read_batches_native``), trimmed
+  (``io/trim.py``) and demultiplexed (``io/demux.py``) read by read, each
+  sample's part launched in turn: reads of up to L bases as one [n, L]
+  batch, longer ones exactly, in power-of-two length buckets L * 2^j up
+  to max(``input.max_long_read_len``, L), max(64, B * L // Lj) reads a
+  launch (reads past that cap are cut to it, counted and warned about);
+  the outputs go back to input order, and each batch's lines are fsync'd
+  before the manifest records it. The reference overlaps this loop (a
+  prefetch thread, ``PANGEA_INFLIGHT`` batches' outputs left on the
+  device); the port runs it in series and ignores the variable here
+  (ROADMAP.md §C).
+
+The fast path's drain queue holds ``PANGEA_INFLIGHT`` launched batches
+(by default DRAIN_DEPTH, at least 1), as the reference's does.
 
 A launch holds only the rows that remain: a batch or part left with none
 launches nothing, yet still writes its ``metrics.jsonl`` line and its
@@ -62,10 +62,9 @@ The returned metrics carry the reference's ``run_summary.json`` keys
 (``reads_in``, ``reads_kept``, ``reads_filtered``, ``indexes``,
 ``device_reads_per_sec``, ``compile_sec`` ...) and ``fast_path``,
 ``truncated_reads``, ``kernel_launches`` and ``host_sec``, the host time
-by phase: ``parse`` (the reader; on the general path the wait on its
-prefetch thread), ``trim`` (trim, filter, demultiplex and strip), ``step``
-(the copy to the device and the launches; on the general path also the
-copies back, which wait for the device), ``write`` (the
+by phase: ``parse`` (the reader), ``trim`` (trim, filter, demultiplex and
+strip), ``step`` (the copy to the device and the launches; on the general
+path also the copies back, which wait for the device), ``write`` (the
 assignment lines), ``sync`` (the fsyncs and manifest commits) and, on the
 general path, ``pad`` (bucketing and the padded batches), all of its one
 loop, or, on the fast path, ``fetch`` (the copy back, which waits for the
@@ -87,7 +86,6 @@ import queue
 import sys
 import threading
 import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -115,10 +113,7 @@ from ..taxonomy import Taxonomy
 from .checkpoint import Manifest
 
 LONG_BUCKET_ROWS = 64        # the least reads a long-read launch holds
-# Launched batches that may await the drain (PANGEA_INFLIGHT): the fast
-# path's default, and the general path's default and least.
-DRAIN_DEPTH = 4
-GENERAL_DEPTH = 2
+DRAIN_DEPTH = 4              # launched batches that may await the drain
 _END = object()
 
 
@@ -420,12 +415,6 @@ def _end_batch(state: dict, item: dict, n_cls: int, line_args) -> None:
         print(f"[classify] {line}", file=sys.stderr)
 
 
-def _inflight(default: int, least: int) -> int:
-    """The in-flight depth ``PANGEA_INFLIGHT`` sets (the reference's
-    reading: ``default`` when unset, at least ``least``)."""
-    return max(int(os.environ.get("PANGEA_INFLIGHT", str(default))), least)
-
-
 def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                  state: dict) -> None:
     out_dir = cfg.classify.out_dir
@@ -434,9 +423,7 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
     resume, manifest = cfg.classify.resume, state["manifest"]
     trim_cfg, demux_cfg = state["trim"], state["demux"]
     host_sec = state["host_sec"]
-    depth = _inflight(GENERAL_DEPTH, GENERAL_DEPTH)
-    inflight: deque = deque()
-    gauge = _ReadyGauge(skip=depth)
+    gauge = _ReadyGauge(skip=2)
     state["gauge"] = gauge
     sinks: dict = {}
     mark = [time.perf_counter()]
@@ -446,55 +433,21 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
         host_sec[phase] += now - mark[0]
         mark[0] = now
 
-    def launch_part(part) -> list:
-        """A part's launches, bucketed: [(reads, outputs left on the
-        device)]."""
+    def run_part(part) -> dict:
+        """A part's outputs in input order, its launches bucketed."""
         launches, cut = bucket_batch(part.seqs, part.mate_seqs, B, L,
                                      max_long)
         state["truncated"] += cut
         lap("pad")
-        outs = [(sub, launch(torch.from_numpy(bases).to(device),
-                             None if mates is None
-                             else torch.from_numpy(mates).to(device)))
-                for sub, bases, mates in launches]
+        res = {k: np.zeros(len(part), np.int32) for k in OUT_KEYS}
+        for sub, bases, mates in launches:
+            out = launch(torch.from_numpy(bases).to(device),
+                         None if mates is None
+                         else torch.from_numpy(mates).to(device))
+            for k in OUT_KEYS:
+                res[k][sub] = out[k].cpu().numpy()
         lap("step")
-        return outs
-
-    def drain_one() -> None:
-        """The oldest batch in flight: its outputs fetched into input
-        order, written, fsync'd and recorded in the manifest."""
-        item = inflight.popleft()
-        t_drain = time.time()
-        done_parts = []
-        for sample, ids, outs in item["parts"]:
-            res = {k: np.zeros(len(ids), np.int32) for k in OUT_KEYS}
-            for sub, out in outs:
-                for k in OUT_KEYS:
-                    res[k][sub] = out[k].cpu().numpy()
-            done_parts.append((sample, ids, res))
-        lap("step")
-        gap = gauge.tick(item["n_in"])
-        n_cls, offsets = 0, {}
-        for sample, ids, res in done_parts:
-            n_cls += _count(state, sample, res["taxon"])
-            if not state["write"]:
-                continue
-            if sample not in sinks:
-                sinks[sample] = _SampleSink(out_dir, sample, tax, resume,
-                                            manifest)
-            sinks[sample].write(
-                AssignmentRecord(ids[i], int(res["taxon"][i]),
-                                 int(res["best"][i]), int(res["nvalid"][i]))
-                for i in range(len(ids)))
-            lap("write")
-            offsets[sinks[sample].path] = sinks[sample].offset()
-            lap("sync")
-        if state["write"]:
-            manifest.record_batch(item["fpath"], item["n_in"], offsets)
-            lap("sync")
-        _end_batch(state, item, n_cls, (time.time() - item["t0"],
-                                        time.time() - t_drain, gap))
-        lap("write")
+        return res
 
     try:
         for fpath, mpath, fsample in inputs:
@@ -505,7 +458,7 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                        if state["use_native"] else
                        read_batches(fpath, B, mate_path=mpath,
                                     sample=fsample))
-            for batch in _prefetch(batches):
+            for batch in batches:
                 lap("parse")
                 n_in = len(batch)
                 if skipped + n_in <= done:         # resume: a done batch
@@ -526,19 +479,36 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                 parts = (demux_batch(batch, demux_cfg) if demux_cfg
                          else {fsample: batch})
                 lap("trim")
-                launched = [(sample, part.ids, launch_part(part))
-                            for sample, part in sorted(parts.items())
-                            if len(part)]
-                inflight.append({"fpath": fpath, "n_in": n_in,
-                                 "n_kept": n_kept, "t0": t0,
-                                 "t_launch": time.time() - t0,
-                                 "parts": launched})
-                # The manifest records batches in order: the oldest first.
-                if len(inflight) >= depth:
-                    drain_one()
+                done_parts = [(sample, part.ids, run_part(part))
+                              for sample, part in sorted(parts.items())
+                              if len(part)]
+                item = {"fpath": fpath, "n_in": n_in, "n_kept": n_kept,
+                        "t_launch": time.time() - t0}
+                t_drain = time.time()
+                gap = gauge.tick(n_in)
+                n_cls, offsets = 0, {}
+                for sample, ids, res in done_parts:
+                    n_cls += _count(state, sample, res["taxon"])
+                    if not state["write"]:
+                        continue
+                    if sample not in sinks:
+                        sinks[sample] = _SampleSink(out_dir, sample, tax,
+                                                    resume, manifest)
+                    sinks[sample].write(
+                        AssignmentRecord(ids[i], int(res["taxon"][i]),
+                                         int(res["best"][i]),
+                                         int(res["nvalid"][i]))
+                        for i in range(len(ids)))
+                    lap("write")
+                    offsets[sinks[sample].path] = sinks[sample].offset()
+                    lap("sync")
+                if state["write"]:
+                    manifest.record_batch(fpath, n_in, offsets)
+                    lap("sync")
+                _end_batch(state, item, n_cls,
+                           (time.time() - t0, time.time() - t_drain, gap))
+                lap("write")
             lap("parse")                  # the read files' last, empty read
-        while inflight:
-            drain_one()
     finally:
         for fh in sinks.values():
             fh.close()
@@ -624,7 +594,8 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
     blobs = TaxBlobs(tax)
     sample_paths = state["sample_paths"]
     appended: set = set()
-    depth = _inflight(DRAIN_DEPTH, 1)
+    depth = max(int(os.environ.get("PANGEA_INFLIGHT", str(DRAIN_DEPTH))),
+                1)
     drain_q: queue.Queue = queue.Queue(maxsize=depth)
     gauge = _ReadyGauge(skip=depth)
     state["gauge"] = gauge

@@ -632,18 +632,13 @@ def _lineage_lanes(tax, B, R, seed):
     return taxon, t_in, t_out, valid
 
 
-@pytest.mark.parametrize("B,R", [(300, 32), (200, 260), (40, 2049),
-                                 (70, 16364), (6, 32728)],
-                         ids=["32_ranked", "260_ranked", "2049",
-                              "16364_shared", "32728_scratch"])
+@pytest.mark.parametrize("B,R", [(40, 2049), (70, 16364), (6, 32728)],
+                         ids=["2049", "16364_shared", "32728_scratch"])
 @pytest.mark.parametrize("tree", [None, (64, 40)], ids=["direct",
                                                         "lifting"])
-def test_score_ranked_kernel_matches_plain(cuda, monkeypatch, tree, B, R):
+def test_score_ranked_kernel_matches_plain(cuda, tree, B, R):
     """K8 in both forms, with the direct LCA and with K5's lifting, at two
-    thresholds, its sort in shared memory and in the device scratch; at R
-    = 32 and 260 under PANGEA_PSCORE=ranked (K8 at every R)."""
-    if R <= MAX_PROBES:
-        monkeypatch.setenv("PANGEA_PSCORE", "ranked")
+    thresholds, its sort in shared memory and in the device scratch."""
     tax = ref_datagen.make_taxonomy(2, *(tree or (8, 3)), seed=0)
     taxon, t_in, t_out, valid = _lineage_lanes(tax, B, R, seed=R)
     for lanes, taxon_lanes in ((taxon, True),
@@ -1609,34 +1604,20 @@ def test_k2_generic_body_off_16_bytes(cuda, name):
                       *(o.data_ptr() for o in outs), *plan)
 
 
-@pytest.mark.parametrize("k,env,layout,ways,kernel", [
-    (21, {"PANGEA_LAYOUT": "std"}, "std", 16, "lookup_std"),
-    (21, {"PANGEA_Q8_WAYS": "32"}, "q8", 32, "lookup_q8"),
-    (31, {"PANGEA_LAYOUT": "q12", "PANGEA_Q12_WAYS": "30"}, "q12", 30,
-     "lookup_q12")], ids=["std_on_q8_index", "q8_w32", "q12_w30"])
-def test_layout_knobs_on_the_card_match_plain_and_golden(
-        cuda, monkeypatch, k, env, layout, ways, kernel):
-    """PANGEA_LAYOUT=std on an index the auto policy puts in q8 (K4), and
-    q8 at 32 and q12 at 30 slots a row (K2's generic body: its plan's
-    specialised width 0; the q12 rows padded to 128 lanes): the Classifier
-    launches the layout's kernel and equals the plain path and golden."""
-    from pangea_tpu_torch.kernels.lookup import quot_plan
-    for name, value in env.items():
-        monkeypatch.setenv(name, value)
-    tax, genomes, idx, rs = small_world(k=k, seed=2, genome_len=3000,
+def test_requested_std_layout_on_the_card_matches_plain_and_golden(cuda):
+    """layout="std" on an index the auto policy puts in q8: the Classifier
+    launches K4 and equals the plain path and golden."""
+    tax, genomes, idx, rs = small_world(k=21, seed=2, genome_len=3000,
                                         n_reads=256, read_len=120,
-                                        paired=True, w=8 if k == 21 else 1)
-    di = DeviceIndex.from_index(idx, cuda, 0.05)
-    assert (di.cfg.layout, di.cfg.ways) == (layout, ways)
-    if layout != "std":
-        assert di.fused.shape[1] == (2 * ways if layout == "q8" else 128)
-        assert quot_plan(1 << 16, ways, di.stash.shape[1], layout == "q12",
-                         False, 132).spec == 0
+                                        paired=True, w=8)
+    assert DeviceIndex.from_index(idx, cuda, 0.05).cfg.layout == "q8"
+    di = DeviceIndex.from_index(idx, cuda, 0.05, layout="std")
+    assert di.cfg.layout == "std"
     b1, b2 = (torch.from_numpy(pad_batch(s, 256, 120)).to(cuda)
               for s in (rs.seqs, rs.mates))
     reset_kernel_launches()
     got = Classifier(di)(b1, b2)
-    assert kernel_launches()[kernel] == 1
+    assert kernel_launches()["lookup_std"] == 1
     want = classify_reads(di.tables, b1, di.cfg, mate_bases=b2, plain=True)
     for key in ("taxon", "best", "nvalid"):
         assert torch.equal(want[key], got[key])

@@ -1,10 +1,12 @@
 """The reference's run knobs on the port's classify CLI, against the JAX CLI
 under the same environment, byte for byte (CPU): the in-flight depth
-(``PANGEA_INFLIGHT``) of the general path's launch/drain pipeline and of
-the fast path's drain queue, a resume mid-run, the layout
-(``PANGEA_LAYOUT``) and bucket widths (``PANGEA_Q8_WAYS``,
-``PANGEA_Q12_WAYS``), the pscore form (``PANGEA_PSCORE``); and the
-port's own ``PANGEA_PROFILE`` trace and ``PANGEA_IO_LIB`` library."""
+(``PANGEA_INFLIGHT``) of the fast path's drain queue, a resume mid-run,
+and the port's own ``PANGEA_PROFILE`` trace and ``PANGEA_IO_LIB``
+library. The port ignores the reference's general-path depth, layout
+(``PANGEA_LAYOUT``), bucket widths (``PANGEA_Q8_WAYS``,
+``PANGEA_Q12_WAYS``) and pscore form (``PANGEA_PSCORE``) (ROADMAP.md
+§C): under each its files still equal the JAX CLI's, since every layout
+is exact and both pscore forms agree."""
 import json
 import shutil
 
@@ -17,8 +19,8 @@ from pangea_tpu_torch import cli
 from pangea_tpu_torch.classify import DeviceIndex
 from pangea_tpu_torch.index import load_index_any
 from pangea_tpu_torch.io import native
-from pangea_tpu_torch.kernels.score import (MAX_PROBES, score_winners_plain,
-                                            takes_ranked)
+from pangea_tpu_torch.index.quot import Q8_WAYS
+from pangea_tpu_torch.kernels.score import MAX_PROBES, score_winners_plain
 from pangea_tpu_torch.pipeline import run
 
 from .helpers import small_world
@@ -64,9 +66,10 @@ def _same(ref, out):
 @pytest.mark.parametrize("case", ["demux_trim", "pairs"])
 def test_general_path_inflight_depth_byte_identical(world, tmp_path,
                                                     monkeypatch, depth, case):
-    """The general path (PANGEA_NO_NATIVE) at PANGEA_INFLIGHT 2, 3 and 8,
-    on 900 reads in batches of 64 and on 300 pairs in batches of 32: every
-    file, and the records' counts."""
+    """The general path (PANGEA_NO_NATIVE) under PANGEA_INFLIGHT 2, 3 and
+    8, which the port ignores there and the reference honours, on 900
+    reads in batches of 64 and on 300 pairs in batches of 32: every file,
+    and the records' counts."""
     monkeypatch.setenv("PANGEA_NO_NATIVE", "1")
     monkeypatch.setenv("PANGEA_INFLIGHT", depth)
     if case == "demux_trim":
@@ -93,9 +96,9 @@ def test_fast_path_inflight_depth_byte_identical(world, tmp_path,
 
 
 def test_general_resume_mid_run_at_depth_4(world, tmp_path, monkeypatch):
-    """A general-path run at PANGEA_INFLIGHT=4 rolled back into its fifth
-    batch (files torn past it), then resumed at depth 4: the files equal
-    the JAX CLI's uninterrupted run."""
+    """A general-path run under PANGEA_INFLIGHT=4 rolled back into its
+    fifth batch (files torn past it), then resumed: the files equal the
+    JAX CLI's uninterrupted run at depth 4."""
     monkeypatch.setenv("PANGEA_NO_NATIVE", "1")
     monkeypatch.setenv("PANGEA_INFLIGHT", "4")
     args = _args(world, "x3.fastq", extra=[*TRIM, DEMUX,
@@ -114,12 +117,12 @@ def test_general_resume_mid_run_at_depth_4(world, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("depth", [2, 3])
-def test_general_path_launches_ahead_of_the_drain(world, tmp_path,
-                                                  monkeypatch, depth):
-    """At depth d the general path launches batch i + d - 1 before it
-    drains batch i, never holds more than d batches in flight, and drains
-    them in order: the launch and drain order recorded through the
-    launcher and the metrics line."""
+def test_general_path_drains_each_batch_before_the_next(world, tmp_path,
+                                                        monkeypatch, depth):
+    """Under any PANGEA_INFLIGHT the port's general path runs in series:
+    it drains batch i before it launches batch i + 1, in order (the
+    launch and drain order recorded through the launcher and the metrics
+    line; ROADMAP.md §C)."""
     monkeypatch.setenv("PANGEA_NO_NATIVE", "1")
     monkeypatch.setenv("PANGEA_INFLIGHT", str(depth))
     events = []
@@ -139,13 +142,7 @@ def test_general_path_launches_ahead_of_the_drain(world, tmp_path,
     assert cli.main(_args(world, "x3.fastq") + [
         "--out", str(tmp_path / "out"), "--device", "cpu"]) == 0
     n = -(-900 // 64)
-    assert events.count("launch") == events.count("drain") == n
-    launched_n = drained_n = 0
-    for e in events:
-        launched_n += e == "launch"
-        drained_n += e == "drain"
-        assert launched_n - drained_n <= depth
-    assert events[:depth + 1] == ["launch"] * depth + ["drain"]
+    assert events == ["launch", "drain"] * n
     batches = [json.loads(x)["batch"] for x in
                (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
     assert batches == list(range(1, n + 1))
@@ -170,7 +167,8 @@ LAYOUTS = {
 def test_layout_ways_and_pscore_byte_identical(world, tmp_path, monkeypatch,
                                                case, general):
     """PANGEA_LAYOUT where the layout is exact, the q8 and q12 widths and
-    the pscore forms, on the pairs, each through both CLIs."""
+    the pscore forms, on the pairs, each through both CLIs: the reference
+    honours each, the port ignores it, and the files agree."""
     index, env = LAYOUTS[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -182,53 +180,65 @@ def test_layout_ways_and_pscore_byte_identical(world, tmp_path, monkeypatch,
     assert ps["fast_path"] is not general
 
 
-def test_layout_knob_reaches_the_device_tables(world, monkeypatch):
-    """The knobs set the port's tables: the layout asked for, and the q8
-    and q12 widths in the rows."""
-    idx, idx31 = (load_index_any(str(world / n)) for n in ("idx", "idx31"))
+def test_layout_knobs_leave_the_device_tables_as_auto(world, monkeypatch):
+    """The port's tables under the layout knobs: the auto policy's layout
+    at Q8_WAYS slots a row; the ``layout`` argument still requests one."""
+    idx = load_index_any(str(world / "idx"))
     cpu = torch.device("cpu")
-    assert DeviceIndex.from_index(idx, cpu).cfg.layout == "q8"
-    for layout in ("std", "q8", "q12"):
-        monkeypatch.setenv("PANGEA_LAYOUT", layout)
-        assert DeviceIndex.from_index(idx, cpu).cfg.layout == layout
-    assert DeviceIndex.from_index(idx, cpu, layout="std").cfg.layout == "std"
-    monkeypatch.setenv("PANGEA_LAYOUT", "q8")
+    monkeypatch.setenv("PANGEA_LAYOUT", "std")
     monkeypatch.setenv("PANGEA_Q8_WAYS", "32")
     di = DeviceIndex.from_index(idx, cpu)
-    assert (di.cfg.ways, di.fused.shape[1]) == (32, 64)
-    monkeypatch.setenv("PANGEA_LAYOUT", "q12")
-    monkeypatch.setenv("PANGEA_Q12_WAYS", "30")
-    di = DeviceIndex.from_index(idx31, cpu)
-    assert (di.cfg.ways, di.fused.shape[1]) == (30, 128)
+    assert (di.cfg.layout, di.cfg.ways) == ("q8", Q8_WAYS)
+    for layout in ("std", "q8", "q12"):
+        assert DeviceIndex.from_index(idx, cpu,
+                                      layout=layout).cfg.layout == layout
 
 
 @pytest.mark.parametrize("layout,index", [("q8", "idx31"), ("dense", "idx")])
 def test_inexact_or_unknown_layout_raises_as_reference(world, tmp_path,
                                                        monkeypatch, layout,
                                                        index):
-    """q8 at k=31 (its remainder past 31 bits) and an unknown layout: the
-    same ValueError from both CLIs."""
+    """q8 at k=31 (its remainder past 31 bits) and an unknown layout:
+    asked for by ``layout``, the port raises the reference CLI's
+    ValueError under PANGEA_LAYOUT; the port's CLI ignores the variable
+    and writes the JAX CLI's files without it."""
     monkeypatch.setenv("PANGEA_LAYOUT", layout)
-    args = _args(world, index=index)
+    args = _args(world, index=index) + ["mesh.n_data=1", "mesh.n_shard=1"]
     with pytest.raises(ValueError) as want:
-        ref_cli.main(args + ["--out", str(tmp_path / "ref")])
+        ref_cli.main(args + ["--out", str(tmp_path / "ref_env")])
     with pytest.raises(ValueError) as got:
-        cli.main(args + ["--out", str(tmp_path / "out"), "--device", "cpu"])
+        DeviceIndex.from_index(load_index_any(str(world / index)),
+                               torch.device("cpu"), layout=layout)
     assert str(got.value) == str(want.value)
+    monkeypatch.delenv("PANGEA_LAYOUT")
+    assert ref_cli.main(args + ["--out", str(tmp_path / "out")]) == 0
+    shutil.move(str(tmp_path / "out"), str(tmp_path / "ref"))
+    monkeypatch.setenv("PANGEA_LAYOUT", layout)
+    assert cli.main(args + ["--out", str(tmp_path / "out"),
+                            "--device", "cpu"]) == 0
+    _same(tmp_path / "ref", tmp_path / "out")
 
 
-def test_pscore_quad_past_max_probes_raises(monkeypatch):
-    """PANGEA_PSCORE=quad past MAX_PROBES: the port's scorer raises,
-    naming the limit (ROADMAP.md §C: the reference would run its chunked
-    quadratic form)."""
-    assert not takes_ranked(MAX_PROBES) and takes_ranked(MAX_PROBES + 1)
-    monkeypatch.setenv("PANGEA_PSCORE", "ranked")
-    assert takes_ranked(1)
-    monkeypatch.setenv("PANGEA_PSCORE", "quad")
-    assert not takes_ranked(MAX_PROBES)
-    lanes = torch.ones((2, MAX_PROBES + 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match=str(MAX_PROBES)):
-        score_winners_plain(lanes, lanes, lanes + 1, lanes != 0, False)
+@pytest.mark.parametrize("impl", ["quad", "ranked"])
+def test_pscore_variable_leaves_the_scorer_as_is(monkeypatch, impl):
+    """PANGEA_PSCORE leaves the port's scorer as it is: the quadratic
+    count up to MAX_PROBES probes a read and the ranked form past it, the
+    same outputs as without the variable on either side."""
+    g = torch.Generator().manual_seed(3)
+    want = {}
+    for R in (32, MAX_PROBES + 1):
+        t_in = torch.randint(0, 50, (4, R), generator=g, dtype=torch.int32)
+        t_out = t_in + torch.randint(1, 30, (4, R), generator=g,
+                                     dtype=torch.int32)
+        lanes = torch.randint(0, 3, (4, R), generator=g, dtype=torch.int32)
+        want[R] = (lanes, t_in, t_out,
+                   score_winners_plain(lanes, t_in, t_out, lanes != 0,
+                                       False))
+    monkeypatch.setenv("PANGEA_PSCORE", impl)
+    for R, (lanes, t_in, t_out, out) in want.items():
+        got = score_winners_plain(lanes, t_in, t_out, lanes != 0, False)
+        for a, b in zip(out, got):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("general", [False, True], ids=["fast", "general"])
