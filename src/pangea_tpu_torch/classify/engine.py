@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..index import (ShardedIndex, pick_layout, shard_tables,
                      shard_tables_quot)
 from ..index.container import EMPTY_HI
@@ -106,39 +107,15 @@ class DeviceIndex:
         ``agree``, a function that returns the largest of the values all
         ranks pass (the mesh's all-reduce MAX; None when this one process
         places every shard, which then reads every shard's count). Any
-        other index is laid out whole and sliced."""
-        tax = index.taxonomy
-        layout = pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
-                             int(tax.tout.max(initial=0)),
-                             requested=layout or "auto")
-        streaming = (isinstance(index, ShardedIndex)
-                     and index.meta.n_shards == n_shards)
-        if layout in ("q8", "q12"):
-            ways = Q8_WAYS if layout == "q8" else Q12_WAYS
-            if streaming:
-                fused, stash3 = _stream_quot(index, shard_id, layout, ways,
-                                             agree)
-            else:
-                out = shard_tables_quot(index, n_shards, ways, layout=layout)
-                if out is None:
-                    raise NotImplementedError(
-                        f"the {layout} relayout is ineligible for this index")
-                fused, stash3 = out[0][shard_id], out[1][shard_id]
-        elif streaming:
-            fused, stash3 = _stream_std(index, shard_id)
-            ways = index.meta.ways
-        else:
-            key_hi, key_lo, val, stash3 = (
-                a[shard_id] for a in shard_tables(index, n_shards))
-            fused = fuse_table(key_hi, key_lo, val, tax.tin, tax.tout)
-            ways = key_hi.shape[-1]
-        cfg = ClassifyConfig(k=index.meta.k, n_shards=n_shards,
-                             confidence_threshold=confidence_threshold,
-                             w=index.meta.w, ways=ways, layout=layout)
-        tables = {"fused": fused,
-                  "stash": fuse_stash(stash3, tax.tin, tax.tout),
-                  "tax": tax.device_arrays()}
-        return cls.from_numpy_tables(tables, cfg, device)
+        other index is laid out whole and sliced. The placement is timed
+        (``trace.Placement``: its host layout, then its copies up to a
+        synchronize)."""
+        with trace.Placement(device) as place:
+            with place.layout():
+                tables, cfg = _host_tables(index, confidence_threshold,
+                                           layout, n_shards, shard_id, agree)
+            with place.copy():
+                return cls.from_numpy_tables(tables, cfg, device)
 
     @classmethod
     def from_numpy_tables(cls, tables: dict, cfg, device,
@@ -178,6 +155,45 @@ class DeviceIndex:
     @property
     def tables(self) -> dict:
         return {"fused": self.fused, "stash": self.stash, "tax": self.tax}
+
+
+def _host_tables(index, confidence_threshold: float, layout, n_shards: int,
+                 shard_id: int, agree):
+    """:meth:`DeviceIndex.from_index`'s host work: shard shard_id's table
+    laid out, its stash and the taxonomy's arrays (numpy), and the
+    config."""
+    tax = index.taxonomy
+    layout = pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
+                         int(tax.tout.max(initial=0)),
+                         requested=layout or "auto")
+    streaming = (isinstance(index, ShardedIndex)
+                 and index.meta.n_shards == n_shards)
+    if layout in ("q8", "q12"):
+        ways = Q8_WAYS if layout == "q8" else Q12_WAYS
+        if streaming:
+            fused, stash3 = _stream_quot(index, shard_id, layout, ways,
+                                         agree)
+        else:
+            out = shard_tables_quot(index, n_shards, ways, layout=layout)
+            if out is None:
+                raise NotImplementedError(
+                    f"the {layout} relayout is ineligible for this index")
+            fused, stash3 = out[0][shard_id], out[1][shard_id]
+    elif streaming:
+        fused, stash3 = _stream_std(index, shard_id)
+        ways = index.meta.ways
+    else:
+        key_hi, key_lo, val, stash3 = (
+            a[shard_id] for a in shard_tables(index, n_shards))
+        fused = fuse_table(key_hi, key_lo, val, tax.tin, tax.tout)
+        ways = key_hi.shape[-1]
+    cfg = ClassifyConfig(k=index.meta.k, n_shards=n_shards,
+                         confidence_threshold=confidence_threshold,
+                         w=index.meta.w, ways=ways, layout=layout)
+    tables = {"fused": fused,
+              "stash": fuse_stash(stash3, tax.tin, tax.tout),
+              "tax": tax.device_arrays()}
+    return tables, cfg
 
 
 def _stream_std(sidx, shard_id: int):
@@ -304,12 +320,15 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
     that this one merges with (SEMANTICS.md §9, the earlier call as res1)
     over the taxonomy arrays merge_tax. Returns dict(taxon, best, nvalid)
     int32 [B]."""
-    hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
-                                    packed_len)
-    hits = probe_tables(tables, hi, lo, valid, cfg, shard_id, plain)
+    with trace.span("step.extract"):
+        hi, lo, valid = _extract_probes(bases, mate_bases, cfg, plain,
+                                        packed_len)
+    with trace.span("step.probe"):
+        hits = probe_tables(tables, hi, lo, valid, cfg, shard_id, plain)
     if merge_hits is not None:
         hits = merge_hits(hits)
-    return score_hits(hits, valid, tables["tax"], cfg, plain, prior)
+    with trace.span("step.score"):
+        return score_hits(hits, valid, tables["tax"], cfg, plain, prior)
 
 
 class Classifier(nn.Module):

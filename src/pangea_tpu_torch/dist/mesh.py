@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..classify.engine import (_extract_probes, classify_reads,
                                probe_tables, score_hits)
 from ..kernels.route import (route_bin, route_bin_plain, route_capacity,
@@ -170,9 +171,10 @@ def _merge_over_row(mesh: Mesh):
         return None
 
     def merge(hits):
-        h = torch.stack(hits)
-        dist.all_reduce(h, group=mesh.shard_group)
-        return tuple(h.unbind(0))
+        with trace.span("step.merge"):
+            h = torch.stack(hits)
+            dist.all_reduce(h, group=mesh.shard_group)
+            return tuple(h.unbind(0))
     return merge
 
 
@@ -299,7 +301,8 @@ class MeshStep:
     the mesh's size (with N bases, whose probes are all invalid); data row
     d takes its share of the rows, the sharded step (one index, routed or
     broadcast) or the multi-k sharded step runs, and the outputs gather
-    over the column when the world has more than one rank."""
+    over the column when the world has more than one rank. Each call is a
+    ``step`` span (``trace.py``)."""
 
     def __init__(self, indexes, mesh: Mesh, routing: str = "broadcast"):
         self.tables = tuple(di.tables for di in indexes)
@@ -323,20 +326,21 @@ class MeshStep:
         return self._fns[key]
 
     def __call__(self, bases, mate_bases=None, packed_len: int = 0) -> dict:
-        m = self.mesh
-        n = bases.shape[0]
-        per = -(-n // m.cfg.size) * m.cfg.n_shard    # rows a data row takes
-        rows = slice(m.data_index * per, (m.data_index + 1) * per)
-        fill = -1 if packed_len else 4               # N bases, either form
+        with trace.span(trace.STEP):
+            m = self.mesh
+            n = bases.shape[0]
+            per = -(-n // m.cfg.size) * m.cfg.n_shard   # rows a data row takes
+            rows = slice(m.data_index * per, (m.data_index + 1) * per)
+            fill = -1 if packed_len else 4              # N bases, either form
 
-        def mine(x):
-            if x is None:
-                return None
-            pad = per * m.cfg.n_data - n
-            if pad:
-                x = torch.cat([x, x.new_full((pad, x.shape[1]), fill)])
-            return x[rows]
+            def mine(x):
+                if x is None:
+                    return None
+                pad = per * m.cfg.n_data - n
+                if pad:
+                    x = torch.cat([x, x.new_full((pad, x.shape[1]), fill)])
+                return x[rows]
 
-        out = self._fn(mate_bases is not None, packed_len)(
-            mine(bases), mine(mate_bases))
-        return {k: v[:n] for k, v in out.items()}
+            out = self._fn(mate_bases is not None, packed_len)(
+                mine(bases), mine(mate_bases))
+            return {k: v[:n] for k, v in out.items()}

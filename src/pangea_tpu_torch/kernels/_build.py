@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 LIB_NAME = "libpangea_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -205,8 +207,11 @@ def launch(name: str, device, *args) -> None:
     """Call one launcher with ``device`` as the current CUDA device and the
     handle of its current stream as the last argument; raise if it reports
     a CUDA error. The device is made current, and put back after, only
-    where another one is."""
+    where another one is. While a trace is collected the call is a launch
+    record (``trace.recorded``)."""
     fn = _launchers.get(name) or launcher(name)
+    if trace.ON:
+        fn = trace.recorded(name, fn)
     index = device.index
     if torch._C._cuda_getDevice() == index:
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -68,13 +68,21 @@ path also the copies back, which wait for the device), ``write`` (the
 assignment lines), ``sync`` (the fsyncs and manifest commits) and, on the
 general path, ``pad`` (bucketing and the padded batches), all of its one
 loop, or, on the fast path, ``fetch`` (the copy back, which waits for the
-device), each of its threads, which overlap.
+device), each of its threads, which overlap. Each phase is a span of the
+port's tracer (``trace.py``), ``run.parse`` ... ``run.sync``, which totals
+its nanoseconds on the one clock (``time.perf_counter_ns``) whether or
+not a trace is collected; ``host_sec`` gives those totals in seconds.
 
 ``PANGEA_PROFILE=<dir>`` wraps either loop (after the warmup launch) in a
 ``torch.profiler`` trace, CPU activity and, on a CUDA device, the card's,
 written as ``<dir>/trace_rank<r>.json`` (a Chrome trace) on every rank
 when the loop ends: the counterpart of the reference's
-``jax.profiler.start_trace``.
+``jax.profiler.start_trace``. The port's tracer collects over the same
+loop, so the Chrome trace carries its spans (the ``run.*`` phases,
+``step`` and the spans beneath it) as user annotations, and
+``<dir>/spans_rank<r>.json`` holds the collected trace's summary
+(``trace.Trace.summary``: self time by span, launch records by launcher,
+the card's waits on the host inside each step).
 """
 from __future__ import annotations
 
@@ -91,6 +99,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..classify.engine import pad_batch
 from ..config import RunConfig, dump_config
 from ..core import encode_bases
@@ -422,31 +431,25 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
     max_long = max(cfg.input.max_long_read_len, L)
     resume, manifest = cfg.classify.resume, state["manifest"]
     trim_cfg, demux_cfg = state["trim"], state["demux"]
-    host_sec = state["host_sec"]
+    phase = state["phase"]
     gauge = _ReadyGauge(skip=2)
     state["gauge"] = gauge
     sinks: dict = {}
-    mark = [time.perf_counter()]
-
-    def lap(phase: str) -> None:
-        now = time.perf_counter()
-        host_sec[phase] += now - mark[0]
-        mark[0] = now
 
     def run_part(part) -> dict:
         """A part's outputs in input order, its launches bucketed."""
-        launches, cut = bucket_batch(part.seqs, part.mate_seqs, B, L,
-                                     max_long)
-        state["truncated"] += cut
-        lap("pad")
-        res = {k: np.zeros(len(part), np.int32) for k in OUT_KEYS}
-        for sub, bases, mates in launches:
-            out = launch(torch.from_numpy(bases).to(device),
-                         None if mates is None
-                         else torch.from_numpy(mates).to(device))
-            for k in OUT_KEYS:
-                res[k][sub] = out[k].cpu().numpy()
-        lap("step")
+        with phase("pad"):
+            launches, cut = bucket_batch(part.seqs, part.mate_seqs, B, L,
+                                         max_long)
+            state["truncated"] += cut
+            res = {k: np.zeros(len(part), np.int32) for k in OUT_KEYS}
+        with phase("step"):
+            for sub, bases, mates in launches:
+                out = launch(torch.from_numpy(bases).to(device),
+                             None if mates is None
+                             else torch.from_numpy(mates).to(device))
+                for k in OUT_KEYS:
+                    res[k][sub] = out[k].cpu().numpy()
         return res
 
     try:
@@ -458,8 +461,11 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                        if state["use_native"] else
                        read_batches(fpath, B, mate_path=mpath,
                                     sample=fsample))
-            for batch in batches:
-                lap("parse")
+            while True:
+                with phase("parse"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 n_in = len(batch)
                 if skipped + n_in <= done:         # resume: a done batch
                     skipped += n_in
@@ -474,11 +480,11 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                     skipped = done
                     n_in = len(batch)
                 t0 = time.time()
-                batch = trim_batch(batch, trim_cfg)
-                n_kept = len(batch)
-                parts = (demux_batch(batch, demux_cfg) if demux_cfg
-                         else {fsample: batch})
-                lap("trim")
+                with phase("trim"):
+                    batch = trim_batch(batch, trim_cfg)
+                    n_kept = len(batch)
+                    parts = (demux_batch(batch, demux_cfg) if demux_cfg
+                             else {fsample: batch})
                 done_parts = [(sample, part.ids, run_part(part))
                               for sample, part in sorted(parts.items())
                               if len(part)]
@@ -488,27 +494,28 @@ def _run_general(cfg: RunConfig, launch, tax, device, inputs,
                 gap = gauge.tick(n_in)
                 n_cls, offsets = 0, {}
                 for sample, ids, res in done_parts:
-                    n_cls += _count(state, sample, res["taxon"])
-                    if not state["write"]:
-                        continue
-                    if sample not in sinks:
-                        sinks[sample] = _SampleSink(out_dir, sample, tax,
-                                                    resume, manifest)
-                    sinks[sample].write(
-                        AssignmentRecord(ids[i], int(res["taxon"][i]),
-                                         int(res["best"][i]),
-                                         int(res["nvalid"][i]))
-                        for i in range(len(ids)))
-                    lap("write")
-                    offsets[sinks[sample].path] = sinks[sample].offset()
-                    lap("sync")
+                    with phase("write"):
+                        n_cls += _count(state, sample, res["taxon"])
+                        if state["write"]:
+                            if sample not in sinks:
+                                sinks[sample] = _SampleSink(
+                                    out_dir, sample, tax, resume, manifest)
+                            sinks[sample].write(
+                                AssignmentRecord(ids[i],
+                                                 int(res["taxon"][i]),
+                                                 int(res["best"][i]),
+                                                 int(res["nvalid"][i]))
+                                for i in range(len(ids)))
+                    if state["write"]:
+                        with phase("sync"):
+                            offsets[sinks[sample].path] = \
+                                sinks[sample].offset()
                 if state["write"]:
-                    manifest.record_batch(fpath, n_in, offsets)
-                    lap("sync")
-                _end_batch(state, item, n_cls,
-                           (time.time() - t0, time.time() - t_drain, gap))
-                lap("write")
-            lap("parse")                  # the read files' last, empty read
+                    with phase("sync"):
+                        manifest.record_batch(fpath, n_in, offsets)
+                with phase("write"):
+                    _end_batch(state, item, n_cls,
+                               (time.time() - t0, time.time() - t_drain, gap))
     finally:
         for fh in sinks.values():
             fh.close()
@@ -585,7 +592,7 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
     out_dir = cfg.classify.out_dir
     B, L = state["batch"], cfg.input.max_read_len
     stride = wire_width(L)
-    host_sec = state["host_sec"]
+    phase = state["phase"]
     manifest, write = state["manifest"], state["write"]
     # On resume, only the files the manifest recorded are appended to.
     recorded = set(manifest.state["outputs"]) if cfg.classify.resume \
@@ -610,16 +617,15 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
     def durability():
         try:
             while (item := dur_q.get()) is not _END:
-                t0 = time.perf_counter()
-                fpath, reads, offsets = item
-                for path in offsets:
-                    fd = os.open(path, os.O_RDONLY)
-                    try:
-                        os.fsync(fd)
-                    finally:
-                        os.close(fd)
-                manifest.record_batch(fpath, reads, offsets)
-                host_sec["sync"] += time.perf_counter() - t0
+                with phase("sync"):
+                    fpath, reads, offsets = item
+                    for path in offsets:
+                        fd = os.open(path, os.O_RDONLY)
+                        try:
+                            os.fsync(fd)
+                        finally:
+                            os.close(fd)
+                    manifest.record_batch(fpath, reads, offsets)
         except BaseException as e:  # noqa: BLE001 (raised by the main thread)
             errors.append(e)
             while dur_q.get() is not _END:  # never block the drain
@@ -648,32 +654,32 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
                 if mpath else None
             try:
                 while True:
-                    t0 = time.perf_counter()
-                    b1 = r1.next_batch_packed()
+                    with phase("parse"):
+                        b1 = r1.next_batch_packed()
+                        b2 = None
+                        if b1 is not None and r2 is not None:
+                            b2 = r2.next_batch_packed()
                     if b1 is None:
                         break
                     n = b1[0]
-                    b2 = None
-                    if r2 is not None:
-                        b2 = r2.next_batch_packed()
-                        if b2 is None or b2[0] != n:
-                            raise ValueError(f"{mpath}: record count "
-                                             f"mismatch with {fpath}")
-                    t1, t_wall = time.perf_counter(), time.time()
-                    host_sec["parse"] += t1 - t0
+                    if r2 is not None and (b2 is None or b2[0] != n):
+                        raise ValueError(f"{mpath}: record count "
+                                         f"mismatch with {fpath}")
+                    t_wall = time.time()
                     if seen + n <= done:           # resume: a done batch
                         seen += n
                         continue
                     write_from = max(done - seen, 0)
                     seen += n
-                    # Truncation counts only the reads this run processes.
-                    for b in (b1, b2):
-                        if b is not None:
-                            state["truncated"] += int(
-                                (b[3][write_from:n] > L).sum())
-                    rows, groups, n_kept = _pack_batch(b1, b2, write_from,
-                                                       L, state)
-                    host_sec["trim"] += time.perf_counter() - t1
+                    with phase("trim"):
+                        # Truncation counts only the reads this run
+                        # processes.
+                        for b in (b1, b2):
+                            if b is not None:
+                                state["truncated"] += int(
+                                    (b[3][write_from:n] > L).sum())
+                        rows, groups, n_kept = _pack_batch(
+                            b1, b2, write_from, L, state)
                     yield {"fpath": fpath, "n_in": n - write_from,
                            "n_kept": n_kept, "groups": groups, "rows": rows,
                            "t0": t_wall}
@@ -686,38 +692,37 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
         try:
             while (item := drain_q.get()) is not _END:
                 t0 = time.time()
-                out = item["out"]
-                res = None if out is None else \
-                    {k: out[k].cpu().numpy() for k in OUT_KEYS}
-                t1 = time.time()
-                gap = gauge.tick(item["n_in"])
-                offsets, n_cls = {}, 0
-                for sample, ps, ids in item["groups"]:
-                    part = {k: v if ps is None else v[ps]
-                            for k, v in res.items()}
-                    n_cls += _count(state, sample, part["taxon"])
-                    if not write:
-                        continue
-                    path = sample_paths[sample]
-                    offsets[path] = write_assignments_native(
-                        path, path in appended or path in recorded, ids,
-                        part["taxon"].size, part["taxon"], part["best"],
-                        part["nvalid"], blobs, strip_mate_suffix=True)
-                    appended.add(path)
-                if write:
-                    if pend["fpath"] not in (None, item["fpath"]):
-                        flush_durability()
-                    pend["fpath"] = item["fpath"]
-                    pend["reads"] += item["n_in"]
-                    pend["offsets"].update(offsets)
-                    pend["k"] += 1
-                    if pend["k"] >= fsync_every:
-                        flush_durability()
-                _end_batch(state, item, n_cls, (time.time() - item["t0"],
-                                                time.time() - t0, gap,
-                                                t1 - t0))
-                host_sec["fetch"] += t1 - t0
-                host_sec["write"] += time.time() - t1
+                with phase("fetch") as fetch:
+                    out = item["out"]
+                    res = None if out is None else \
+                        {k: out[k].cpu().numpy() for k in OUT_KEYS}
+                with phase("write"):
+                    gap = gauge.tick(item["n_in"])
+                    offsets, n_cls = {}, 0
+                    for sample, ps, ids in item["groups"]:
+                        part = {k: v if ps is None else v[ps]
+                                for k, v in res.items()}
+                        n_cls += _count(state, sample, part["taxon"])
+                        if not write:
+                            continue
+                        path = sample_paths[sample]
+                        offsets[path] = write_assignments_native(
+                            path, path in appended or path in recorded, ids,
+                            part["taxon"].size, part["taxon"], part["best"],
+                            part["nvalid"], blobs, strip_mate_suffix=True)
+                        appended.add(path)
+                    if write:
+                        if pend["fpath"] not in (None, item["fpath"]):
+                            flush_durability()
+                        pend["fpath"] = item["fpath"]
+                        pend["reads"] += item["n_in"]
+                        pend["offsets"].update(offsets)
+                        pend["k"] += 1
+                        if pend["k"] >= fsync_every:
+                            flush_durability()
+                    _end_batch(state, item, n_cls,
+                               (time.time() - item["t0"], time.time() - t0,
+                                gap, fetch.ns * 1e-9))
             flush_durability()
         except BaseException as e:  # noqa: BLE001 (raised by the main thread)
             errors.append(e)
@@ -732,16 +737,15 @@ def _run_fast(cfg: RunConfig, launch, tax, device, inputs,
         for item in _prefetch(produce()):
             if errors:
                 break
-            t0 = time.perf_counter()
-            rows = item.pop("rows")
-            item["out"] = None
-            if rows.shape[0]:         # a batch that kept no read launches
-                combo = torch.from_numpy(rows.view(np.int32)).to(device)
-                item["out"] = launch(combo[:, :stride],
-                                     combo[:, stride:] if rows.shape[1]
-                                     > stride else None, packed_len=L)
-            item["t_launch"] = time.time() - item["t0"]
-            host_sec["step"] += time.perf_counter() - t0
+            with phase("step"):
+                rows = item.pop("rows")
+                item["out"] = None
+                if rows.shape[0]:     # a batch that kept no read launches
+                    combo = torch.from_numpy(rows.view(np.int32)).to(device)
+                    item["out"] = launch(combo[:, :stride],
+                                         combo[:, stride:] if rows.shape[1]
+                                         > stride else None, packed_len=L)
+                item["t_launch"] = time.time() - item["t0"]
             drain_q.put(item)
     finally:
         drain_q.put(_END)
@@ -814,13 +818,15 @@ def run_classify_basic(cfg: RunConfig, device) -> dict:
 
 
 def _profiler(device):
-    """PANGEA_PROFILE's profiler: CPU activity, and the card's on a CUDA
-    device."""
+    """PANGEA_PROFILE's profiler: CPU activity on every thread (the
+    drain's spans too), and the card's on a CUDA device."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    return profile(activities=acts,
+                   experimental_config=torch._C._profiler._ExperimentalConfig(
+                       profile_all_threads=True))
 
 
 def _load_manifest(cfg: RunConfig, rank0: bool) -> Manifest:
@@ -913,8 +919,9 @@ def _classify(cfg: RunConfig, device) -> dict:
              if demux else {},
              "use_native": native_ok,
              "totals": {"reads": 0, "kept": 0, "classified": 0,
-                        "batches": 0},
-             "host_sec": dict.fromkeys(phases, 0.0)}
+                        "batches": 0}}
+    phase_ns: dict = {}
+    state["phase"] = lambda name: trace.Span("run." + name, phase_ns)
     launches0 = kernel_launches()
     if cfg.classify.warmup:
         width = wire_width(L) if fast else L
@@ -929,9 +936,10 @@ def _classify(cfg: RunConfig, device) -> dict:
                             else "w") if rank0 else None
     profile_dir = os.environ.get("PANGEA_PROFILE")
     prof = _profiler(device) if profile_dir else contextlib.nullcontext()
+    spans = trace.collect() if profile_dir else contextlib.nullcontext()
     t_start = time.time()
     try:
-        with prof:
+        with prof, spans as collected:
             (_run_fast if fast else _run_general)(cfg, launch, tax, device,
                                                   inputs, state)
     finally:
@@ -941,6 +949,9 @@ def _classify(cfg: RunConfig, device) -> dict:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(
             os.path.join(profile_dir, f"trace_rank{mesh.rank}.json"))
+        with open(os.path.join(profile_dir,
+                               f"spans_rank{mesh.rank}.json"), "w") as fh:
+            json.dump(collected.summary(), fh, indent=1, sort_keys=True)
     if rank0:
         _write_reports(out_dir, state["counts"], tax)
     wall = time.time() - t_start
@@ -960,7 +971,9 @@ def _classify(cfg: RunConfig, device) -> dict:
               "fast_path": fast, "truncated_reads": state["truncated"],
               "indexes": _index_info(cfg.classify.index, indexes),
               **state["gauge"].summary(), **launch.summary(),
-              "kernel_launches": launches, "host_sec": state["host_sec"]}
+              "kernel_launches": launches,
+              "host_sec": {p: phase_ns.get("run." + p, 0) * 1e-9
+                           for p in phases}}
     if rank0:
         with open(os.path.join(out_dir, "run_summary.json"), "w") as fh:
             json.dump(result, fh, indent=2, sort_keys=True)

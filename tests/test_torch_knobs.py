@@ -241,13 +241,18 @@ def test_pscore_variable_leaves_the_scorer_as_is(monkeypatch, impl):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("mates", [False, True], ids=["single", "pairs"])
 @pytest.mark.parametrize("general", [False, True], ids=["fast", "general"])
-def test_profile_writes_a_trace(world, tmp_path, monkeypatch, general):
+def test_profile_writes_a_trace(world, tmp_path, monkeypatch, general,
+                                mates):
     """PANGEA_PROFILE=<dir>: a Chrome trace of the steady loop in
-    <dir>/trace_rank0.json, and the outputs as without it."""
+    <dir>/trace_rank0.json, carrying the port's spans as user annotations,
+    the collected spans' summary in <dir>/spans_rank0.json, and the
+    outputs as without it."""
     if general:
         monkeypatch.setenv("PANGEA_NO_NATIVE", "1")
-    args = _args(world)
+    args = _args(world) + (["--mates", str(world / "c_2.fastq")]
+                           if mates else [])
     assert cli.main(args + ["--out", str(tmp_path / "plain"),
                             "--device", "cpu"]) == 0
     monkeypatch.setenv("PANGEA_PROFILE", str(tmp_path / "prof"))
@@ -255,6 +260,16 @@ def test_profile_writes_a_trace(world, tmp_path, monkeypatch, general):
                             "--device", "cpu"]) == 0
     trace = json.loads((tmp_path / "prof" / "trace_rank0.json").read_text())
     assert trace["traceEvents"]
+    marks = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    phases = ["parse", "trim", "step", "write", "sync"]
+    phases.append("pad" if general else "fetch")
+    assert {"step", "step.extract", "step.probe", "step.score",
+            *("run." + p for p in phases)} <= marks
+    spans = json.loads((tmp_path / "prof" / "spans_rank0.json").read_text())
+    assert spans["steps"] == -(-300 // 64) and spans["launches"] == {}
+    assert set(spans["self_ms"]) == {"step", "step.extract", "step.probe",
+                                     "step.score"}
     for f in ("c_1.assign.tsv", "c_1.summary.tsv"):
         assert (tmp_path / "out" / f).read_bytes() == \
             (tmp_path / "plain" / f).read_bytes()
