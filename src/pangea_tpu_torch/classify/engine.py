@@ -51,6 +51,7 @@ from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
                              score_reads_tin, score_reads_tin_plain)
+from . import relayout
 
 # The taxonomy arrays the scorer reads (Taxonomy.device_arrays).
 TAX_KEYS = ("tin", "tout", "depth", "parent", "up", "tin2node")
@@ -108,14 +109,46 @@ class DeviceIndex:
         ranks pass (the mesh's all-reduce MAX; None when this one process
         places every shard, which then reads every shard's count). Any
         other index is laid out whole and sliced. The placement is timed
-        (``trace.Placement``: its host layout, then its copies up to a
-        synchronize)."""
+        (``trace.Placement``: its layout and its copies, each up to a
+        synchronize).
+
+        A whole index (one shard, not streamed) placed on a CUDA device is
+        laid out there: its stored arrays are copied to the card as they
+        are, and :func:`~.relayout.relayout` lays them out by the host's
+        rule, to the same bytes. Every other placement lays the table out
+        on the host and copies it."""
+        device = torch.device(device)
         with trace.Placement(device) as place:
+            if (device.type == "cuda" and n_shards == 1
+                    and not _streams(index, n_shards)):
+                return cls._laid_out_on(index, device, place,
+                                        confidence_threshold, layout)
             with place.layout():
                 tables, cfg = _host_tables(index, confidence_threshold,
                                            layout, n_shards, shard_id, agree)
             with place.copy():
                 return cls.from_numpy_tables(tables, cfg, device)
+
+    @classmethod
+    def _laid_out_on(cls, index, device, place, confidence_threshold: float,
+                     layout) -> "DeviceIndex":
+        """:meth:`from_index` of a whole index on ``device``: the stored
+        arrays and the taxonomy's copied there, then laid out there."""
+        layout = _pick_layout(index, layout, 1)
+        ways = {"q8": Q8_WAYS, "q12": Q12_WAYS}.get(layout, index.meta.ways)
+        with place.copy():
+            parts = relayout.upload(index, device)
+            tax_d = _tax_tensors(index.taxonomy.device_arrays(), device)
+        with place.layout("card"):
+            out = relayout.relayout(parts, layout, index.meta.k, ways,
+                                    tax_d["tin"], tax_d["tout"])
+            if out is None:
+                raise NotImplementedError(
+                    f"the {layout} relayout is ineligible for this index")
+        cfg = ClassifyConfig(k=index.meta.k,
+                             confidence_threshold=confidence_threshold,
+                             w=index.meta.w, ways=ways, layout=layout)
+        return cls(fused=out[0], stash=out[1], tax=tax_d, cfg=cfg)
 
     @classmethod
     def from_numpy_tables(cls, tables: dict, cfg, device,
@@ -146,15 +179,36 @@ class DeviceIndex:
             return torch.from_numpy(
                 np.ascontiguousarray(a).view(np.int32)).to(device)
 
-        tax = {name: torch.from_numpy(np.ascontiguousarray(
-                   tables["tax"][name], dtype=np.int32)).to(device)
-               for name in TAX_KEYS}
         return cls(fused=lanes(tables["fused"], 2),
-                   stash=lanes(tables["stash"], 2), tax=tax, cfg=cfg)
+                   stash=lanes(tables["stash"], 2),
+                   tax=_tax_tensors(tables["tax"], device), cfg=cfg)
 
     @property
     def tables(self) -> dict:
         return {"fused": self.fused, "stash": self.stash, "tax": self.tax}
+
+
+def _tax_tensors(arrays: dict, device) -> dict:
+    """The scorer's taxonomy arrays (``TAX_KEYS`` of ``arrays``) as int32
+    tensors on ``device``."""
+    return {name: torch.from_numpy(np.ascontiguousarray(
+                arrays[name], dtype=np.int32)).to(device)
+            for name in TAX_KEYS}
+
+
+def _streams(index, n_shards: int) -> bool:
+    """Whether a placement at n_shards streams the index: a sharded index
+    whose file shards are the placement's shards."""
+    return (isinstance(index, ShardedIndex)
+            and index.meta.n_shards == n_shards)
+
+
+def _pick_layout(index, layout, n_shards: int) -> str:
+    """:func:`~pangea_tpu_torch.index.pick_layout` for an index placed at
+    n_shards, ``layout`` the requested one (None: auto)."""
+    return pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
+                       int(index.taxonomy.tout.max(initial=0)),
+                       requested=layout or "auto")
 
 
 def _host_tables(index, confidence_threshold: float, layout, n_shards: int,
@@ -163,11 +217,8 @@ def _host_tables(index, confidence_threshold: float, layout, n_shards: int,
     laid out, its stash and the taxonomy's arrays (numpy), and the
     config."""
     tax = index.taxonomy
-    layout = pick_layout(index.meta.n_kmers, n_shards, index.meta.k,
-                         int(tax.tout.max(initial=0)),
-                         requested=layout or "auto")
-    streaming = (isinstance(index, ShardedIndex)
-                 and index.meta.n_shards == n_shards)
+    layout = _pick_layout(index, layout, n_shards)
+    streaming = _streams(index, n_shards)
     if layout in ("q8", "q12"):
         ways = Q8_WAYS if layout == "q8" else Q12_WAYS
         if streaming:

@@ -118,11 +118,9 @@ def hash32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return narrow(_hash32(widen(hi), widen(lo)))
 
 
-def _q8_split(hi, lo, k: int, log2nb: int):
-    """(bucket, rem) int64 of h = (K * A) mod 2^(2k) for widened lanes; rem
-    holds the low r = 2k - log2nb bits (up to 62 for q12)."""
+def _q8_hash(hi, lo, k: int):
+    """h = (K * A) mod 2^(2k), int64, for the widened lanes of K."""
     m = 2 * k
-    r = m - log2nb
     p0 = lo * (_Q8_A & 0xFFFF)                  # < 2^48
     p1 = lo * (_Q8_A >> 16)                     # < 2^48
     h_lo = (p0 + ((p1 & 0xFFFF) << 16)) & M32
@@ -132,7 +130,14 @@ def _q8_split(hi, lo, k: int, log2nb: int):
     else:
         h_lo = h_lo & ((1 << m) - 1)
         h_hi = torch.zeros_like(h_lo)
-    h = (h_hi << 32) | h_lo
+    return (h_hi << 32) | h_lo
+
+
+def _q8_split(hi, lo, k: int, log2nb: int):
+    """(bucket, rem) int64 of h = (K * A) mod 2^(2k) for widened lanes; rem
+    holds the low r = 2k - log2nb bits (up to 62 for q12)."""
+    r = 2 * k - log2nb
+    h = _q8_hash(hi, lo, k)
     return h >> r, h & ((1 << r) - 1)
 
 

@@ -23,8 +23,8 @@ on the clock of the card's operations (a profiler started without
 Two kinds of span keep totals whether or not a trace is collected: the
 CLI's phases (``run.parse`` ... ``run.sync``, its ``host_sec``) and index
 placement (:class:`Placement`: ``place``, ``place.layout``,
-``place.copy``, whose seconds and storage reads each placement appends to
-:func:`placements`).
+``place.copy``, whose seconds, storage reads and the side the relayout
+ran on each placement appends to :func:`placements`).
 """
 from __future__ import annotations
 
@@ -327,50 +327,63 @@ def read_bytes() -> int | None:
 class Placement:
     """One index's placement on ``device``, timed whether or not a trace is
     collected: ``place`` around it, :meth:`layout` (``place.layout``: the
-    host's relayout, the stash and the taxonomy arrays, page faults of a
-    mapped index included) and :meth:`copy` (``place.copy``: the copies to
-    the device, up to a synchronize), with the bytes read from storage
-    during the layout. Its :meth:`record` is appended to
-    :func:`placements` when it ends."""
+    relayout into the device table, wherever it runs: on the host, with
+    its stash and the taxonomy's arrays and the page faults of a mapped
+    index, or on the card, up to a synchronize) and :meth:`copy`
+    (``place.copy``: the copies to the device, up to a synchronize: the
+    host's table, or, for a relayout on the card, the stored arrays and
+    the taxonomy's), with the bytes read from storage during the
+    placement. Its :meth:`record` is appended to :func:`placements` when
+    it ends."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.ns: dict = {}
         self.read_bytes = None
+        self.layout_on = "host"
         self._span = Span("place", self.ns)
+        self._read0 = None
 
     def __enter__(self):
+        self._read0 = read_bytes()
         self._span.__enter__()
         return self
 
     def __exit__(self, *exc):
         self._span.__exit__(*exc)
+        after = read_bytes()
+        if self._read0 is not None and after is not None:
+            self.read_bytes = after - self._read0
         if exc[0] is None:
             _placements.append(self.record())
         return False
 
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     @contextlib.contextmanager
-    def layout(self):
-        before = read_bytes()
+    def layout(self, on: str = "host"):
+        """The relayout, run ``on`` "host" or "card"."""
+        self.layout_on = on
         with Span("place.layout", self.ns):
             yield
-        after = read_bytes()
-        if before is not None and after is not None:
-            self.read_bytes = after - before
+            if on == "card":
+                self._sync()
 
     @contextlib.contextmanager
     def copy(self):
         with Span("place.copy", self.ns):
             yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
 
     def record(self) -> dict:
         """{"device": its type, "place", "place.layout", "place.copy":
-        seconds, "read_bytes": bytes or None}."""
+        seconds, "read_bytes": bytes or None, "layout_on": "host" or
+        "card"}."""
         return {"device": self.device.type,
                 **{k: v * 1e-9 for k, v in self.ns.items()},
-                "read_bytes": self.read_bytes}
+                "read_bytes": self.read_bytes, "layout_on": self.layout_on}
 
 
 def placements() -> list:

@@ -15,6 +15,7 @@ from pangea_tpu.index import build_index as ref_build_index
 from pangea_tpu.index.shard import extract_pairs
 from pangea_tpu.taxonomy import Taxonomy as RefTaxonomy
 from pangea_tpu.utils import datagen as ref_datagen
+from pangea_tpu_torch import trace
 from pangea_tpu_torch.bench import (K9_EDGE, chain_taxonomy, k1_edge_world,
                                     k9_edge_world, make_bench_world,
                                     route_bin_dirty, score_world)
@@ -22,6 +23,7 @@ from pangea_tpu_torch.classify import (Classifier, ClassifyConfig,
                                        DeviceIndex, MultiKClassifier,
                                        classify_multik, classify_reads,
                                        merge_multik_plain, pad_batch)
+from pangea_tpu_torch.classify.engine import TAX_KEYS, _host_tables
 from pangea_tpu_torch.golden import (GoldenResult, classify_read_golden,
                                      classify_reads_golden,
                                      merge_multik_golden)
@@ -1624,3 +1626,34 @@ def test_requested_std_layout_on_the_card_matches_plain_and_golden(cuda):
     gold = classify_reads_golden(rs.seqs, idx, 0.05, mates=rs.mates)
     assert got["taxon"].cpu().tolist() == [g.taxon for g in gold]
     assert got["nvalid"].cpu().tolist() == [g.nvalid for g in gold]
+
+
+# name -> (k, w, tree, requested layout) of a bench world placed whole
+RELAYOUT_WORLDS = {"std_wide": (21, 1, (512, 64), None),
+                   "q8": (21, 8, None, None),
+                   "q12": (31, 1, None, "q12"),
+                   "std": (21, 8, None, "std")}
+
+
+@pytest.mark.parametrize("name", list(RELAYOUT_WORLDS))
+def test_relayout_on_the_card_equals_the_host(cuda, name):
+    """A whole index placed on the card is laid out there (the placement
+    record says "card"), to the host path's tables byte for byte: the
+    wide std rows of a 66,563-taxon world, q8, q12 (k=31) and packed std
+    rows."""
+    k, w, tree, layout = RELAYOUT_WORLDS[name]
+    idx = make_bench_world(n_reads=8, read_len=100, genome_len=4000, k=k,
+                           w=w, tree=tree).index
+    before = len(trace.placements())
+    got = DeviceIndex.from_index(idx, cuda, 0.05, layout=layout)
+    assert trace.placements()[before]["layout_on"] == "card"
+    want = DeviceIndex.from_numpy_tables(
+        *_host_tables(idx, 0.05, layout, 1, 0, None), "cpu")
+    assert got.cfg == want.cfg
+    assert got.cfg.layout == name.split("_")[0]
+    assert got.fused.shape[1] == {"std_wide": 6 * 16, "q8": 128,
+                                  "q12": 128, "std": 4 * 16}[name]
+    for a, b in [(got.fused, want.fused), (got.stash, want.stash)] + [
+            (got.tax[n], want.tax[n]) for n in TAX_KEYS]:
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)

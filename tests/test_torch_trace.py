@@ -237,6 +237,7 @@ def test_placement_keeps_its_record(bench):
     rec = trace.placements()[before]
     assert len(trace.placements()) == before + 1
     assert rec["device"] == "cpu"
+    assert rec["layout_on"] == "host"
     assert rec["read_bytes"] is None or rec["read_bytes"] >= 0
     assert rec["place"] >= rec["place.layout"] + rec["place.copy"] > 0
     place = {s.name: s for s in t.spans if s.name.startswith("place")}
