@@ -327,9 +327,12 @@ def probe_tables(tables: dict, hi, lo, valid, cfg: ClassifyConfig,
     taxon, t_in, t_out) int32 like hi, by the layout's lookup, unsorted or
     past the deep-table gate sorted (the reference's ``_probe_tables``).
     A std table of cfg.n_shards > 1 shards masks the probes shard_id does
-    not own; the quotient layouts need no mask."""
+    not own; the quotient layouts need no mask. Inside a multi-k step's
+    ``step.index<i>`` span the index's totals count the lookup."""
     fused = tables["fused"]
     srt = takes_sorted(cfg.layout, hi.numel(), fused)
+    if trace.open_index is not None:
+        trace.lookup_taken(hi.numel(), srt)
     kernel, plain_fn = LOOKUPS[cfg.layout, srt]
     fn = plain_fn if plain else kernel
     args = {"q8": (cfg.k,), "q12": (cfg.k, cfg.ways),
@@ -380,6 +383,23 @@ def classify_reads(tables: dict, bases, cfg: ClassifyConfig, *,
         hits = merge_hits(hits)
     with trace.span("step.score"):
         return score_hits(hits, valid, tables["tax"], cfg, plain, prior)
+
+
+def fold_multik(tables_tuple, cfgs, classify_one) -> dict:
+    """The multi-k fold (SEMANTICS.md §9): ``classify_one(tables, cfg,
+    prior)`` of the batch against each index in order, each after the
+    first with the running call and the first index's taxonomy arrays as
+    its prior, so that its scorer merges. Index i's part is its
+    ``step.index<i>`` span (``trace.IndexSpan``), which totals its calls
+    and host time, and its lookup's probes and path. Returns the last
+    call."""
+    res = None
+    for i, (tables, cfg) in enumerate(zip(tables_tuple, cfgs, strict=True)):
+        with trace.IndexSpan(i, cfg.k, cfg.w, cfg.layout):
+            res = classify_one(
+                tables, cfg,
+                None if res is None else (res, tables_tuple[0]["tax"]))
+    return res
 
 
 class Classifier(nn.Module):
@@ -434,13 +454,11 @@ def classify_multik(tables_tuple, bases, cfgs, *, mate_bases=None,
     index's call merges with the running one in its scorer (``prior``).
     plain=True runs the plain versions throughout. Returns dict(taxon,
     best, nvalid) int32 [B]."""
-    res = None
-    for tables, cfg in zip(tables_tuple, cfgs, strict=True):
-        res = classify_reads(
+    return fold_multik(
+        tables_tuple, cfgs,
+        lambda tables, cfg, prior: classify_reads(
             tables, bases, cfg, mate_bases=mate_bases, packed_len=packed_len,
-            plain=plain,
-            prior=None if res is None else (res, tables_tuple[0]["tax"]))
-    return res
+            plain=plain, prior=prior))
 
 
 class MultiKClassifier(nn.Module):

@@ -54,22 +54,17 @@ def canonical_kmers(codes: np.ndarray, k: int):
     bad = (~good).astype(np.int32)
     cs = np.concatenate([[0], np.cumsum(bad)])
     valid = (cs[k:] - cs[:P]) == 0
-    c64 = codes.astype(np.uint64)
-    cc64 = (np.uint64(3) - np.clip(c64, 0, 3))  # complement (masked by valid)
-    # Rolling big-endian forward value and rolling rc value.
+    c64 = np.clip(codes, 0, 3).astype(np.uint64)   # invalid k-mers zeroed below
+    cc64 = np.uint64(3) - c64                      # complement
+    # Big-endian forward value and rc value of every position at once, one
+    # base offset a pass: base j of a k-mer is bits 2(k-1-j) of fwd and
+    # 2j of rc.
     fwd = np.zeros(P, dtype=np.uint64)
     rc = np.zeros(P, dtype=np.uint64)
-    mask = np.uint64((1 << (2 * k)) - 1)
-    f = np.uint64(0)
-    r = np.uint64(0)
-    shift_hi = np.uint64(2 * (k - 1))
-    two = np.uint64(2)
-    for j in range(L):
-        f = ((f << two) | c64[j]) & mask
-        r = (r >> two) | (cc64[j] << shift_hi)
-        if j >= k - 1:
-            fwd[j - k + 1] = f
-            rc[j - k + 1] = r
+    for j in range(k):
+        fwd <<= np.uint64(2)
+        fwd |= c64[j:j + P]
+        rc |= cc64[j:j + P] << np.uint64(2 * j)
     canon = np.where(fwd <= rc, fwd, rc)
     canon = np.where(valid, canon, np.uint64(0))
     return canon, valid

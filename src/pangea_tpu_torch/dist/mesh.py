@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from .. import trace
 from ..classify.engine import (_extract_probes, classify_reads,
-                               probe_tables, score_hits)
+                               fold_multik, probe_tables, score_hits)
 from ..kernels.route import (route_bin, route_bin_plain, route_capacity,
                              route_restore, route_restore_plain)
 
@@ -277,18 +277,18 @@ def make_multik_sharded_classify_fn(cfgs, mesh: Mesh, paired: bool = False,
     """The multi-k sharded step (``mesh.py:484``): the broadcast step of
     the same reads against each index, merged per read left to right
     (SEMANTICS.md §9) over the first index's taxonomy arrays, each later
-    index's call in its scorer (K7 on the card). fn(tables_tuple, bases[,
+    index's call in its scorer (K7 on the card), each index's part in its
+    ``step.index<i>`` span (``fold_multik``). fn(tables_tuple, bases[,
     mate_bases]) as make_sharded_classify_fn's fn, with each index's tables
     in order."""
     cfgs = tuple(cfgs)
 
     def fn(tables_tuple, bases, mate_bases=None):
-        res = None
-        for tables, cfg in zip(tables_tuple, cfgs, strict=True):
-            res = _local_classify_broadcast(
+        res = fold_multik(
+            tables_tuple, cfgs,
+            lambda tables, cfg, prior: _local_classify_broadcast(
                 tables, bases, mate_bases, cfg, mesh, packed_len,
-                prior=None if res is None else (res,
-                                                tables_tuple[0]["tax"]))
+                prior=prior))
         return _replicate_over_data(res, mesh) if replicate_out else res
 
     return fn if paired else (lambda tables_tuple, bases: fn(tables_tuple,

@@ -5,8 +5,9 @@ thread, with the span that encloses it and the id of the step it belongs
 to. ``dist/mesh.py`` ``MeshStep`` opens ``step``, which starts a new id;
 every span inside it shares that id: ``step.extract``, ``step.probe`` and
 ``step.score`` (``classify/engine.py`` ``classify_reads``, once an index
-on the multi-k step), ``step.merge`` (the all-reduce of a distributed
-mesh) and ``launch.<launcher>`` (the host blocked in ``kernels/_build.py``
+on the multi-k step, each index's inside its ``step.index<i>``, ``i`` its
+position), ``step.merge`` (the all-reduce of a distributed mesh) and
+``launch.<launcher>`` (the host blocked in ``kernels/_build.py``
 ``launch``'s call into the CUDA runtime). A launch record is one such call with
 a CUDA event recorded on the launch stream just before and just after it;
 when the trace ends, the events are read on the host's clock (an event
@@ -20,11 +21,14 @@ collects. While a ``torch.profiler`` records, each span also opens a
 on the clock of the card's operations (a profiler started without
 ``profile_all_threads`` keeps only its own thread's).
 
-Two kinds of span keep totals whether or not a trace is collected: the
-CLI's phases (``run.parse`` ... ``run.sync``, its ``host_sec``) and index
+Three kinds of span keep totals whether or not a trace is collected: the
+CLI's phases (``run.parse`` ... ``run.sync``, its ``host_sec``), index
 placement (:class:`Placement`: ``place``, ``place.layout``,
 ``place.copy``, whose seconds, storage reads and the side the relayout
-ran on each placement appends to :func:`placements`).
+ran on each placement appends to :func:`placements`) and each index's
+part of a multi-k step (:class:`IndexSpan`, ``step.index<i>``, totalled
+with its calls, probes and sorted lookups in :func:`index_steps`; a
+one-index step has no such span).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from collections import Counter, defaultdict
 import torch
 
 STEP = "step"
+INDEX = "step.index"
 LAUNCH = "launch."
 PROBE = "step.probe"
 GAPS_SHOWN = 10
@@ -48,6 +53,8 @@ _sink = None                  # the Trace being collected
 _local = threading.local()    # each thread's stack of open spans
 _step_ids = itertools.count(1)
 _placements: list = []
+_index_steps: dict = {}       # (position, k, w, layout) -> its totals
+open_index = None             # the totals of the step.index<i> span open now
 
 
 class _NoSpan:
@@ -193,12 +200,19 @@ def uncovered(intervals) -> list:
 
 def innermost(spans, t):
     """The name of the innermost of ``spans`` (nested, one thread's) that
-    holds host time ``t``, or None."""
+    holds host time ``t``, after that of the ``step.index<i>`` span that
+    encloses it on a multi-k step (``step.index1+step.probe``), so that the
+    indexes' gaps tell apart; None where none holds ``t``."""
     best = None
     for s in spans:
         if s.t0 <= t < s.t1 and (best is None or s.t0 >= best.t0):
             best = s
-    return None if best is None else best.name
+    if best is None:
+        return None
+    up = best.parent
+    while up is not None and not up.name.startswith(INDEX):
+        up = up.parent
+    return best.name if up is None else f"{up.name}+{best.name}"
 
 
 def _under(sp, name: str) -> bool:
@@ -389,3 +403,55 @@ class Placement:
 def placements() -> list:
     """The record of every placement this process has made, in order."""
     return list(_placements)
+
+
+class IndexSpan(Span):
+    """Index ``position``'s part of a multi-k step, its ``step.index<i>``
+    span, totalled whether or not a trace is collected: each one counts a
+    call of the index (k, w, layout) and adds its nanoseconds to the
+    index's record; while it is open, :func:`lookup_taken` counts its
+    lookup's probes and path."""
+    __slots__ = ("record",)
+
+    def __init__(self, position: int, k: int, w: int, layout: str):
+        key = (position, k, w, layout)
+        rec = _index_steps.get(key)
+        if rec is None:
+            rec = _index_steps[key] = {
+                "index": position, "k": k, "w": w, "layout": layout,
+                "calls": 0, "probes": 0, "sorted": 0}
+        rec["calls"] += 1
+        super().__init__(f"{INDEX}{position}", rec)
+        self.record = rec
+
+    def __enter__(self):
+        global open_index
+        open_index = self.record
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        global open_index
+        open_index = None
+        return super().__exit__(*exc)
+
+
+def lookup_taken(probes: int, sorted_lookup: bool) -> None:
+    """Count a lookup of ``probes`` probes, sorted or not, in the record of
+    the open ``step.index<i>`` span (``classify/engine.py``
+    ``probe_tables`` reports each where the deep-table gate decides, while
+    one is open)."""
+    open_index["probes"] += probes
+    open_index["sorted"] += sorted_lookup
+
+
+def index_steps() -> list:
+    """Each index's totals over this process's multi-k steps, in order of
+    position: {"index", "k", "w", "layout", "calls", "host_s" (seconds
+    inside its span), "probes" (B x R a call, summed), "sorted" (calls
+    whose lookup took the sorted path)}. Empty where no multi-k step ran."""
+    out = []
+    for rec in sorted(_index_steps.values(), key=lambda r: r["index"]):
+        name = f"{INDEX}{rec['index']}"
+        out.append({**{k: v for k, v in rec.items() if k != name},
+                    "host_s": rec.get(name, 0) * 1e-9})
+    return out

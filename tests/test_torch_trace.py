@@ -72,17 +72,24 @@ def test_step_encloses_its_spans_with_one_id(bench, multik, case):
             step(b, m)
     steps = [s for s in t.spans if s.name == "step"]
     assert len(steps) == 3 and len({s.step for s in steps}) == 3
+    # A multi-k step holds each index's spans in its step.index<i>.
+    parts = [] if case == "one" else [f"step.index{i}"
+                                      for i in range(len(indexes))]
     for st in steps:
         inner = [s for s in t.spans if s.parent is st]
         names = [s.name for s in inner]
-        assert names == list(STEP_SPANS) * len(indexes)
-        for s in inner:
-            assert s.step == st.step and s.thread == st.thread
-            assert st.t0 <= s.t0 <= s.t1 <= st.t1
+        assert names == (parts or list(STEP_SPANS))
+        for part in inner if parts else [st]:
+            leaves = [s for s in t.spans if s.parent is part]
+            assert [s.name for s in leaves] == list(STEP_SPANS)
+            for s in leaves + inner:
+                assert s.step == st.step and s.thread == st.thread
+                assert st.t0 <= s.t0 <= s.t1 <= st.t1
+                assert s.parent.t0 <= s.t0 <= s.t1 <= s.parent.t1
     assert not t.launches                 # the plain versions launch nothing
     got = t.summary()
     assert got["steps"] == 3
-    assert set(got["self_ms"]) == {"step", *STEP_SPANS}
+    assert set(got["self_ms"]) == {"step", *STEP_SPANS, *parts}
     assert got["launch_block_ms"] is None and got["launch_gap_ms"] is None
     assert got["probe_ms"] is None and got["gaps"] == []
     json.dumps(got)
