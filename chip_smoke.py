@@ -1281,7 +1281,7 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
                                           fuse_table, hash32,
                                           lca_lift_plain, lookup_q8,
                                           lookup_std, lookup_std_plain,
-                                          score_reads_taxon,
+                                          record_rows, score_reads_taxon,
                                           score_reads_taxon_plain,
                                           score_reads_tin,
                                           score_reads_tin_plain,
@@ -1328,7 +1328,8 @@ def phase_std_kernels(torch, worlds, cuda, res: Results) -> None:
     tax = wide["idx"].taxonomy
     canon, taxa = extract_pairs(wide["idx"])
     kh, kl, val, st, _ = layout_table(canon[::30], taxa[::30], 4.0, ways=4)
-    f4 = torch.from_numpy(fuse_table(kh, kl, val, tax.tin, tax.tout)
+    f4 = torch.from_numpy(record_rows(fuse_table(kh, kl, val, tax.tin,
+                                                 tax.tout), 4)
                           .view("int32")).to(cuda)
     s4 = torch.from_numpy(fuse_stash(st, tax.tin, tax.tout)
                           .view("int32")).to(cuda)

@@ -46,7 +46,7 @@ from ..kernels.lookup import (fuse_stash, fuse_table, lookup_q8,
                               lookup_q12_sorted_plain, lookup_std,
                               lookup_std_owned, lookup_std_plain,
                               lookup_std_sorted, lookup_std_sorted_plain,
-                              takes_sorted)
+                              record_rows, takes_sorted)
 from ..kernels.minimize import (extract_probes, extract_probes_plain,
                                 probe_width)
 from ..kernels.score import (score_reads_taxon, score_reads_taxon_plain,
@@ -82,7 +82,9 @@ class DeviceIndex:
     """One index on one device: fused int32 [NB, 2W] (q8), [NB, 128] (q12)
     or [NB, 4W | 6W] (std) rows, the stash int32 [5, S] and the taxonomy's
     arrays (int32 [T+1], ``up`` [levels, T+1], ``tin2node`` [max tin +
-    2])."""
+    2]). A std table's rows are in K4's record form (``record_rows``),
+    which every placement lays out once; the constructor takes the rows as
+    they are."""
     fused: torch.Tensor
     stash: torch.Tensor
     tax: dict
@@ -116,7 +118,9 @@ class DeviceIndex:
         laid out there: its stored arrays are copied to the card as they
         are, and :func:`~.relayout.relayout` lays them out by the host's
         rule, to the same bytes. Every other placement lays the table out
-        on the host and copies it."""
+        on the host and copies it. Either way a std table's rows are then
+        put in the record form, where the table was laid out, inside
+        ``place.layout``; the placement's record says so (``row_form``)."""
         device = torch.device(device)
         with trace.Placement(device) as place:
             if (device.type == "cuda" and n_shards == 1
@@ -126,8 +130,10 @@ class DeviceIndex:
             with place.layout():
                 tables, cfg = _host_tables(index, confidence_threshold,
                                            layout, n_shards, shard_id, agree)
+                _records(tables["fused"], cfg, place)
             with place.copy():
-                return cls.from_numpy_tables(tables, cfg, device)
+                return cls._placed(tables["fused"], tables["stash"],
+                                   tables["tax"], cfg, device)
 
     @classmethod
     def _laid_out_on(cls, index, device, place, confidence_threshold: float,
@@ -145,9 +151,10 @@ class DeviceIndex:
             if out is None:
                 raise NotImplementedError(
                     f"the {layout} relayout is ineligible for this index")
-        cfg = ClassifyConfig(k=index.meta.k,
-                             confidence_threshold=confidence_threshold,
-                             w=index.meta.w, ways=ways, layout=layout)
+            cfg = ClassifyConfig(k=index.meta.k,
+                                 confidence_threshold=confidence_threshold,
+                                 w=index.meta.w, ways=ways, layout=layout)
+            _records(out[0], cfg, place)
         return cls(fused=out[0], stash=out[1], tax=tax_d, cfg=cfg)
 
     @classmethod
@@ -159,7 +166,8 @@ class DeviceIndex:
         layout "q8", "q12" or "std" (numpy: fused uint32 [S, NB, lanes],
         stash uint32 [S, 5, S_max], the tax dict) and ``cfg`` its ``cfg``;
         the rank of shard ``shard_id`` takes that shard's slice. 2-D
-        arrays are one shard's already."""
+        arrays are one shard's already. A std table's rows are put in the
+        record form on a copy, on the host."""
         cfg = ClassifyConfig(**dataclasses.asdict(cfg))
         if cfg.layout not in ("q8", "q12", "std") or cfg.n_sub != 1:
             raise NotImplementedError(
@@ -169,23 +177,52 @@ class DeviceIndex:
         if not 0 <= shard_id < cfg.n_shards:
             raise ValueError(f"shard {shard_id} of {cfg.n_shards}")
 
-        def lanes(a, ndim):
+        def mine(a):
             a = np.asarray(a)
-            if a.ndim == ndim + 1:
+            if a.ndim == 3:
                 if a.shape[0] != cfg.n_shards:
                     raise ValueError(f"tables of {a.shape[0]} shards, cfg "
                                      f"says {cfg.n_shards}")
                 a = a[shard_id]
+            return a
+
+        fused = mine(tables["fused"])
+        if cfg.layout == "std":
+            fused = record_rows(fused.copy(), cfg.ways)
+        return cls._placed(fused, mine(tables["stash"]), tables["tax"], cfg,
+                           device)
+
+    @classmethod
+    def _placed(cls, fused, stash, tax: dict, cfg, device) -> "DeviceIndex":
+        """One shard's numpy rows, stash and taxonomy arrays copied to
+        ``device`` as they are."""
+
+        def lanes(a):
             return torch.from_numpy(
                 np.ascontiguousarray(a).view(np.int32)).to(device)
 
-        return cls(fused=lanes(tables["fused"], 2),
-                   stash=lanes(tables["stash"], 2),
-                   tax=_tax_tensors(tables["tax"], device), cfg=cfg)
+        return cls(fused=lanes(fused), stash=lanes(stash),
+                   tax=_tax_tensors(tax, device), cfg=cfg)
 
     @property
     def tables(self) -> dict:
         return {"fused": self.fused, "stash": self.stash, "tax": self.tax}
+
+    @property
+    def row_form(self) -> str | None:
+        """"records" for a std table, whose rows every placement puts in
+        K4's record form; None for q8 and q12, whose rows are the
+        reference's."""
+        return "records" if self.cfg.layout == "std" else None
+
+
+def _records(fused, cfg: ClassifyConfig, place) -> None:
+    """A std table's rows (numpy, or a tensor on any device) put in K4's
+    record form in place (``record_rows``), the placement noting it; q8
+    and q12 rows are left as they are."""
+    if cfg.layout == "std":
+        record_rows(fused, cfg.ways)
+        place.row_form = "records"
 
 
 def _tax_tensors(arrays: dict, device) -> dict:

@@ -23,9 +23,16 @@
 // and no fallback branch.
 //
 // What bounds it on an H100: a probe's random row. Its W hi and W lo lanes
-// (256 B at W = 32) decide the hit; the val and Euler lanes (one 32 B
-// sector each) are read for the slot that hits. The wide bench table
-// (131,072 rows x 768 B = 100.7 MB) is twice the 50 MB L2, its key lanes
+// (128 B at W = 16, one line; 256 B at W = 32) decide the hit; the slot
+// that hits has its payload read. The rows are in the record form that
+// placement lays out (kernels/lookup.py record_rows): [hi W | lo W | rec
+// W], rec[j] = (val, tin, tout, 0) on wide rows (16 B) or (val, pk) on
+// packed ones (8 B), so a hit reads one 32 B sector of payload, where the
+// reference's [hi | lo | val | tin | tout | pad] spreads it over three
+// sectors of two lines. A table past the L2 pays HBM for every sector: the
+// benchmark's std table (8,388,608 rows x 384 B = 3.22 GB) is 64 times
+// the 50 MB L2, and there a hit costs 5 sectors, not 7. The wide bench
+// table (131,072 rows x 768 B = 100.7 MB) is twice the L2, its key lanes
 // (33.5 MB) are not; the deep std table (1.07 GB) is twenty times it. The
 // first form gave each probe a group of 8 lanes that read its inputs,
 // hashed it and wrote its outputs 8 times over, read its hi lanes in a
@@ -41,24 +48,25 @@
 //    (what index/build.py auto_ways picks) and the row form as template
 //    parameters, a lane reads its 2 or 4 hi lanes in one 8- or 16-byte
 //    load and its lo lanes in a second (any other W: a generic body, both
-//    keys a slot, no short-circuit); a matching slot's payload lanes
-//    follow.
+//    keys a slot, no short-circuit); a matching slot's record follows, in
+//    one 16- or 8-byte load (the generic body: lane by lane, since its
+//    rows need not start on 16 bytes).
 //  - A reduce-scatter over the group (7 shuffles a value for 8 probes)
 //    hands each lane the row sums of its own probe.
 //  - A persistent grid (kernels/lookup.py std_plan) walks the probes, the
 //    next step's inputs loaded before the current step is probed.
 //  - L2 policies (`l2`): the key lanes can be read evict-last, so that the
-//    wide world's 33.5 MB of keys stay in L2, the payload lanes and the
+//    wide world's 33.5 MB of keys stay in L2, the payload records and the
 //    streams (inputs and outputs) evict-first or evict-normal.
 //
 // Rules (SEMANTICS.md §4-5): bucket = hash32(hi, lo) & (NB - 1); for a
 // valid probe, every lane j < W with row[j] == hi && row[W + j] == lo adds
-// val = row[2W + j] to taxon and, packed, pk = row[3W + j] (a wrapping
-// uint32 sum, then t_in = pk >> 16 and t_out = pk & 0xFFFF) or, wide,
-// row[3W + j] / row[4W + j] to t_in / t_out. Then every stash column s
-// with hi == stash[0][s] && lo == stash[1][s] adds stash rows 2, 3 and 4
-// to taxon, t_in and t_out. All sums wrap in 32 bits, as the reference's
-// int32 sums do.
+// its record's val to taxon and, packed, its pk (a wrapping uint32 sum,
+// then t_in = pk >> 16 and t_out = pk & 0xFFFF) or, wide, its tin / tout
+// to t_in / t_out (the reference's lanes 2W + j, 3W + j, 4W + j). Then
+// every stash column s with hi == stash[0][s] && lo == stash[1][s] adds
+// stash rows 2, 3 and 4 to taxon, t_in and t_out. All sums wrap in 32
+// bits, as the reference's int32 sums do.
 #include "common.cuh"
 
 namespace {
@@ -93,15 +101,28 @@ __device__ __forceinline__ uint32_t bucket_of(const StdArgs& a,
   return p.ok && mine ? h & a.nb_mask : kNoRow;
 }
 
-// Slot j's val and Euler lanes into the sums of probe r.
-template <bool kPacked>
+// Slot j's record, (val, pk) at lane 2W + 2j of a packed row or (val,
+// tin, tout, 0) at lane 2W + 4j of a wide one, into the sums of probe r:
+// in one 8- or 16-byte load (kVec: rows that start on 16 bytes at W = 16
+// or 32), else lane by lane.
+template <bool kPacked, bool kVec>
 __device__ __forceinline__ void add_payload(const uint32_t* row, int W,
                                             int j, uint64_t pol,
                                             uint32_t& tax, uint32_t& x,
                                             uint32_t& y) {
-  tax += ld(row + 2 * W + j, pol);
-  x += ld(row + 3 * W + j, pol);
-  if (!kPacked) y += ld(row + 4 * W + j, pol);
+  constexpr int kRec = kPacked ? 2 : 4;
+  const uint32_t* rec = row + 2 * W + kRec * j;
+  if constexpr (kVec) {
+    uint32_t v[kRec];
+    ld_vec<kRec>(rec, pol, v);
+    tax += v[0];
+    x += v[1];
+    if constexpr (!kPacked) y += v[2];
+  } else {
+    tax += ld(rec, pol);
+    x += ld(rec + 1, pol);
+    if constexpr (!kPacked) y += ld(rec + 2, pol);
+  }
 }
 
 // Each lane owns one probe of the warp's 32 consecutive probes a step: it
@@ -112,7 +133,7 @@ __device__ __forceinline__ void add_payload(const uint32_t* row, int W,
 // comparing its slots of the row (kW 16 or 32: its 2 or 4 hi and lo lanes
 // in one 8- or 16-byte load each, the kR probes' loads issued together;
 // kW = 0, any W: slot by slot, both keys, no short-circuit) and reading a
-// matching slot's payload lanes. A reduce-scatter then hands each lane the
+// matching slot's record. A reduce-scatter then hands each lane the
 // row sums of its own probe. The next step's inputs load before the
 // current step is probed. The launch bounds hold a thread to 64 registers,
 // so that the plan's 4 blocks of 8 warps fit an SM.
@@ -177,8 +198,8 @@ __global__ void __launch_bounds__(kLookupWarps * 32, kLookupBlocks)
 #pragma unroll
           for (int i = 0; i < K; ++i) {
             if (kh[q][i] == qhi[q] && kl[q][i] == qlo[q]) {
-              add_payload<kPacked>(row, kW, g * K + i, pol.payload,
-                                   tax[r0 + q], x[r0 + q], y[r0 + q]);
+              add_payload<kPacked, true>(row, kW, g * K + i, pol.payload,
+                                         tax[r0 + q], x[r0 + q], y[r0 + q]);
             }
           }
         }
@@ -192,8 +213,8 @@ __global__ void __launch_bounds__(kLookupWarps * 32, kLookupBlocks)
             const uint32_t h = ld(row + j, pol.keys);
             const uint32_t l = ld(row + W + j, pol.keys);
             if (h == qhi[q] && l == qlo[q]) {
-              add_payload<kPacked>(row, W, j, pol.payload, tax[r0 + q],
-                                   x[r0 + q], y[r0 + q]);
+              add_payload<kPacked, false>(row, W, j, pol.payload,
+                                          tax[r0 + q], x[r0 + q], y[r0 + q]);
             }
           }
         }
@@ -260,7 +281,8 @@ Kernel pick(int spec, bool packed, bool sorted, int batch) {
 }  // namespace
 
 // hi/lo int32 bit patterns and valid bytes [N]; fused [NB, 4W] (packed) or
-// [NB, 6W] (wide) and stash [5, S] int32 bit patterns; owner_shift: 0, or
+// [NB, 6W] (wide) rows in the record form and stash [5, S] int32 bit
+// patterns; owner_shift: 0, or
 // 32 - log2 of the table's shard count, with shard_id the table's shard (the
 // owner mask); order: NULL, or K9's int32 [N, 4] sorted probes (index, hi,
 // lo, valid), which the sorted form takes in place of hi/lo/valid, writing

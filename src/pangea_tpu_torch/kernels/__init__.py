@@ -8,7 +8,7 @@ from .lookup import (bucket_sort, bucket_sort_plain, fuse_stash,
                      lookup_q12_plain, lookup_q12_sorted,
                      lookup_q12_sorted_plain, lookup_std, lookup_std_owned,
                      lookup_std_plain, lookup_std_sorted,
-                     lookup_std_sorted_plain, mix32)
+                     lookup_std_sorted_plain, mix32, record_rows)
 from .gather import (block_copy, row_gather, row_gather_direct,
                      row_gather_plain)
 from .minimize import (extract_probes, extract_probes_packed,
@@ -71,7 +71,7 @@ __all__ = ["KERNELS", "block_copy", "bucket_sort", "bucket_sort_plain",
            "lookup_std", "lookup_std_owned", "lookup_std_plain",
            "lookup_std_sorted", "lookup_std_sorted_plain", "merge_multik",
            "merge_multik_plain", "mix32",
-           "pscore_ranked_plain", "reset_general_reads",
+           "pscore_ranked_plain", "record_rows", "reset_general_reads",
            "reset_kernel_launches", "route_bin",
            "route_bin_plain", "route_restore", "route_restore_plain",
            "row_gather", "row_gather_direct", "row_gather_plain",

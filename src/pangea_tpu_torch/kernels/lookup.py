@@ -5,7 +5,10 @@ Counterpart of ``pangea_tpu/kernels/lookup.py``: ``mix32``/``hash32``
 ``lookup_q12`` (``lookup_q12_jnp``, K2's q12 form) and ``lookup_std``
 (``lookup_jnp``, kernel K4; ``lookup_std_owned`` is its owner mask for one
 shard of an S-shard table, K4's masked form), with the host builders of
-the std device rows, ``fuse_table`` and ``fuse_stash``. The port has no
+the std device rows, ``fuse_table`` and ``fuse_stash``. The std probes take
+their rows in the record form, ``record_rows`` of ``fuse_table``'s: the same
+lanes with each slot's payload in one record, which placement
+(``classify/engine.py`` ``DeviceIndex``) lays out. The port has no
 counterpart of the reference's chunked gather (``_chunked_pk``): it leaves
 the outputs unchanged.
 
@@ -38,6 +41,7 @@ M32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9
 _Q8_A = 0x9E3779B1
 _PLAIN_CHUNK = 1 << 16               # probes a plain-lookup step
+_PERMUTE_ROWS = 1 << 16              # rows a step of record_rows
 # The reference's deep-table gate (lookup.py:271-297): tables past
 # _DEEP_ROWS rows take the sorted lookup when enough probes fall on each
 # row. The constants decide which path runs, as in the reference; the port
@@ -473,6 +477,9 @@ def fuse_table(key_hi, key_lo, val, tin, tout) -> np.ndarray:
     - packed [..., NB, 4W] = [hi | lo | val | tin << 16 | tout] when the
       stamps fit 16 bits (tout <= 0xFFFF);
     - wide [..., NB, 6W] = [hi | lo | val | tin | tout | pad] otherwise.
+
+    K4 reads these rows as :func:`record_rows` permutes them: [hi | lo |
+    (val, pk) x W] packed, [hi | lo | (val, tin, tout, 0) x W] wide.
     """
     key_hi = np.asarray(key_hi, dtype=np.uint32)
     val = np.asarray(val, dtype=np.int32)
@@ -490,6 +497,31 @@ def fuse_table(key_hi, key_lo, val, tin, tout) -> np.ndarray:
          val.view(np.uint32),
          tin[val].view(np.uint32),
          tout[val].view(np.uint32), pad], axis=-1)
+
+
+def record_rows(fused, ways: int, inverse: bool = False):
+    """A :func:`fuse_table` table's rows in the record form K4 reads, in
+    place (numpy array or tensor, in chunks of _PERMUTE_ROWS rows, so that
+    a table on the card needs no second copy of itself), and returned: the
+    key lanes stay, and the payload lanes become one record a slot,
+
+    - packed [hi W | lo W | (val, pk) x W]: slot j's 8-byte record at lane
+      2W + 2j;
+    - wide [hi W | lo W | (val, tin, tout, 0) x W]: slot j's 16-byte record
+      at lane 2W + 4j,
+
+    so that a hit reads one 32-byte sector of payload, not two or three.
+    The row keeps its lanes and its width. ``inverse=True`` gives the
+    reference's form back (its exact inverse)."""
+    nb, lanes = fused.shape
+    m = lanes // ways - 2               # payload lanes a slot: 2 or 4
+    for s in range(0, nb, _PERMUTE_ROWS):
+        pay = fused[s:s + _PERMUTE_ROWS, 2 * ways:]
+        n = pay.shape[0]
+        by = (n, ways, m) if inverse else (n, m, ways)
+        fused[s:s + _PERMUTE_ROWS, 2 * ways:] = \
+            pay.reshape(by).swapaxes(1, 2).reshape(n, m * ways)
+    return fused
 
 
 def fuse_stash(stash, tin, tout) -> np.ndarray:
@@ -529,11 +561,11 @@ def _owner_shift(owner) -> tuple[int, int]:
 
 def lookup_std_plain(hi, lo, valid, fused, stash, ways: int, owner=None):
     """Plain PyTorch std probe (any device), one shard. hi/lo int32 bit
-    patterns and valid bool, any shape; fused int32 [NB, 4W | 6W]; stash
-    int32 [5, S]; owner: None, or (n_shards, shard_id) of a table that is
-    one shard of n_shards, where a probe whose owner (the top log2
-    n_shards bits of hash32) is another shard gives zeros (the reference's
-    owner mask, lookup.py:117-120). Returns (taxon, t_in, t_out) int32
+    patterns and valid bool, any shape; fused int32 [NB, 4W | 6W] in the
+    record form (:func:`record_rows`); stash int32 [5, S]; owner: None, or
+    (n_shards, shard_id) of a table that is one shard of n_shards, where a
+    probe whose owner (the top log2 n_shards bits of hash32) is another
+    shard gives zeros (the reference's owner mask, lookup.py:117-120). Returns (taxon, t_in, t_out) int32
     like hi: the hit taxon (0 = miss, not owned or invalid) and its Euler
     interval; every sum wraps in 32 bits, as the reference's do."""
     packed = _std_geometry(fused, ways)
@@ -552,17 +584,17 @@ def lookup_std_plain(hi, lo, valid, fused, stash, ways: int, owner=None):
         rows = fused[bucket]                            # [n, 4W | 6W]
         match = (v_c[:, None] & (rows[:, :W] == h_c[:, None])
                  & (rows[:, W:2 * W] == l_c[:, None]))
+        rec = rows[:, 2 * W:].reshape(-1, W, 2 if packed else 4)
 
-        def lane_sum(j):
-            return torch.where(match, rows[:, j * W:(j + 1) * W].long(),
-                               0).sum(1)
+        def field_sum(f):
+            return torch.where(match, rec[:, :, f].long(), 0).sum(1)
 
-        taxon = lane_sum(2)
+        taxon = field_sum(0)
         if packed:
-            pk = torch.where(match, widen(rows[:, 3 * W:]), 0).sum(1) & M32
+            pk = torch.where(match, widen(rec[:, :, 1]), 0).sum(1) & M32
             t_in, t_out = pk >> 16, pk & 0xFFFF
         else:
-            t_in, t_out = lane_sum(3), lane_sum(4)
+            t_in, t_out = field_sum(1), field_sum(2)
         if stash.shape[1]:
             shit = (v_c[:, None] & (h_c[:, None] == stash[0][None, :])
                     & (l_c[:, None] == stash[1][None, :]))

@@ -24,9 +24,9 @@ on the clock of the card's operations (a profiler started without
 Three kinds of span keep totals whether or not a trace is collected: the
 CLI's phases (``run.parse`` ... ``run.sync``, its ``host_sec``), index
 placement (:class:`Placement`: ``place``, ``place.layout``,
-``place.copy``, whose seconds, storage reads and the side the relayout
-ran on each placement appends to :func:`placements`) and each index's
-part of a multi-k step (:class:`IndexSpan`, ``step.index<i>``, totalled
+``place.copy``, whose seconds, storage reads, the side the relayout ran
+on and the rows' form each placement appends to :func:`placements`) and
+each index's part of a multi-k step (:class:`IndexSpan`, ``step.index<i>``, totalled
 with its calls, probes and sorted lookups in :func:`index_steps`; a
 one-index step has no such span).
 """
@@ -347,14 +347,17 @@ class Placement:
     (``place.copy``: the copies to the device, up to a synchronize: the
     host's table, or, for a relayout on the card, the stored arrays and
     the taxonomy's), with the bytes read from storage during the
-    placement. Its :meth:`record` is appended to :func:`placements` when
-    it ends."""
+    placement and the form its rows were laid out in (``row_form``:
+    "records" for a std table, whose payload lanes the placement put in
+    K4's record form; None for q8 and q12). Its :meth:`record` is appended
+    to :func:`placements` when it ends."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.ns: dict = {}
         self.read_bytes = None
         self.layout_on = "host"
+        self.row_form = None
         self._span = Span("place", self.ns)
         self._read0 = None
 
@@ -394,10 +397,13 @@ class Placement:
     def record(self) -> dict:
         """{"device": its type, "place", "place.layout", "place.copy":
         seconds, "read_bytes": bytes or None, "layout_on": "host" or
-        "card"}."""
-        return {"device": self.device.type,
-                **{k: v * 1e-9 for k, v in self.ns.items()},
-                "read_bytes": self.read_bytes, "layout_on": self.layout_on}
+        "card"}, and "row_form": "records" for a std table."""
+        rec = {"device": self.device.type,
+               **{k: v * 1e-9 for k, v in self.ns.items()},
+               "read_bytes": self.read_bytes, "layout_on": self.layout_on}
+        if self.row_form is not None:
+            rec["row_form"] = self.row_form
+        return rec
 
 
 def placements() -> list:

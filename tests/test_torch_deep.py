@@ -186,8 +186,9 @@ def test_sorted_quot_plain_equals_sorted_pk(request, monkeypatch, name,
 def test_sorted_std_plain_equals_sorted_std(world21, monkeypatch, packed,
                                             slice_rows):
     """lookup_std_sorted_plain (empty stash) equals the reference's
-    _sorted_std on the same rows and buckets: packed rows, and wide rows
-    (Euler stamps past 16 bits, the stamps scaled by 4,096)."""
+    _sorted_std on the same rows (in K4's record form) and buckets: packed
+    rows, and wide rows (Euler stamps past 16 bits, the stamps scaled by
+    4,096)."""
     monkeypatch.setattr(RLK, "_DEEP_SLICE", slice_rows)
     tax, _, idx, _ = world21
     tin, tout = tax.tin, tax.tout
@@ -204,7 +205,8 @@ def test_sorted_std_plain_equals_sorted_std(world21, monkeypatch, packed,
                            jnp.asarray(hi), jnp.asarray(lo),
                            jnp.asarray(valid), W, packed, 2048)
     got = lookup_std_sorted_plain(
-        *_torch(hi, lo, valid, fused, np.zeros((5, 0), np.uint32)), W)
+        *_torch(hi, lo, valid, LK.record_rows(fused.copy(), W),
+                np.zeros((5, 0), np.uint32)), W)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(x))
     assert (got[0] != 0).sum() > keys.shape[0] // 2

@@ -39,7 +39,7 @@ from pangea_tpu_torch.kernels import (KERNELS, _build, extract_probes,
                                       lookup_q8_plain, lookup_q12,
                                       lookup_q12_plain, lookup_std,
                                       lookup_std_plain,
-                                      reset_kernel_launches,
+                                      record_rows, reset_kernel_launches,
                                       score_reads_taxon,
                                       score_reads_taxon_plain,
                                       score_reads_tin, score_reads_tin_plain,
@@ -343,8 +343,9 @@ def test_lookup_std_kernel_matches_plain(cuda, tree, ways, load_factor):
     tax = bw.taxonomy
     canon, taxa = extract_pairs(bw.index)
     kh, kl, val, st, _ = layout_table(canon, taxa, load_factor, ways=ways)
-    f = torch.from_numpy(fuse_table(kh, kl, val, tax.tin,
-                                    tax.tout).view(np.int32))
+    f = torch.from_numpy(record_rows(fuse_table(kh, kl, val, tax.tin,
+                                                tax.tout), ways)
+                         .view(np.int32))
     s = torch.from_numpy(fuse_stash(st, tax.tin, tax.tout).view(np.int32))
     if load_factor > 1:
         assert s.shape[1] > 0, "stash not exercised"
@@ -362,6 +363,12 @@ def test_lookup_std_kernel_matches_plain(cuda, tree, ways, load_factor):
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
     assert int((want[0] != 0).sum()) > 0
+    # The golden model's lookup of the same keys, and the taxa's stamps.
+    gold = bw.index.lookup_np(keys, valid.numpy())
+    hit = gold != 0
+    for a, b in zip(got, (gold, np.where(hit, tax.tin[gold], 0),
+                          np.where(hit, tax.tout[gold], 0))):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
 
 
 @pytest.mark.parametrize("thr", [0.0, 0.05, 1.0])
@@ -906,9 +913,9 @@ def _deep_tables(world, world31):
     idx = world[2]
     tax = idx.taxonomy
     for name, scale in (("std_packed", 1), ("std_wide", 4096)):
-        f = torch.from_numpy(fuse_table(idx.key_hi, idx.key_lo, idx.val,
-                                        tax.tin * scale, tax.tout * scale)
-                             .view(np.int32))
+        f = torch.from_numpy(record_rows(
+            fuse_table(idx.key_hi, idx.key_lo, idx.val, tax.tin * scale,
+                       tax.tout * scale), idx.meta.ways).view(np.int32))
         s = torch.from_numpy(fuse_stash(idx.stash, tax.tin * scale,
                                         tax.tout * scale).view(np.int32))
         out.append((name, world, lookup_std_sorted, lookup_std_plain,
@@ -1074,8 +1081,9 @@ def test_lookup_std_owner_mask_matches_plain(cuda, world, n_shards):
     idx = world[2]
     tax = idx.taxonomy
     hi, lo, valid = _probes(world)
-    f = torch.from_numpy(fuse_table(idx.key_hi, idx.key_lo, idx.val,
-                                    tax.tin, tax.tout).view(np.int32))
+    f = torch.from_numpy(record_rows(fuse_table(
+        idx.key_hi, idx.key_lo, idx.val, tax.tin, tax.tout),
+        idx.meta.ways).view(np.int32))
     st = torch.from_numpy(fuse_stash(idx.stash, tax.tin, tax.tout)
                           .view(np.int32))
     args = (f, st, idx.meta.ways)
@@ -1312,8 +1320,9 @@ def test_block_copy_kernel_matches_the_slice(cuda, start):
 # specialised body, every other W the generic one; packed and wide rows;
 # stashes of 0, a few and STASH_MAX columns, staged in shared memory.
 def _std_table(ways, wide, stash_cols, seed=11):
-    """(hi, lo, valid, fused, stash) of a random std table of W = ways,
-    a random payload (so that sums wrap), some rows holding a key twice
+    """(hi, lo, valid, fused, stash) of a random std table of W = ways in
+    K4's record form, a random payload (so that sums wrap), some rows
+    holding a key twice
     and a stash of ``stash_cols`` columns, half of them keys of the rows;
     the probes are every key, the stash's and 500 absent ones."""
     from pangea_tpu_torch.index.build import STASH_MAX
@@ -1326,7 +1335,7 @@ def _std_table(ways, wide, stash_cols, seed=11):
     kh[dup, -1], kl[dup, -1] = kh[dup, 0], kl[dup, 0]
     payload = rng.integers(0, 1 << 32, size=(nb, (4 if wide else 2) * ways),
                            dtype=np.uint64).astype(np.uint32)
-    fused = np.concatenate([kh, kl, payload], axis=1)
+    fused = record_rows(np.concatenate([kh, kl, payload], axis=1), ways)
     assert stash_cols <= STASH_MAX
     pick = rng.choice(keys.shape[0], stash_cols // 2, replace=False)
     fresh = rng.integers(1, 1 << 42, size=stash_cols - pick.size,

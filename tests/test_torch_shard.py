@@ -26,6 +26,7 @@ from pangea_tpu_torch.index import (ShardedIndex, build_index_ooc,
                                     load_index_any, owner_of, shard_tables,
                                     shard_tables_quot)
 from pangea_tpu_torch.index.quot import Q8_WAYS, Q12_WAYS
+from pangea_tpu_torch.kernels.lookup import record_rows
 from pangea_tpu_torch.kernels.route import (route_bin_plain, route_capacity,
                                             route_restore_plain)
 
@@ -161,7 +162,8 @@ def test_cli_build_ooc_byte_identical(tmp_path, extra):
 def test_streaming_placement_equals_the_reference(ooc, layout):
     """A 4-shard container on a mesh of 4 shards: each shard's table, laid
     out from its own files (one process reads every shard's count), equals
-    the reference's streaming placement's slice of that shard."""
+    the reference's streaming placement's slice of that shard (std rows in
+    K4's record form)."""
     port, ref = ooc
     mesh = make_mesh(MeshConfig(2, 4))
     if layout == "std":
@@ -175,8 +177,10 @@ def test_streaming_placement_equals_the_reference(ooc, layout):
         got = DeviceIndex.from_index(port, "cpu", layout=layout, n_shards=4,
                                      shard_id=s)
         assert got.cfg.n_shards == 4 and got.cfg.ways == want.cfg.ways
-        np.testing.assert_array_equal(
-            got.fused.numpy(), np.asarray(want.fused)[s].view(np.int32))
+        rows = np.array(want.fused[s])
+        if layout == "std":
+            rows = record_rows(rows, want.cfg.ways)
+        np.testing.assert_array_equal(got.fused.numpy(), rows.view(np.int32))
         np.testing.assert_array_equal(
             got.stash.numpy(), np.asarray(want.stash)[s].view(np.int32))
 

@@ -32,7 +32,7 @@ from pangea_tpu_torch.index import extract_pairs
 from pangea_tpu_torch.index.build import layout_table
 from pangea_tpu_torch.kernels import (fuse_stash, fuse_table,
                                       lca_pairs_plain, lookup_std,
-                                      score_reads_taxon)
+                                      record_rows, score_reads_taxon)
 
 READ_LEN, N_READS = 100, 64
 # name -> (k, w, tree, layout the port must pick, T + 1 > 4096)
@@ -141,9 +141,10 @@ def test_lookup_std_matches_jax(tree, ways, load_factor):
     if load_factor > 1:
         assert stash.shape[1] > 0, "stash not exercised"
     hi, lo, valid, n = _probes(bw.index)
+    rec = record_rows(fused.copy(), ways)          # the rows K4 reads
     got = lookup_std(*(torch.from_numpy(a) for a in
                        (hi.view(np.int32), lo.view(np.int32), valid,
-                        fused.view(np.int32), stash.view(np.int32))), ways)
+                        rec.view(np.int32), stash.view(np.int32))), ways)
     want = lookup_jnp(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid),
                       jnp.asarray(fused), jnp.asarray(stash), ways=ways)
     for g, x in zip(got, want):
